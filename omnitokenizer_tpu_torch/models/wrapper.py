@@ -1,0 +1,97 @@
+"""User-facing tokenizer API (mirror of `omnitokenizer_tpu.models.wrapper`):
+
+    vqgan = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda")
+    tokens = vqgan.encode(video, is_image=False)   # (B, C, T, H, W) in
+    recons = vqgan.decode(tokens, is_image=False)  # (B, C, T, H, W) out
+
+Tensors are channels-first at this boundary, (B, C, H, W) for images and
+(B, C, T, H, W) for videos, and channels-last inside the model.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..config import TokenizerConfig
+from .tokenizer import OmniTokenizerNet, init_weights
+
+
+def _to_channels_last(x: torch.Tensor, is_image: bool) -> torch.Tensor:
+    if is_image:  # (B, C, H, W) -> (B, 1, H, W, C)
+        return x.permute(0, 2, 3, 1)[:, None]
+    return x.permute(0, 2, 3, 4, 1)  # (B, C, T, H, W) -> (B, T, H, W, C)
+
+
+def _to_channels_first(x: torch.Tensor, is_image: bool) -> torch.Tensor:
+    if is_image:  # (B, 1, H, W, C) -> (B, C, H, W)
+        return x[:, 0].permute(0, 3, 1, 2)
+    return x.permute(0, 4, 1, 2, 3)
+
+
+class OmniTokenizerVQGAN:
+    """Serving wrapper around OmniTokenizerNet (inference only). Weights from
+    the JAX package load into the net through convert.state_dict_from_jax."""
+
+    def __init__(self, cfg: TokenizerConfig, net: OmniTokenizerNet):
+        self.cfg = cfg
+        self.net = net.eval()
+        self._serving = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.net.codebook.embeddings.device
+
+    # -- construction -----------------------------------------------------
+    @classmethod
+    def from_config(cls, cfg: TokenizerConfig, seed: int = 0,
+                    device: Any = "cpu") -> "OmniTokenizerVQGAN":
+        """Random weights made from `seed` (on the CPU, then moved)."""
+        net = OmniTokenizerNet(cfg)
+        init_weights(net, torch.Generator().manual_seed(seed))
+        return cls(cfg, net.to(device))
+
+    def serving(self) -> "OmniTokenizerVQGAN":
+        """Cast the f32 parameters to the compute dtype and build the fused
+        kernels' weights, once. Buffers (the codebook) keep their dtype."""
+        if self._serving:
+            return self
+        dtype = self.cfg.dtype
+        if dtype != torch.float32:
+            with torch.no_grad():
+                for p in self.net.parameters():
+                    if p.dtype == torch.float32:
+                        p.data = p.data.to(dtype)
+            self.net.prepare_kernels()
+        self._serving = True
+        return self
+
+    # -- public API ---------------------------------------------------------
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @torch.inference_mode()
+    def encode(self, x, is_image: bool, include_embeddings: bool = False):
+        """Indices (B, t, h, w) int32 [and channels-first embeddings]."""
+        self.serving()
+        out = self.net.encode(_to_channels_last(self._input(x), is_image), is_image,
+                              include_embeddings)
+        if include_embeddings:
+            emb, enc = out
+            return emb.permute(0, 4, 1, 2, 3), enc
+        return out
+
+    @torch.inference_mode()
+    def decode(self, encodings, is_image: bool) -> torch.Tensor:
+        """Indices, flat (B, N) or grid (B, t, h, w) -> channels-first pixels."""
+        self.serving()
+        enc = torch.as_tensor(encodings, device=self.device)
+        return _to_channels_first(self.net.decode(enc, is_image), is_image)
+
+    @torch.inference_mode()
+    def reconstruct(self, x, is_image: bool):
+        """Round trip; returns (channels-first recon, aux dict)."""
+        self.serving()
+        recon, aux = self.net(_to_channels_last(self._input(x), is_image), is_image)
+        return _to_channels_first(recon, is_image), aux

@@ -1,0 +1,60 @@
+"""Fused gamma-only LayerNorm + q/kv projection.
+
+q = LN_gamma(x) @ Wq^T, kv = x @ Wkv^T: k and v read the PRE-norm input (the
+reference quirk). bf16 products with f32 accumulation, f32 LN statistics.
+Replaces `omnitokenizer_tpu/ops/pallas/ln_qkv.py:ln_qkv`; the CUDA kernel is
+`csrc/ln_qkv.cu` and `ln_qkv_plain` its plain version. Weights are in the
+`nn.Linear` layout (out, in), pre-cast to bf16 once at the serving step.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+EPS = 1e-5
+
+
+def ln_qkv_supported(dim: int, dq: int, dkv: int) -> bool:
+    """Shapes the CUDA kernel takes: 16-aligned D up to 512 (three D-wide
+    tiles in shared memory), 64-aligned outputs."""
+    return dim % 16 == 0 and dim <= 512 and dq % 64 == 0 and dkv % 64 == 0
+
+
+def ln_qkv_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
+                 wkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    xn = ((xf - mean) * torch.rsqrt(var + EPS) * gamma.float()).to(x.dtype)
+    q = (xn.float() @ wq.float().t()).to(x.dtype)
+    kv = (xf @ wkv.float().t()).to(x.dtype)
+    return q, kv
+
+
+def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
+           wkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, D) bf16; gamma (D,) f32; wq (Dq, D), wkv (Dkv, D) bf16.
+    Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_qkv_plain(x, gamma, wq, wkv)
+    M, D = x.shape
+    dq, dkv = wq.shape[0], wkv.shape[0]
+    if not ln_qkv_supported(D, dq, dkv):
+        raise ValueError(f"ln_qkv: unsupported shapes D={D} Dq={dq} Dkv={dkv}")
+    _build.check(x, "x", torch.bfloat16)
+    _build.check(gamma, "gamma", torch.float32, (D,))
+    _build.check(wq, "wq", torch.bfloat16, (dq, D))
+    _build.check(wkv, "wkv", torch.bfloat16, (dkv, D))
+    q = torch.empty(M, dq, dtype=x.dtype, device=x.device)
+    kv = torch.empty(M, dkv, dtype=x.dtype, device=x.device)
+    _build.launch("ln_qkv_launch", x.data_ptr(), gamma.data_ptr(), wq.data_ptr(),
+                  wkv.data_ptr(), q.data_ptr(), kv.data_ptr(), M, D, dq, dkv)
+    ln_qkv.launches += 1
+    return q, kv
+
+
+ln_qkv.launches = 0

@@ -1,0 +1,63 @@
+"""Block-string transformer (mirror of `omnitokenizer_tpu.ops.transformer`).
+
+Block codes: 't' full attention with PEG in front, 'w' window attention;
+the feed-forward is residual after either, and a gamma-only LayerNorm closes
+the stack. The pooling ('a', 'm', 'l') and upsampling ('n', 'r') codes are
+not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from .attention import Attention, FeedForward
+from .norms import LayerNormGamma
+from .peg import PEG
+from .window import WindowAttention
+
+
+class Transformer(nn.Module):
+    def __init__(self, dim: int, depth: int, block: str, causal: bool = False,
+                 dim_head: int = 64, heads: int = 8, ff_mult: float = 4.0,
+                 peg: bool = True, peg_causal: bool = True, window_size: int = 4,
+                 spatial_pos: str = "rel", attn_bias_mode: str = "sdpa",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if len(block) != depth:
+            raise ValueError(f"block string {block!r} does not have depth {depth}")
+        self.block = block
+        # submodules carry the flax names (layers_{i}_attn, ...), so the
+        # state_dict keys follow the JAX variable tree
+        for i, blk in enumerate(block):
+            if blk == "t":
+                if peg:
+                    self.add_module(f"layers_{i}_peg", PEG(dim, causal=peg_causal, dtype=dtype))
+                attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal,
+                                 spatial_pos=spatial_pos, attn_bias_mode=attn_bias_mode,
+                                 dtype=dtype)
+            elif blk == "w":
+                attn = WindowAttention(dim, window_size=window_size, num_heads=heads, dtype=dtype)
+            else:
+                raise NotImplementedError(
+                    f"block code {blk!r} (pooling/upsampling) is not ported yet "
+                    "(see ROADMAP.md)")
+            self.add_module(f"layers_{i}_attn", attn)
+            self.add_module(f"layers_{i}_ff", FeedForward(dim, mult=ff_mult, dtype=dtype))
+        self.norm_out = LayerNormGamma(dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
+                is_spatial: bool = True, training: bool = False) -> torch.Tensor:
+        for i, blk in enumerate(self.block):
+            attn = getattr(self, f"layers_{i}_attn")
+            if blk == "t":
+                peg = getattr(self, f"layers_{i}_peg", None)
+                if peg is not None:
+                    x = peg(x, video_shape, residual=True)
+                x = attn(x, is_spatial=is_spatial, training=training) + x
+            else:
+                x = attn(x) + x
+            x = getattr(self, f"layers_{i}_ff")(x, training=training) + x
+        return self.norm_out(x)

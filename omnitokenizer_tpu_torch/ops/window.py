@@ -1,0 +1,82 @@
+"""Swin-style window attention with a learned relative-position bias
+(mirror of `omnitokenizer_tpu.ops.window`).
+
+Plain torch: the JAX package leaves it to XLA as batched matmuls, with the
+windows as the batch dimension.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .norms import LayerNormGamma
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nH*nW, ws*ws, C)."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // ws, ws, W // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, C)
+
+
+def window_reverse(windows: torch.Tensor, ws: int, H: int, W: int) -> torch.Tensor:
+    """(B*nH*nW, ws*ws, C) -> (B, H, W, C)."""
+    C = windows.shape[-1]
+    B = windows.shape[0] // ((H // ws) * (W // ws))
+    x = windows.reshape(B, H // ws, W // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+@functools.lru_cache(maxsize=16)
+def relative_position_index(ws: int) -> np.ndarray:
+    """(ws*ws, ws*ws) lookup into the (2*ws-1)^2 bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0).copy()
+    rel[:, :, 0] += ws - 1
+    rel[:, :, 1] += ws - 1
+    rel[:, :, 0] *= 2 * ws - 1
+    return rel.sum(-1)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA over non-overlapping windows of a square token grid: gamma-only
+    pre-norm, qkv without bias, proj with bias, scale head_dim**-0.5."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads, self.dtype = dim, window_size, num_heads, dtype
+        self.norm = LayerNormGamma(dim, dtype=dtype)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.proj = nn.Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        idx = torch.from_numpy(relative_position_index(window_size).reshape(-1))
+        self.register_buffer("rel_index", idx, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        H = W = int(N ** 0.5)
+        ws, heads = self.window_size, self.num_heads
+        head_dim = C // heads
+
+        xw = window_partition(self.norm(x).reshape(B, H, W, C), ws)
+        BW, NW, _ = xw.shape
+        qkv = F.linear(xw, self.qkv.weight.to(self.dtype))
+        qkv = qkv.reshape(BW, NW, 3, heads, head_dim)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (BW, h, NW, d)
+        q = q * head_dim ** -0.5
+        bias = self.relative_position_bias_table[self.rel_index]
+        bias = bias.reshape(NW, NW, heads).permute(2, 0, 1).float()
+
+        sim = q.float() @ k.float().transpose(-1, -2) + bias
+        attn = sim.softmax(-1).to(self.dtype)
+        out = (attn.float() @ v.float()).transpose(1, 2).reshape(BW, NW, C).to(self.dtype)
+        out = F.linear(out, self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype))
+        return window_reverse(out, ws, H, W).reshape(B, N, C)

@@ -1,0 +1,28 @@
+"""The port's TokenizerConfig mirrors the JAX package's field for field."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import torch
+
+from omnitokenizer_tpu import config as jax_config
+from omnitokenizer_tpu_torch import config as torch_config
+
+
+def test_tokenizer_config_fields_and_defaults_match():
+    jf = {f.name: f.default for f in dataclasses.fields(jax_config.TokenizerConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(torch_config.TokenizerConfig)}
+    assert list(tf) == list(jf)
+    for name, default in jf.items():
+        if name == "dtype":
+            assert default == jnp.float32 and tf[name] == torch.float32
+        else:
+            assert tf[name] == default, name
+
+
+def test_flagship_preset_matches():
+    j, t = jax_config.imagenet_k600_config(), torch_config.imagenet_k600_config()
+    for f in dataclasses.fields(j):
+        if f.name != "dtype":
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert (t.latent_t, t.latent_hw) == (j.latent_t, j.latent_hw) == (5, 32)
