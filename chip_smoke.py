@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's three paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
   0. the card: nvidia-smi name and power limit, versions, TF32 off;
   1. build every CUDA kernel from omnitokenizer_tpu_torch/csrc with nvcc;
-  2. each kernel against its plain PyTorch version at the flagship serve
-     shapes (B=4, 17x256^2 -> 5 x 32 x 32 tokens), with times;
-  3. the bf16 round trip of imagenet_k600_config() at full width through
+  2. each kernel against its plain PyTorch version at the shapes each path
+     gives it (B=4, 17x256^2 clips: 5 x 32 x 32 tokens for the flagship and
+     the f32 VAE, 9 x 32 x 32 for the stage-1 tokenizer), with its time, its
+     plain version's time, the least time the card could take (bound) and,
+     for mha, the time of PyTorch's own attention call;
+  3. the bf16 VQ round trip of imagenet_k600_config() at full width through
      OmniTokenizerVQGAN.reconstruct, with the launch count of every kernel,
      checked against the plain bf16 path on the same weights, and frames/s
      of both paths;
-  4. a small f32 round trip on the card against the same model on the CPU.
-The line before the last is a JSON object with a row per kernel; the last
-line is {"ok": true, "device": {...}}.
+  4. a small f32 round trip on the card against the same model on the CPU;
+  5. the f32 VAE of imagenet_k600_config(use_vae=True) at full width through
+     DiffusionVAEAdapter (the DiT/Latte seam): encode -> decode of B=4 clips
+     and B=4 images, launch counts, the kernel path against the plain path,
+     frames/s and peak memory; then a small f32 VAE on the card against the
+     CPU with the same noise;
+  6. the bf16 round trip of imagenet_only_config() (temporal patch 2, 'rel'
+     positions: 9 latent frames, causal temporal attention through mha) at
+     full width, with phase 3's checks.
+The line before the last is a JSON object with a row per kernel and shape;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -27,8 +38,19 @@ import time
 import torch
 
 B, T, RES = 4, 17, 256  # the flagship serve shape
-EXPECTED_LAUNCHES = {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6,
-                     "small_n_attention": 8, "vq_argmin": 1}
+KERNELS = ("vq_argmin", "ln_qkv", "geglu_ff", "small_n_attention", "cosine_mha", "mha")
+# launches in one video round trip of each path
+EXPECTED_LAUNCHES = {
+    "vq": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
+           "vq_argmin": 1, "mha": 0},
+    # f32: every spatial 't' block's attention (encoder 'ttww' 2, decoder 'tttt' 4);
+    # the temporal blocks (N=5) are below mha's N >= 8 and take the plain math
+    "vae": {**{k: 0 for k in KERNELS}, "mha": 6},
+    # bf16, 9 latent frames: too many for small_n_attention (n <= 8) and causal,
+    # which cosine_mha refuses, so the 8 temporal blocks take mha
+    "rel": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 0,
+            "vq_argmin": 1, "mha": 8},
+}
 SOURCES = {
     "vq_argmin": ("omnitokenizer_tpu_torch/csrc/vq_argmin.cu",
                   "omnitokenizer_tpu/ops/pallas/vq_kernel.py:39"),
@@ -40,8 +62,10 @@ SOURCES = {
                           "omnitokenizer_tpu/ops/pallas/small_attn.py:98"),
     "cosine_mha": ("omnitokenizer_tpu_torch/csrc/cosine_mha.cu",
                    "omnitokenizer_tpu/ops/pallas/cosine_mha.py:111"),
+    "mha": ("omnitokenizer_tpu_torch/csrc/mha.cu", "omnitokenizer_tpu/ops/pallas/mha.py:52"),
 }
 KERNEL_REL_TOL = 2e-2   # bf16 output rounding + another summation order
+MHA_F32_REL_TOL = 1e-5  # f32 with another summation order
 VQ_TIE_TOL = 1e-5       # relative distance gap allowed for an index mismatch
 # Slice bars, on the whole-tensor relative error ||a - b|| / ||b||: two bf16
 # paths that round at different places sit ~1.7e-2 apart after the decoder's
@@ -49,6 +73,19 @@ VQ_TIE_TOL = 1e-5       # relative distance gap allowed for an index mismatch
 LATENT_REL_TOL = 5e-2   # pre-VQ latents, kernel vs plain bf16 path
 DECODE_REL_TOL = 2e-2   # decode of the same indices, kernel vs plain
 FLOOR_RATIO = 1.25      # kernel path's distance from f32 vs the plain path's
+VAE_REL_TOL = 1e-4      # f32 VAE, kernel vs plain path (summation order only)
+# Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them (the
+# f32 paths must not use TF32), HBM3
+PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time of the work on the card: the larger of its operations
+    over the peak rate of their type and its bytes (each input read once,
+    each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -107,25 +144,31 @@ def phase1_build() -> None:
     print(f"[1] built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
 
 
-def phase2_kernels() -> dict:
+def phase2_kernels() -> list:
     from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
     from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
     from omnitokenizer_tpu_torch.ops.kernels import ln_qkv as lq
+    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
     from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
     from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
 
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     D, H, Dh = 512, 8, 64
-    t, hw = 1 + (T - 1) // 4, (RES // 8) ** 2   # 5 latent frames of 32 x 32 tokens
-    M = B * t * hw
-    rows = {}
+    hw = (RES // 8) ** 2  # 32 x 32 tokens a frame
+    inner = int(4 * 2 / 3 * D)  # 1365, padded to 1408 for geglu_ff
+    rows = []
 
-    def record(name, errs, kernel_fn, plain_fn):
+    def record(name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, **shape):
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        rows[name] = {"max_abs_err": max(e[0] for e in errs), "ms": ms, "plain_ms": plain_ms}
-        print(f"[2] {name}: max_abs {rows[name]['max_abs_err']:.3e} "
-              f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        library_ms = None if library_fn is None else cuda_ms(library_fn)
+        row = {"name": name, "path": path, "max_abs_err": max(e[0] for e in errs), "ms": ms,
+               "plain_ms": plain_ms, **cost, "library_ms": library_ms, **shape}
+        rows.append(row)
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        print(f"[2] {name} ({path}) {shape}: max_abs {row['max_abs_err']:.3e} "
+              f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"{lib}  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     def compare(name, got, want, tol=KERNEL_REL_TOL):
         err = (max_abs(got, want), rel_err(got, want))
@@ -133,83 +176,131 @@ def phase2_kernels() -> dict:
             raise AssertionError(f"{name}: relative error {err[1]:.3e} > {tol}")
         return err
 
-    # ln_qkv: x (M, 512) -> q (M, 512), kv (M, 1024)
-    x = randn(g, M, D, dtype=bf)
+    ln_w, ln_b = 1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1)
     gamma = 1 + randn(g, D, scale=0.1)
     wq = randn(g, D, D, scale=D ** -0.5, dtype=bf)
     wkv = randn(g, 2 * D, D, scale=D ** -0.5, dtype=bf)
-    q_k, kv_k = lq.ln_qkv(x, gamma, wq, wkv)
-    q_p, kv_p = lq.ln_qkv_plain(x, gamma, wq, wkv)
-    record("ln_qkv", [compare("ln_qkv q", q_k, q_p), compare("ln_qkv kv", kv_k, kv_p)],
-           lambda: lq.ln_qkv(x, gamma, wq, wkv), lambda: lq.ln_qkv_plain(x, gamma, wq, wkv))
-
-    # geglu_ff: inner 1365 padded to 1408
-    inner = int(4 * 2 / 3 * D)
-    ln_w, ln_b = 1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1)
     w1p, w2p = gf.pad_geglu_weights(randn(g, 2 * inner, D, scale=D ** -0.5),
                                     randn(g, D, inner, scale=inner ** -0.5))
-    out_k = gf.geglu_ff(x, ln_w, ln_b, w1p, w2p)
-    out_p = gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p)
-    record("geglu_ff", [compare("geglu_ff", out_k, out_p)],
-           lambda: gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
-           lambda: gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p))
-
     qs, ks = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1)
-
-    # small_n_attention: (b h w, t, H*Dh), causal and not
-    qt = randn(g, B * hw, t, H * Dh, dtype=bf)
-    kvt = randn(g, B * hw, t, 2 * H * Dh, dtype=bf)
-    errs = []
-    for causal in (True, False):
-        errs.append(compare(f"small_n_attention causal={causal}",
-                            sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, causal),
-                            sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, causal)))
-    record("small_n_attention", errs,
-           lambda: sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, True),
-           lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True))
-
-    # cosine_mha: (b t, h w, H*Dh), RoPE on and off
-    qsp = randn(g, B * t, hw, H * Dh, dtype=bf)
-    kvsp = randn(g, B * t, hw, 2 * H * Dh, dtype=bf)
-    errs = []
-    for rope in (True, False):
-        errs.append(compare(f"cosine_mha rope={rope}",
-                            cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
-                            cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope)))
-    record("cosine_mha", errs,
-           lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, True),
-           lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, True))
-
-    # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
-    z = torch.nn.functional.normalize(randn(g, M, 8), dim=-1).contiguous()
     emb = randn(g, 8192, 8)
-    idx_k = vq.vq_argmin(z, emb)
-    idx_p = vq.vq_argmin_plain(z, emb)
-    bad = (idx_k != idx_p).nonzero().flatten()
-    gap = 0.0
-    if bad.numel():
-        zz, e64 = z[bad].double(), emb.double()
-        d_k = (zz - e64[idx_k[bad].long()]).square().sum(-1)
-        d_p = (zz - e64[idx_p[bad].long()]).square().sum(-1)
-        rel_gap = ((d_k - d_p).abs() / d_p.clamp_min(1e-12)).max()
-        gap = float((d_k - d_p).abs().max())
-        if not float(rel_gap) <= VQ_TIE_TOL:
-            raise AssertionError(f"vq_argmin: mismatch with relative distance gap {rel_gap:.3e}")
-    print(f"[2] vq_argmin: {bad.numel()} of {M} indices differ (near-ties only)")
-    rows["vq_argmin"] = {"max_abs_err": gap, "ms": cuda_ms(lambda: vq.vq_argmin(z, emb)),
-                         "plain_ms": cuda_ms(lambda: vq.vq_argmin_plain(z, emb))}
-    print(f"[2] vq_argmin: kernel {rows['vq_argmin']['ms']:.4f} ms  "
-          f"plain {rows['vq_argmin']['plain_ms']:.4f} ms")
+
+    # the VQ paths' shapes: the flagship's 5 latent frames (RoPE) and the
+    # stage-1 tokenizer's 9 ('rel': no RoPE, no small_n_attention)
+    for path, t, rope in (("vq", 1 + (T - 1) // 4, True), ("rel", 1 + (T - 1) // 2, False)):
+        M = B * t * hw
+
+        # ln_qkv: x (M, 512) -> q (M, 512), kv (M, 1024)
+        x = randn(g, M, D, dtype=bf)
+        q_k, kv_k = lq.ln_qkv(x, gamma, wq, wkv)
+        q_p, kv_p = lq.ln_qkv_plain(x, gamma, wq, wkv)
+        record("ln_qkv", path,
+               [compare("ln_qkv q", q_k, q_p), compare("ln_qkv kv", kv_k, kv_p)],
+               lambda: lq.ln_qkv(x, gamma, wq, wkv), lambda: lq.ln_qkv_plain(x, gamma, wq, wkv),
+               bound(2 * M * D * 3 * D, 2 * (M * D + 3 * D * D + 3 * M * D) + 4 * D, PEAK_BF16),
+               shape=[M, D])
+
+        # geglu_ff (the bound counts the unpadded inner 1365)
+        record("geglu_ff", path,
+               [compare("geglu_ff", gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
+                        gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p))],
+               lambda: gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
+               lambda: gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p),
+               bound(6 * M * D * inner, 2 * (2 * M * D + 3 * inner * D) + 8 * D, PEAK_BF16),
+               shape=[M, D, inner])
+
+        # small_n_attention: (b h w, t, H*Dh), causal and not
+        if path == "vq":
+            qt = randn(g, B * hw, t, H * Dh, dtype=bf)
+            kvt = randn(g, B * hw, t, 2 * H * Dh, dtype=bf)
+            errs = []
+            for causal in (True, False):
+                errs.append(compare(f"small_n_attention causal={causal}",
+                                    sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, causal),
+                                    sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0,
+                                                               causal)))
+            record("small_n_attention", path, errs,
+                   lambda: sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, True),
+                   lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True),
+                   bound(4 * B * hw * H * Dh * t * (t + 1) // 2,
+                         2 * B * hw * t * 4 * H * Dh + 8 * Dh, PEAK_BF16),
+                   shape=[B * hw, t, H * Dh], causal=True)
+
+        # cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs it
+        qsp = randn(g, B * t, hw, H * Dh, dtype=bf)
+        kvsp = randn(g, B * t, hw, 2 * H * Dh, dtype=bf)
+        errs = []
+        for r in (True, False):
+            errs.append(compare(f"cosine_mha rope={r}",
+                                cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, r),
+                                cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, r)))
+        record("cosine_mha", path, errs,
+               lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
+               lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
+               bound(4 * B * t * H * hw * hw * Dh, 2 * B * t * hw * 4 * H * Dh + 8 * Dh,
+                     PEAK_BF16), shape=[B * t, hw, H * Dh], rope=rope)
+
+        # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
+        z = torch.nn.functional.normalize(randn(g, M, 8), dim=-1).contiguous()
+        idx_k = vq.vq_argmin(z, emb)
+        idx_p = vq.vq_argmin_plain(z, emb)
+        bad = (idx_k != idx_p).nonzero().flatten()
+        gap = 0.0
+        if bad.numel():
+            zz, e64 = z[bad].double(), emb.double()
+            d_k = (zz - e64[idx_k[bad].long()]).square().sum(-1)
+            d_p = (zz - e64[idx_p[bad].long()]).square().sum(-1)
+            rel_gap = ((d_k - d_p).abs() / d_p.clamp_min(1e-12)).max()
+            gap = float((d_k - d_p).abs().max())
+            if not float(rel_gap) <= VQ_TIE_TOL:
+                raise AssertionError(
+                    f"vq_argmin: mismatch with relative distance gap {rel_gap:.3e}")
+        print(f"[2] vq_argmin ({path}): {bad.numel()} of {M} indices differ (near-ties only)")
+        record("vq_argmin", path, [(gap, 0.0)], lambda: vq.vq_argmin(z, emb),
+               lambda: vq.vq_argmin_plain(z, emb),
+               bound(2 * M * 8192 * 8, 4 * (M * 8 + 8192 * 8 + M), PEAK_F32),
+               shape=[M, 8192, 8])
+
+    # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
+    # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
+    # (b h w, H, 9, Dh) in bf16; q and k are l2-normalized, as the cosine
+    # attention hands them over, with its logit scale 8
+    def mha_inputs(shape, dtype):
+        q, k = (torch.nn.functional.normalize(randn(g, *shape), dim=-1).to(dtype)
+                for _ in range(2))
+        return q, k, randn(g, *shape, dtype=dtype)
+
+    for path, shape, dtype, causal, tol in (
+            ("vae", (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False, MHA_F32_REL_TOL),
+            ("rel", (B * hw, H, 1 + (T - 1) // 2, Dh), bf, True, KERNEL_REL_TOL)):
+        q, k, v = mha_inputs(shape, dtype)
+        bh, n = shape[0] * shape[1], shape[2]
+        err = compare(f"mha {dtype} causal={causal}", mh.mha(q, k, v, 8.0, causal),
+                      mh.mha_plain(q, k, v, 8.0, causal), tol)
+        lib = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                               scale=8.0)
+        print(f"[2] mha ({path}): library call vs plain max_abs "
+              f"{max_abs(lib, mh.mha_plain(q, k, v, 8.0, causal)):.3e}")
+        pairs = n * (n + 1) // 2 if causal else n * n
+        record("mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
+               lambda: mh.mha_plain(q, k, v, 8.0, causal),
+               bound(4 * bh * pairs * Dh, 4 * bh * n * Dh * q.element_size(),
+                     PEAK_F32 if dtype == torch.float32 else PEAK_BF16),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, scale=8.0),
+               shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
     return rows
 
 
-def phase3_slice() -> dict:
-    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+def bf16_slice(tag: str, cfg, expected: dict) -> dict:
+    """A bf16 VQ round trip at full width through OmniTokenizerVQGAN: launch
+    counts, then the slice bars against the plain bf16 path on the same
+    weights and against the f32 model, then frames/s of both paths."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
     from omnitokenizer_tpu_torch.ops.attention import l2norm
     from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin_plain
 
-    cfg = imagenet_k600_config().replace(dtype=torch.bfloat16)
     model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda").serving()
     g = torch.Generator().manual_seed(1)
     video = (torch.rand(B, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
@@ -219,15 +310,15 @@ def phase3_slice() -> dict:
     recon, aux = model.reconstruct(video, is_image=False)
     torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"[3] launches in one round trip: {counts}")
-    if counts != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES}")
+    print(f"[{tag}] launches in one round trip: {counts}")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != {expected}")
 
-    t = cfg.latent_t
+    t, hw = 1 + (T - 1) // cfg.temporal_patch_size, RES // cfg.patch_size
     if tuple(recon.shape) != (B, 3, T, RES, RES) or not bool(torch.isfinite(recon).all()):
         raise AssertionError(f"bad reconstruction {tuple(recon.shape)}")
     idx = aux["encodings"]
-    if tuple(idx.shape) != (B, t, 32, 32) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
+    if tuple(idx.shape) != (B, t, hw, hw) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
         raise AssertionError("bad indices")
 
     net, emb = model.net, model.net.codebook.embeddings
@@ -254,9 +345,9 @@ def phase3_slice() -> dict:
         dec_32 = ref32.net.decode(idx, False)
         floor_k, floor_p = rel_norm(dec_k, dec_32), rel_norm(dec_p, dec_32)
         del ref32, dec_32
-        print(f"[3] pre-VQ latents rel err {lat_err:.3e} (max-abs ratio {rel_err(h_k, h_p):.3e}); "
-              f"indices agree {agree:.4%}")
-        print(f"[3] decode of the same indices: kernel vs plain rel err {dec_err:.3e} "
+        print(f"[{tag}] pre-VQ latents rel err {lat_err:.3e} (max-abs ratio "
+              f"{rel_err(h_k, h_p):.3e}); indices agree {agree:.4%}")
+        print(f"[{tag}] decode of the same indices: kernel vs plain rel err {dec_err:.3e} "
               f"(max-abs ratio {rel_err(dec_k, dec_p):.3e}); vs f32: kernel {floor_k:.3e}, "
               f"plain {floor_p:.3e}")
         if not lat_err <= LATENT_REL_TOL:
@@ -266,24 +357,32 @@ def phase3_slice() -> dict:
         if not floor_k <= FLOOR_RATIO * floor_p:
             raise AssertionError(f"kernel path is {floor_k:.3e} from f32, plain {floor_p:.3e}")
 
-        def fps(fn, iters=5):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            return iters * B * T / (time.perf_counter() - t0)
-
-        torch.cuda.reset_peak_memory_stats()
-        fps_k = fps(lambda: model.reconstruct(video, is_image=False))
-        mem_k = torch.cuda.max_memory_allocated() / 2 ** 30
-        torch.cuda.reset_peak_memory_stats()
-        fps_p = fps(plain_round_trip)
-        mem_p = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[3] round trip B={B} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
+        fps_k, mem_k = fps_and_peak(lambda: model.reconstruct(video, is_image=False), B * T)
+        fps_p, mem_p = fps_and_peak(plain_round_trip, B * T)
+    print(f"[{tag}] round trip B={B} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
           f"(peak {mem_k:.2f} GiB), plain path {fps_p:.2f} frames/s (peak {mem_p:.2f} GiB)")
     return counts
+
+
+def fps_and_peak(fn, frames: int, iters: int = 5):
+    """Frames/s of fn() (host clock around synchronized runs, after one
+    warm-up) and the peak device memory of those runs in GiB."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (iters * frames / (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase3_slice() -> dict:
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+
+    return bf16_slice("3", imagenet_k600_config().replace(dtype=torch.bfloat16),
+                      EXPECTED_LAUNCHES["vq"])
 
 
 def phase4_small_f32() -> None:
@@ -306,6 +405,103 @@ def phase4_small_f32() -> None:
     print(f"[4] small f32 round trip: indices equal to the CPU's, pixels max abs {err:.2e}")
 
 
+def phase5_vae() -> dict:
+    from omnitokenizer_tpu_torch import (DiffusionVAEAdapter, OmniTokenizerVQGAN,
+                                         TokenizerConfig, imagenet_k600_config)
+    from omnitokenizer_tpu_torch.ops.gaussian import DiagonalGaussian
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    cfg = imagenet_k600_config(use_vae=True)  # f32, as load_from_checkpoint gives it
+    ad = DiffusionVAEAdapter.from_config(cfg, seed=0)  # on the card by default
+    g = torch.Generator().manual_seed(3)
+    video = (torch.rand(B, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
+    images = (torch.rand(B, 3, RES, RES, generator=g) * 2 - 1).to("cuda")
+    t, hw = 1 + (T - 1) // cfg.temporal_patch_size, RES // cfg.patch_size
+    lat_video = (B, cfg.codebook_dim, t, hw, hw)
+    torch.cuda.synchronize()
+
+    counts = None
+    for name, x, is_image, lat in (("video", video, False, lat_video),
+                                   ("image", images, True, (B, cfg.codebook_dim, hw, hw))):
+        reset_launch_counts()
+        z = ad.encode(x, is_image)
+        rec = ad.decode(z, is_image)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"[5] launches in one {name} round trip (encode -> decode): {got}")
+        if got != EXPECTED_LAUNCHES["vae"]:
+            raise AssertionError(f"launch counts {got} != {EXPECTED_LAUNCHES['vae']}")
+        if (tuple(z.shape) != lat or tuple(rec.shape) != tuple(x.shape)
+                or not bool(torch.isfinite(z).all() and torch.isfinite(rec).all())):
+            raise AssertionError(f"bad {name} latents {tuple(z.shape)} or pixels {tuple(rec.shape)}")
+        counts = counts or got
+
+    # the kernel path against the plain path (the net's training=True route)
+    # on the same weights and the same noise
+    net = ad.vae.net
+    xl = video.permute(0, 2, 3, 4, 1)
+    noise = torch.randn(lat_video[:1] + lat_video[2:] + lat_video[1:2], generator=g).cuda()
+    with torch.inference_mode():
+        post_k = DiagonalGaussian.from_params(net.encode_latent(xl, False))
+        post_p = DiagonalGaussian.from_params(net.encode_latent(xl, False, training=True))
+        z = post_p.sample(noise=noise)
+        errs = {"mean": rel_norm(post_k.mean, post_p.mean),
+                "logvar": rel_norm(post_k.logvar, post_p.logvar),
+                "decode": rel_norm(net.decode_latent(z, False),
+                                   net.decode_latent(z, False, training=True))}
+    print("[5] kernel vs plain path, rel err: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for key, err in errs.items():
+        if not err <= VAE_REL_TOL:
+            raise AssertionError(f"VAE {key}: kernel vs plain rel err {err:.3e} > {VAE_REL_TOL}")
+
+    def plain_round_trip(x, nz):
+        post = DiagonalGaussian.from_params(net.encode_latent(x, False, training=True))
+        return net.decode_latent(post.sample(noise=nz), False, training=True)
+
+    il = images.permute(0, 2, 3, 1)[:, None]
+    noise_i = noise[:, :1]
+    with torch.inference_mode():
+        for name, frames, kernel_fn, plain_fn in (
+                ("video", B * T, lambda: ad.decode(ad.encode(video, False), False),
+                 lambda: plain_round_trip(xl, noise)),
+                ("image", B, lambda: ad.decode(ad.encode(images, True), True),
+                 lambda: plain_round_trip(il, noise_i))):
+            fps_k, mem_k = fps_and_peak(kernel_fn, frames)
+            fps_p, mem_p = fps_and_peak(plain_fn, frames)
+            print(f"[5] f32 VAE {name} round trip B={B}: kernel path {fps_k:.2f} frames/s "
+                  f"(peak {mem_k:.2f} GiB), plain path {fps_p:.2f} frames/s "
+                  f"(peak {mem_p:.2f} GiB)")
+    del ad, net
+
+    # a small f32 VAE on the card against the same model on the CPU, same noise
+    small = TokenizerConfig(embedding_dim=128, n_codes=256, resolution=64, sequence_length=9,
+                            enc_block="tw", dec_block="tt", spatial_depth=2, temporal_depth=2,
+                            twod_window_size=4, heads=2, dim_head=64, use_vae=True)
+    x = torch.rand(2, 9, 64, 64, 3, generator=g) * 2 - 1
+    nz = torch.randn(2, 3, 8, 8, 8, generator=g)
+    out = []
+    for device in ("cpu", "cuda"):
+        m = OmniTokenizerVQGAN.from_config(small, seed=0, device=device)
+        reset_launch_counts()
+        with torch.inference_mode():
+            post = DiagonalGaussian.from_params(m.net.encode_latent(x.to(device), False))
+            out.append(m.net.decode_latent(post.sample(noise=nz.to(device)), False).cpu())
+        launched = launch_counts()["mha"]
+    err = max_abs(out[1], out[0])
+    if not err <= 2e-4 or launched == 0:
+        raise AssertionError(f"small f32 VAE: card vs CPU {err:.3e}, mha launches {launched}")
+    print(f"[5] small f32 VAE: card vs CPU pixels max abs {err:.2e} ({launched} mha launches)")
+    return counts
+
+
+def phase6_rel() -> dict:
+    from omnitokenizer_tpu_torch import imagenet_only_config
+
+    return bf16_slice("6", imagenet_only_config().replace(dtype=torch.bfloat16),
+                      EXPECTED_LAUNCHES["rel"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -313,11 +509,17 @@ def main() -> int:
     smi = phase0_card()
     phase1_build()
     rows = phase2_kernels()
-    counts = phase3_slice()
+    paths = {"vq": phase3_slice()}
     phase4_small_f32()
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[name], **rows[name]}
-               for name, (src, rep) in SOURCES.items()]
+    paths["vae"] = phase5_vae()
+    paths["rel"] = phase6_rel()
+    # a row per kernel and path shape; `launches` is that path's round trip
+    kernels = []
+    for row in rows:
+        src, rep = SOURCES[row["name"]]
+        by_path = {path: counts[row["name"]] for path, counts in paths.items()}
+        kernels.append({"name": row["name"], "route": "cuda", "source": src, "replaces": rep,
+                        "launches": by_path[row["path"]], "launches_by_path": by_path, **row})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -94,3 +94,8 @@ class TokenizerConfig:
 def imagenet_k600_config(use_vae: bool = False) -> TokenizerConfig:
     """The released ImageNet+K600 tokenizer (patch 8, temporal patch 4)."""
     return TokenizerConfig(use_vae=use_vae)
+
+
+def imagenet_only_config() -> TokenizerConfig:
+    """The stage-1 tokenizer: temporal patch 2, 'rel' spatial positions."""
+    return TokenizerConfig(temporal_patch_size=2, spatial_pos="rel")

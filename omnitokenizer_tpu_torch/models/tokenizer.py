@@ -1,5 +1,5 @@
-"""OmniTokenizer spatial-temporal transformer VQGAN (mirror of
-`omnitokenizer_tpu.models.tokenizer`, linear patch embed, VQ mode).
+"""OmniTokenizer spatial-temporal transformer VQGAN/VAE (mirror of
+`omnitokenizer_tpu.models.tokenizer`, linear patch embed).
 
 Everything inside is channels-last (B, T, H, W, C); the channels-first
 layout exists only at the wrapper (models/wrapper.py). The first frame is
@@ -8,15 +8,15 @@ spatial stack over (b t) (h w) d, then the temporal stack over (b h w) t d;
 the decoder mirrors it. PEG sees the original (B, T, H, W) video shape in
 both passes (see ops/peg.py).
 
-Not ported yet (ROADMAP.md): the cnn patch embed, the deferred pools, VAE
-mode. The TPU-only `fast_patchify` fold and `flat_temporal` layout are left
+Not ported yet (ROADMAP.md): the cnn patch embed, the deferred pools. The
+TPU-only `fast_patchify` fold and `flat_temporal` layout are left
 out on purpose: the plain forms here compute the same function.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,7 @@ from torch import nn
 from ..config import TokenizerConfig
 from ..ops.attention import Attention, FeedForward, l2norm
 from ..ops.codebook import Codebook
+from ..ops.gaussian import DiagonalGaussian
 from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
 from ..ops.transformer import Transformer
@@ -43,19 +44,21 @@ def _check_supported(cfg: TokenizerConfig) -> None:
         "patch_embed": cfg.patch_embed != "linear",
         "defer_temporal_pool": cfg.defer_temporal_pool,
         "defer_spatial_pool": cfg.defer_spatial_pool,
-        "use_vae": cfg.use_vae,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md): {bad}")
 
 
-def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial_pos: str) -> Transformer:
+def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) -> Transformer:
+    """A spatial stack takes cfg.spatial_pos; a temporal one 'rel', which a
+    temporal call never reads, as in the JAX package."""
     return Transformer(
         dim=cfg.embedding_dim, depth=len(block), block=block, causal=causal,
         dim_head=cfg.dim_head, heads=cfg.heads, ff_mult=cfg.ff_mult, peg=True,
         peg_causal=cfg.causal_in_peg, window_size=cfg.twod_window_size,
-        spatial_pos=spatial_pos, attn_bias_mode=cfg.attn_bias_mode, dtype=cfg.dtype)
+        spatial_pos=cfg.spatial_pos if spatial else "rel",
+        attn_bias_mode=cfg.attn_bias_mode, dtype=cfg.dtype, spatial=spatial)
 
 
 class Encoder(nn.Module):
@@ -72,9 +75,9 @@ class Encoder(nn.Module):
         self.to_patch_emb_norm1 = LayerNorm(C * pt * p * p)
         self.to_patch_emb_proj = nn.Linear(C * pt * p * p, E)
         self.to_patch_emb_norm2 = LayerNorm(E, dtype=cfg.dtype)
-        self.enc_spatial_transformer = _transformer(cfg, cfg.enc_block, False, cfg.spatial_pos)
+        self.enc_spatial_transformer = _transformer(cfg, cfg.enc_block, False, True)
         self.enc_temporal_transformer = _transformer(
-            cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, "rel")
+            cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, False)
 
     def forward(self, video: torch.Tensor, is_image: bool, training: bool = False) -> torch.Tensor:
         cfg = self.cfg
@@ -115,8 +118,8 @@ class Decoder(nn.Module):
         C, pt, E = cfg.image_channels, cfg.temporal_patch_size, cfg.embedding_dim
         p = cfg.patch_size * (cfg.gen_upscale or 1)
         self.dec_temporal_transformer = _transformer(
-            cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, "rel")
-        self.dec_spatial_transformer = _transformer(cfg, cfg.dec_block, False, cfg.spatial_pos)
+            cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, False)
+        self.dec_spatial_transformer = _transformer(cfg, cfg.dec_block, False, True)
         self.to_pixels_first_frame = nn.Linear(E, C * p * p)
         self.to_pixels = nn.Linear(E, C * pt * p * p)
 
@@ -144,16 +147,19 @@ class Decoder(nn.Module):
 
 
 class OmniTokenizerNet(nn.Module):
-    """encoder -> pre-VQ -> codebook -> post-VQ -> decoder, channels-last."""
+    """encoder -> pre-VQ -> codebook | Gaussian posterior -> post-VQ ->
+    decoder, channels-last. VAE mode builds no codebook: the JAX VAE tree
+    has none."""
 
     def __init__(self, cfg: TokenizerConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.pre_vq_conv = nn.Linear(cfg.embedding_dim, cfg.codebook_dim)
+        out_dim = cfg.codebook_dim * (2 if cfg.use_vae else 1)
+        self.pre_vq_conv = nn.Linear(cfg.embedding_dim, out_dim)
         self.post_vq_conv = nn.Linear(cfg.codebook_dim, cfg.embedding_dim)
-        self.codebook = Codebook(cfg.n_codes, cfg.codebook_dim)
+        self.codebook = None if cfg.use_vae else Codebook(cfg.n_codes, cfg.codebook_dim)
 
     @property
     def vq_dtype(self) -> torch.dtype:
@@ -169,7 +175,7 @@ class OmniTokenizerNet(nn.Module):
     # -- pieces ---------------------------------------------------------
     def encode_latent(self, x: torch.Tensor, is_image: bool,
                       training: bool = False) -> torch.Tensor:
-        """pixels (B, T, H, W, C) -> pre-quant latents (B, t, h, w, code_dim)."""
+        """pixels (B, T, H, W, C) -> pre-quant latents (B, t, h, w, code_dim[*2])."""
         h = self.encoder(x, is_image, training=training)
         return dense(h, self.pre_vq_conv, self.vq_dtype)
 
@@ -185,27 +191,49 @@ class OmniTokenizerNet(nn.Module):
         return self.decoder(z, is_image, training=training)
 
     # -- public-contract methods -----------------------------------------
-    def encode(self, x: torch.Tensor, is_image: bool, include_embeddings: bool = False):
-        """Token indices (B, t, h, w) [+ straight-through embeddings]."""
-        vq = self.quantize(self.encode_latent(x, is_image))
+    def encode(self, x: torch.Tensor, is_image: bool, include_embeddings: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """VQ: token indices (B, t, h, w) [+ straight-through embeddings].
+        VAE: latents (B, t, h, w, code_dim), a sample of the posterior when
+        given a generator, else its mode."""
+        h = self.encode_latent(x, is_image)
+        if self.cfg.use_vae:
+            posterior = DiagonalGaussian.from_params(h)
+            return posterior.mode() if generator is None else posterior.sample(generator)
+        vq = self.quantize(h)
         if include_embeddings:
             return vq["embeddings"], vq["encodings"]
         return vq["encodings"]
 
     def decode(self, encodings: torch.Tensor, is_image: bool) -> torch.Tensor:
-        """Indices, flat (B, N) or grid (B, t, h, w) -> pixels."""
-        z = self.codebook.lookup(encodings)
-        if encodings.ndim == 2:  # flat indices
-            n = encodings.shape[1]
+        """VQ indices, flat (B, N) or grid (B, t, h, w), or VAE latents,
+        (B, t, h, w, c), flat (B, N, c) or an image's (B, h, w, c) -> pixels."""
+        if self.cfg.use_vae:  # (B, h, w, c) is an image latent without its time axis
+            z = encodings[:, None] if encodings.ndim == 4 else encodings
+        else:
+            z = self.codebook.lookup(encodings)
+        if z.ndim == 3:  # flat (B, N, c)
+            n = z.shape[1]
             hh = math.isqrt(n) if is_image else self.cfg.resolution // self.cfg.patch_size
             z = z.reshape(z.shape[0], n // (hh * hh), hh, hh, z.shape[-1])
         return self.decode_latent(z, is_image)
 
-    def forward(self, x: torch.Tensor, is_image: bool,
-                training: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Full autoencode pass; returns (x_recon, aux dict)."""
-        vq = self.quantize(self.encode_latent(x, is_image, training=training),
-                           training=training)
+    def forward(self, x: torch.Tensor, is_image: bool, training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full autoencode pass; returns (x_recon, aux dict). VAE mode
+        decodes a sample when given a generator, else the mode, and returns
+        dict(commitment_loss, kl_loss, posterior), both losses
+        sum(kl) / B * kl_weight."""
+        h = self.encode_latent(x, is_image, training=training)
+        if self.cfg.use_vae:
+            posterior = DiagonalGaussian.from_params(h)
+            z = posterior.mode() if generator is None else posterior.sample(generator)
+            recon = self.decode_latent(z, is_image, training=training)
+            kl = posterior.kl()
+            kl_loss = kl.sum() / kl.shape[0] * self.cfg.kl_weight
+            return recon, dict(commitment_loss=kl_loss, kl_loss=kl_loss, posterior=posterior)
+        vq = self.quantize(h, training=training)
         return self.decode_latent(vq["embeddings"], is_image, training=training), vq
 
 

@@ -1,11 +1,12 @@
 """User-facing tokenizer API (mirror of `omnitokenizer_tpu.models.wrapper`):
 
-    vqgan = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda")
+    vqgan = OmniTokenizerVQGAN.from_config(cfg, seed=0)   # on the card
     tokens = vqgan.encode(video, is_image=False)   # (B, C, T, H, W) in
     recons = vqgan.decode(tokens, is_image=False)  # (B, C, T, H, W) out
 
 Tensors are channels-first at this boundary, (B, C, H, W) for images and
-(B, C, T, H, W) for videos, and channels-last inside the model.
+(B, C, T, H, W) for videos, and channels-last inside the model. A VAE-mode
+model (cfg.use_vae) encodes to continuous latents instead of indices.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ def _to_channels_first(x: torch.Tensor, is_image: bool) -> torch.Tensor:
 
 class OmniTokenizerVQGAN:
     """Serving wrapper around OmniTokenizerNet (inference only). Weights from
-    the JAX package load into the net through convert.state_dict_from_jax."""
+    the JAX package load into the net through convert.state_dict_from_jax.
+
+    VAE mode samples its latents with a `torch.Generator` seeded from the
+    caller's `seed`: the same seed does not give the JAX package's noise."""
 
     def __init__(self, cfg: TokenizerConfig, net: OmniTokenizerNet):
         self.cfg = cfg
@@ -41,13 +45,17 @@ class OmniTokenizerVQGAN:
 
     @property
     def device(self) -> torch.device:
-        return self.net.codebook.embeddings.device
+        return self.net.post_vq_conv.weight.device
 
     # -- construction -----------------------------------------------------
     @classmethod
     def from_config(cls, cfg: TokenizerConfig, seed: int = 0,
-                    device: Any = "cpu") -> "OmniTokenizerVQGAN":
-        """Random weights made from `seed` (on the CPU, then moved)."""
+                    device: Any = "cuda") -> "OmniTokenizerVQGAN":
+        """Random weights made from `seed` (on the CPU, then moved to
+        `device`: the card unless the caller asks for the CPU). With no card,
+        a CUDA device raises rather than leaving the model on the CPU."""
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         net = OmniTokenizerNet(cfg)
         init_weights(net, torch.Generator().manual_seed(seed))
         return cls(cfg, net.to(device))
@@ -71,12 +79,21 @@ class OmniTokenizerVQGAN:
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     @torch.inference_mode()
-    def encode(self, x, is_image: bool, include_embeddings: bool = False):
-        """Indices (B, t, h, w) int32 [and channels-first embeddings]."""
+    def encode(self, x, is_image: bool, include_embeddings: bool = False, seed: int = 0):
+        """VQ: indices (B, t, h, w) int32 [and channels-first embeddings].
+        VAE: a posterior sample drawn with `seed`, channels-first: (B, c, t,
+        h, w), or (B, c, h, w) for an image."""
         self.serving()
-        out = self.net.encode(_to_channels_last(self._input(x), is_image), is_image,
-                              include_embeddings)
+        xl = _to_channels_last(self._input(x), is_image)
+        if self.cfg.use_vae:
+            z = self.net.encode(xl, is_image, generator=self._generator(seed))
+            z = z.permute(0, 4, 1, 2, 3)
+            return z[:, :, 0] if is_image else z
+        out = self.net.encode(xl, is_image, include_embeddings)
         if include_embeddings:
             emb, enc = out
             return emb.permute(0, 4, 1, 2, 3), enc
@@ -84,14 +101,23 @@ class OmniTokenizerVQGAN:
 
     @torch.inference_mode()
     def decode(self, encodings, is_image: bool) -> torch.Tensor:
-        """Indices, flat (B, N) or grid (B, t, h, w) -> channels-first pixels."""
+        """VQ indices, flat (B, N) or grid (B, t, h, w), or VAE latents ->
+        channels-first pixels. VAE image latents come channels-first, (B, c,
+        h, w), but video latents channels-LAST, (B, t, h, w, c): the
+        reference's asymmetry, which the JAX wrapper keeps (its
+        `wrapper.py:129-141`)."""
         self.serving()
         enc = torch.as_tensor(encodings, device=self.device)
+        if self.cfg.use_vae and enc.ndim == 4 and enc.is_floating_point():
+            enc = enc.permute(0, 2, 3, 1)  # (B, c, h, w) -> (B, h, w, c)
         return _to_channels_first(self.net.decode(enc, is_image), is_image)
 
     @torch.inference_mode()
-    def reconstruct(self, x, is_image: bool):
-        """Round trip; returns (channels-first recon, aux dict)."""
+    def reconstruct(self, x, is_image: bool, seed: int = 0):
+        """Round trip; returns (channels-first recon, aux dict). VAE mode
+        decodes a sample drawn with `seed`."""
         self.serving()
-        recon, aux = self.net(_to_channels_last(self._input(x), is_image), is_image)
+        xl = _to_channels_last(self._input(x), is_image)
+        gen = self._generator(seed) if self.cfg.use_vae else None
+        recon, aux = self.net(xl, is_image, generator=gen)
         return _to_channels_first(recon, is_image), aux

@@ -4,9 +4,11 @@
 Gates, as in the JAX package: a bf16 module called with training=False
 takes the fused kernels (ops/kernels); they launch CUDA kernels for a CUDA
 tensor and run their plain versions for a CPU tensor. f32 and training
-calls take the plain math below, which is the JAX f32 parity path.
-`prepare_kernels()` builds the kernels' bf16 (and padded) weights once, at
-the serving step.
+calls take the plain math below, which is the JAX f32 parity path; its
+softmax core, `sdpa`, runs the `mha` kernel on a CUDA tensor inside that
+kernel's gate at inference, in f32 and bf16 alike, as the JAX package runs
+`mha_pallas`. `prepare_kernels()` builds the kernels' bf16 (and padded)
+weights once, at the serving step.
 """
 
 from __future__ import annotations
@@ -17,14 +19,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .bias import ContinuousPositionBias
 from .kernels.cosine_mha import cosine_mha, cosine_mha_supported
 from .kernels.geglu_ff import geglu_ff, geglu_ff_supported, pad_geglu_weights
 from .kernels.ln_qkv import ln_qkv, ln_qkv_supported
+from .kernels.mha import mha, mha_plain, mha_supported
 from .kernels.small_attn import small_n_attention, small_n_supported
 from .norms import layer_norm
 from .rotary import apply_rotary_emb_2d
-
-NEG_INF = -1e9
 
 
 def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -33,17 +35,14 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-         causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T * scale [bottom-right causal]) v over (B, H, N, D):
-    products of the input dtype with f32 accumulation, softmax in f32."""
-    sim = (q.float() @ k.float().transpose(-1, -2)) * scale
-    if causal:
-        i, j = sim.shape[-2:]
-        row = torch.arange(i, device=q.device)[:, None]
-        col = torch.arange(j, device=q.device)[None, :]
-        sim = sim.masked_fill(col > row + (j - i), NEG_INF)
-    attn = sim.softmax(-1).to(q.dtype)
-    return (attn.float() @ v.to(q.dtype).float()).to(v.dtype)
+         causal: bool = False, training: bool = False) -> torch.Tensor:
+    """softmax(q k^T * scale [bottom-right causal]) v over (B, H, N, D).
+    The `mha` kernel for a CUDA tensor inside its gate at inference, else
+    its plain math (`mha_plain`), as `omnitokenizer_tpu.ops.attention.sdpa`
+    routes between `mha_pallas` and XLA."""
+    if not training and q.is_cuda and mha_supported(q.shape[-2], q.shape[-1], q.dtype):
+        return mha(q.contiguous(), k.contiguous(), v.contiguous(), scale, causal)
+    return mha_plain(q, k, v, scale, causal)
 
 
 def _kernels_ready(module: nn.Module):
@@ -60,11 +59,16 @@ class Attention(nn.Module):
     q_scale / k_scale. k/v project the PRE-norm input, only q the normed
     tokens (reference quirk). RoPE applies when spatial_pos='rope' and the
     call is spatial; the causal mask when the block is causal. The
-    'sdpa' bias mode drops the rel-bias and AliBi terms."""
+    'sdpa' bias mode drops the rel-bias and AliBi terms.
+
+    `spatial` marks a module of a spatial stack: with spatial_pos='rel' it
+    owns the CPB MLP (`spatial_rel_pos_bias`), whose parameters the JAX
+    package creates on a spatial call and whose bias it then drops."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  causal: bool = False, scale: float = 8.0, spatial_pos: str = "rel",
-                 attn_bias_mode: str = "sdpa", dtype: torch.dtype = torch.float32):
+                 attn_bias_mode: str = "sdpa", dtype: torch.dtype = torch.float32,
+                 spatial: bool = False):
         super().__init__()
         if attn_bias_mode != "sdpa":
             raise NotImplementedError(
@@ -78,6 +82,8 @@ class Attention(nn.Module):
         self.to_out = nn.Linear(inner, dim, bias=False)
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
+        if spatial and spatial_pos == "rel":
+            self.spatial_rel_pos_bias = ContinuousPositionBias(dim, heads)
         self.kernel_weights: Optional[tuple] = None
 
     def prepare_kernels(self) -> None:
@@ -95,7 +101,8 @@ class Attention(nn.Module):
     def _proj_out(self, o: torch.Tensor) -> torch.Tensor:
         return F.linear(o.to(self.dtype), self.to_out.weight.to(self.dtype))
 
-    def _attend(self, q: torch.Tensor, kv: torch.Tensor, uses_rope: bool) -> torch.Tensor:
+    def _attend(self, q: torch.Tensor, kv: torch.Tensor, uses_rope: bool,
+                training: bool) -> torch.Tensor:
         """Plain math from the projections q (B, N, H*D), kv (B, N, 2*H*D)."""
         B, N, inner = q.shape
         k, v = kv.chunk(2, dim=-1)
@@ -106,15 +113,11 @@ class Attention(nn.Module):
         k = l2norm(k.float()) * self.k_scale
         q = q.transpose(1, 2).to(self.dtype)
         k = k.transpose(1, 2).to(self.dtype)
-        out = sdpa(q, k, v.transpose(1, 2), self.scale, causal=self.causal)
+        out = sdpa(q, k, v.transpose(1, 2), self.scale, causal=self.causal, training=training)
         return out.transpose(1, 2).reshape(B, N, inner)
 
     def forward(self, x: torch.Tensor, is_spatial: bool = True,
                 training: bool = False) -> torch.Tensor:
-        if self.spatial_pos == "rel" and is_spatial:
-            raise NotImplementedError(
-                "spatial_pos='rel' (continuous position bias) is not ported yet "
-                "(see ROADMAP.md)")
         B, N, D = x.shape
         inner = self.dim_head * self.heads
         uses_rope = self.spatial_pos == "rope" and is_spatial
@@ -131,13 +134,13 @@ class Attention(nn.Module):
                 out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head,
                                  self.scale, uses_rope)
             else:
-                out = self._attend(q, kv, uses_rope)
+                out = self._attend(q, kv, uses_rope, training)
             return self._proj_out(out)
 
         xn = (layer_norm(x) * self.norm_gamma).to(self.dtype)
         q = F.linear(xn, self.to_q.weight.to(self.dtype))
         kv = F.linear(x.to(self.dtype), self.to_kv.weight.to(self.dtype))
-        return self._proj_out(self._attend(q, kv, uses_rope))
+        return self._proj_out(self._attend(q, kv, uses_rope, training))
 
 
 class FeedForward(nn.Module):

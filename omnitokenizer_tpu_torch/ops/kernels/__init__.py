@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import cosine_mha, geglu_ff, ln_qkv, small_attn, vq_argmin
+from . import cosine_mha, geglu_ff, ln_qkv, mha, small_attn, vq_argmin
 
 WRAPPERS = {
     "vq_argmin": vq_argmin.vq_argmin,
@@ -18,6 +18,7 @@ WRAPPERS = {
     "geglu_ff": geglu_ff.geglu_ff,
     "small_n_attention": small_attn.small_n_attention,
     "cosine_mha": cosine_mha.cosine_mha,
+    "mha": mha.mha,
 }
 
 

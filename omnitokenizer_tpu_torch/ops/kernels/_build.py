@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-All `csrc/*.cu` files compile with one `nvcc` call for `sm_90a` into a shared
+Each `csrc/*.cu` file compiles for `sm_90a` in its own `nvcc` process, all
+started together, and one more `nvcc` call links the objects into a shared
 library with a plain C interface, loaded with ctypes. The library lands in
 `omnitokenizer_tpu_torch/_build/` (git-ignored) under a name that carries
 the hash of the sources, so an edited source rebuilds and an unchanged one
@@ -34,6 +35,7 @@ SIGNATURES = {
     "geglu_ff_launch": [P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
     "cosine_mha_launch": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
+    "mha_launch": [P, P, P, P, I, I, I, ctypes.c_float, I, I, P],
 }
 
 
@@ -66,19 +68,36 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            cmd = [nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-c", str(src), "-o", str(obj)]
+            with open(log, "w") as fh:
+                jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=fh,
+                                                             stderr=subprocess.STDOUT)))
+        failed = []
+        for cmd, _, log, proc in jobs:
+            rc = proc.wait()
+            if verbose or rc != 0:
+                print(log.read_text())
+            if rc != 0:
+                failed.append(f"nvcc failed ({rc}): {' '.join(cmd)}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / "lib.so"
+        cmd = [nvcc, *arch, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -24,11 +24,13 @@ class Transformer(nn.Module):
                  dim_head: int = 64, heads: int = 8, ff_mult: float = 4.0,
                  peg: bool = True, peg_causal: bool = True, window_size: int = 4,
                  spatial_pos: str = "rel", attn_bias_mode: str = "sdpa",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, spatial: bool = False):
         super().__init__()
         if len(block) != depth:
             raise ValueError(f"block string {block!r} does not have depth {depth}")
         self.block = block
+        # `spatial`: a stack over the token grid; its `rel` attentions own
+        # the CPB parameters (ops/attention.py)
         # submodules carry the flax names (layers_{i}_attn, ...), so the
         # state_dict keys follow the JAX variable tree
         for i, blk in enumerate(block):
@@ -37,7 +39,7 @@ class Transformer(nn.Module):
                     self.add_module(f"layers_{i}_peg", PEG(dim, causal=peg_causal, dtype=dtype))
                 attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal,
                                  spatial_pos=spatial_pos, attn_bias_mode=attn_bias_mode,
-                                 dtype=dtype)
+                                 dtype=dtype, spatial=spatial)
             elif blk == "w":
                 attn = WindowAttention(dim, window_size=window_size, num_heads=heads, dtype=dtype)
             else:

@@ -26,3 +26,12 @@ def test_flagship_preset_matches():
         if f.name != "dtype":
             assert getattr(t, f.name) == getattr(j, f.name), f.name
     assert (t.latent_t, t.latent_hw) == (j.latent_t, j.latent_hw) == (5, 32)
+
+
+def test_imagenet_only_preset_matches():
+    j, t = jax_config.imagenet_only_config(), torch_config.imagenet_only_config()
+    for f in dataclasses.fields(j):
+        if f.name != "dtype":
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert (t.temporal_patch_size, t.spatial_pos) == (2, "rel")
+    assert (t.latent_t, t.latent_hw) == (j.latent_t, j.latent_hw) == (9, 32)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the shapes chip_smoke.py does not reach: the other instantiated widths,
-ragged row counts and small groups. Skips without a GPU. This file imports
+ragged row counts and small groups, and mha at every instantiated head
+width over both of its branches. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -13,12 +14,15 @@ import torch.nn.functional as F
 from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
 from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
 from omnitokenizer_tpu_torch.ops.kernels import ln_qkv as lq
+from omnitokenizer_tpu_torch.ops.kernels import mha as mh
 from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
 from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+from omnitokenizer_tpu_torch.ops.attention import sdpa
 
 pytestmark = pytest.mark.cuda
 
 REL_TOL = 2e-2  # bf16 output rounding + another summation order
+F32_REL_TOL = 1e-5  # f32 with another summation order
 
 
 @pytest.fixture
@@ -102,6 +106,34 @@ def test_vq_argmin(gen, D, K):
         assert float(((d_got - d_want).abs() / d_want).max()) <= 1e-5
 
 
+@pytest.mark.parametrize("dim_head", mh.DIM_HEADS)
+@pytest.mark.parametrize("N", [8, 9, 17, 64, 100, 1024, 2048])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha(gen, dtype, causal, N, dim_head):
+    B, H, dt = 2, 3, getattr(torch, dtype)
+    q, k, v = (randn(gen, B, H, N, dim_head, dtype=dt) for _ in range(3))
+    got = mh.mha(q, k, v, dim_head ** -0.5, causal)
+    want = mh.mha_plain(q, k, v, dim_head ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
+
+
+def test_sdpa_launches_mha_inside_its_gate(gen):
+    def qkv(N):  # (B, H, N, D) views of (B, N, H, D) tensors, as Attention passes them
+        return [randn(gen, 2, N, 2, 64, dtype=torch.float32).transpose(1, 2) for _ in range(3)]
+
+    mh.mha.launches = 0
+    q, k, v = qkv(64)
+    out = sdpa(q, k, v, 8.0, causal=True)
+    assert mh.mha.launches == 1
+    assert rel_err(out, mh.mha_plain(q, k, v, 8.0, True)) <= F32_REL_TOL
+    sdpa(q, k, v, 8.0, training=True)   # training takes the plain math
+    sdpa(*qkv(5), 8.0)                  # and so does N < 8
+    assert mh.mha.launches == 1
+
+
 def test_wrappers_refuse_bad_input(gen):
     x = randn(gen, 64, 512)
     gamma = torch.ones(512, device="cuda")
@@ -113,3 +145,10 @@ def test_wrappers_refuse_bad_input(gen):
     with pytest.raises(ValueError, match="unsupported"):
         cm.cosine_mha(randn(gen, 1, 100, 64), randn(gen, 1, 100, 128),
                       gamma[:64], gamma[:64], 1, 64, 8.0)
+    q = randn(gen, 1, 2, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        mh.mha(q, q.transpose(-1, -2), q, 8.0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mh.mha(q, q, q.half(), 8.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        mh.mha(q[:, :, :5], q[:, :, :5], q[:, :, :5], 8.0)

@@ -1,5 +1,7 @@
 """The port's whole VQ round trip against the JAX package's
-OmniTokenizerNet in f32, on the same weights through the bridge."""
+OmniTokenizerNet in f32, on the same weights through the bridge: the
+flagship's RoPE spatial positions, and the stage-1 tokenizer's 'rel'
+positions (imagenet_only_config: temporal patch 2, the CPB parameters)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,13 +19,24 @@ from torch_port_util import configs, to_numpy_tree, torch_f32
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg, tcfg = configs()
+def _pair(**kw):
+    jcfg, tcfg = configs(**kw)
     jm = JaxVQGAN.from_config(jcfg, seed=0)
     net = OmniTokenizerNet(tcfg)
     net.load_state_dict(state_dict_from_jax(to_numpy_tree(jm.variables), net))
     return jm, OmniTokenizerVQGAN(tcfg, net)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
+
+
+@pytest.fixture(scope="module")
+def rel_pair():
+    """The small config with 'rel' spatial positions; SMALL already has
+    imagenet_only_config's temporal patch 2."""
+    return _pair(spatial_pos="rel")
 
 
 @pytest.mark.parametrize("is_image", [False, True], ids=["video", "image"])
@@ -70,3 +83,17 @@ def test_bridge_is_strict(pair):
     del tree["params"]["post_vq_conv"]["bias"]
     with pytest.raises(KeyError, match="post_vq_conv.bias"):
         state_dict_from_jax(tree, net)
+
+
+@pytest.mark.parametrize("is_image", [False, True], ids=["video", "image"])
+def test_rel_round_trip_matches_jax(rel_pair, is_image):
+    jm, tm = rel_pair
+    cpb = [k for k in tm.net.state_dict() if ".spatial_rel_pos_bias." in k]
+    # net0..net2 weight and bias in each spatial 't' block: encoder 'tw', decoder 'tt'
+    assert len(cpb) == 18 and all("spatial_transformer" in k for k in cpb)
+    x = np.random.RandomState(3).uniform(-1, 1, (2, 3, 32, 32) if is_image
+                                         else (2, 3, 5, 32, 32)).astype(np.float32)
+    recon_j, aux_j = jm.reconstruct(jnp.asarray(x), is_image)
+    recon_t, aux_t = tm.reconstruct(torch_f32(x), is_image)
+    np.testing.assert_array_equal(aux_t["encodings"].numpy(), np.asarray(aux_j["encodings"]))
+    np.testing.assert_allclose(recon_t.numpy(), np.asarray(recon_j), atol=2e-4, rtol=1e-3)
