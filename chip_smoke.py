@@ -9,8 +9,10 @@ Phases (any failure raises and exits non-zero):
   2. each kernel against its plain PyTorch version at the shapes each path
      gives it (B=4, 17x256^2 clips: 5 x 32 x 32 tokens for the flagship and
      the f32 VAE, 9 x 32 x 32 for the stage-1 tokenizer), with its time, its
-     plain version's time, the least time the card could take (bound) and,
-     for mha, the time of PyTorch's own attention call;
+     plain version's time, the least time the card could take (bound),
+     for mha the time of PyTorch's own attention call (and the name of the
+     kernel it runs), and for ln_qkv and geglu_ff the time of the module's
+     own plain bf16 route (layer_norm and cuBLAS bf16 F.linear);
   3. the bf16 VQ round trip of imagenet_k600_config() at full width through
      OmniTokenizerVQGAN.reconstruct, with the launch count of every kernel,
      checked against the plain bf16 path on the same weights, and frames/s
@@ -36,6 +38,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 B, T, RES = 4, 17, 256  # the flagship serve shape
 KERNELS = ("vq_argmin", "ln_qkv", "geglu_ff", "small_n_attention", "cosine_mha", "mha")
@@ -74,9 +77,11 @@ LATENT_REL_TOL = 5e-2   # pre-VQ latents, kernel vs plain bf16 path
 DECODE_REL_TOL = 2e-2   # decode of the same indices, kernel vs plain
 FLOOR_RATIO = 1.25      # kernel path's distance from f32 vs the plain path's
 VAE_REL_TOL = 1e-4      # f32 VAE, kernel vs plain path (summation order only)
-# Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them (the
-# f32 paths must not use TF32), HBM3
-PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# Published H100 SXM peaks (dense): bf16 and TF32 tensor cores, f32 outside
+# them, HBM3. The f32 paths must not round to one TF32 pass: vq_argmin runs in
+# f32 FMA, and the f32 mha runs three TF32 passes with error compensation
+# (3xTF32), so its least time is 3x its flops at the TF32 rate.
+PEAK_BF16, PEAK_TF32, PEAK_F32, HBM_BYTES_PER_S = 989e12, 495e12, 67e12, 3.35e12
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -115,6 +120,19 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def randn(gen, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
 
@@ -151,6 +169,7 @@ def phase2_kernels() -> list:
     from omnitokenizer_tpu_torch.ops.kernels import mha as mh
     from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
     from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+    from omnitokenizer_tpu_torch.ops.norms import layer_norm
 
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -159,13 +178,17 @@ def phase2_kernels() -> list:
     inner = int(4 * 2 / 3 * D)  # 1365, padded to 1408 for geglu_ff
     rows = []
 
-    def record(name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, **shape):
+    def record(name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, chain_fn=None,
+               **shape):
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         library_ms = None if library_fn is None else cuda_ms(library_fn)
+        chain_ms = None if chain_fn is None else cuda_ms(chain_fn)
         row = {"name": name, "path": path, "max_abs_err": max(e[0] for e in errs), "ms": ms,
-               "plain_ms": plain_ms, **cost, "library_ms": library_ms, **shape}
+               "plain_ms": plain_ms, **cost, "library_ms": library_ms, "chain_ms": chain_ms,
+               **shape}
         rows.append(row)
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        lib += "" if chain_ms is None else f"  chain {chain_ms:.4f} ms"
         print(f"[2] {name} ({path}) {shape}: max_abs {row['max_abs_err']:.3e} "
               f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
               f"{lib}  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -180,8 +203,20 @@ def phase2_kernels() -> list:
     gamma = 1 + randn(g, D, scale=0.1)
     wq = randn(g, D, D, scale=D ** -0.5, dtype=bf)
     wkv = randn(g, 2 * D, D, scale=D ** -0.5, dtype=bf)
-    w1p, w2p = gf.pad_geglu_weights(randn(g, 2 * inner, D, scale=D ** -0.5),
-                                    randn(g, D, inner, scale=inner ** -0.5))
+    w1, w2 = randn(g, 2 * inner, D, scale=D ** -0.5), randn(g, D, inner, scale=inner ** -0.5)
+    w1p, w2p = gf.pad_geglu_weights(w1, w2)
+    w1b, w2b = w1.to(bf), w2.to(bf)
+
+    # the modules' own plain bf16 routes (ops/attention.py: Attention and
+    # FeedForward with training=True): layer_norm, then cuBLAS bf16 F.linear
+    def ln_qkv_chain(x):
+        xn = (layer_norm(x) * gamma).to(bf)
+        return F.linear(xn, wq), F.linear(x, wkv)
+
+    def geglu_chain(x):
+        h = F.linear((layer_norm(x) * ln_w + ln_b).to(bf), w1b)
+        val, gate = h.chunk(2, dim=-1)
+        return F.linear((F.gelu(gate) * val).to(bf), w2b)
     qs, ks = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1)
     emb = randn(g, 8192, 8)
 
@@ -198,7 +233,7 @@ def phase2_kernels() -> list:
                [compare("ln_qkv q", q_k, q_p), compare("ln_qkv kv", kv_k, kv_p)],
                lambda: lq.ln_qkv(x, gamma, wq, wkv), lambda: lq.ln_qkv_plain(x, gamma, wq, wkv),
                bound(2 * M * D * 3 * D, 2 * (M * D + 3 * D * D + 3 * M * D) + 4 * D, PEAK_BF16),
-               shape=[M, D])
+               chain_fn=lambda: ln_qkv_chain(x), shape=[M, D])
 
         # geglu_ff (the bound counts the unpadded inner 1365)
         record("geglu_ff", path,
@@ -207,7 +242,7 @@ def phase2_kernels() -> list:
                lambda: gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
                lambda: gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p),
                bound(6 * M * D * inner, 2 * (2 * M * D + 3 * inner * D) + 8 * D, PEAK_BF16),
-               shape=[M, D, inner])
+               chain_fn=lambda: geglu_chain(x), shape=[M, D, inner])
 
         # small_n_attention: (b h w, t, H*Dh), causal and not
         if path == "vq":
@@ -241,7 +276,7 @@ def phase2_kernels() -> list:
                      PEAK_BF16), shape=[B * t, hw, H * Dh], rope=rope)
 
         # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
-        z = torch.nn.functional.normalize(randn(g, M, 8), dim=-1).contiguous()
+        z = F.normalize(randn(g, M, 8), dim=-1).contiguous()
         idx_k = vq.vq_argmin(z, emb)
         idx_p = vq.vq_argmin_plain(z, emb)
         bad = (idx_k != idx_p).nonzero().flatten()
@@ -266,7 +301,7 @@ def phase2_kernels() -> list:
     # (b h w, H, 9, Dh) in bf16; q and k are l2-normalized, as the cosine
     # attention hands them over, with its logit scale 8
     def mha_inputs(shape, dtype):
-        q, k = (torch.nn.functional.normalize(randn(g, *shape), dim=-1).to(dtype)
+        q, k = (F.normalize(randn(g, *shape), dim=-1).to(dtype)
                 for _ in range(2))
         return q, k, randn(g, *shape, dtype=dtype)
 
@@ -277,19 +312,43 @@ def phase2_kernels() -> list:
         bh, n = shape[0] * shape[1], shape[2]
         err = compare(f"mha {dtype} causal={causal}", mh.mha(q, k, v, 8.0, causal),
                       mh.mha_plain(q, k, v, 8.0, causal), tol)
-        lib = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                               scale=8.0)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=8.0)
+
         print(f"[2] mha ({path}): library call vs plain max_abs "
-              f"{max_abs(lib, mh.mha_plain(q, k, v, 8.0, causal)):.3e}")
+              f"{max_abs(library(), mh.mha_plain(q, k, v, 8.0, causal)):.3e}; "
+              f"it runs {device_kernels(library)}")
         pairs = n * (n + 1) // 2 if causal else n * n
+        flops, nbytes = 4 * bh * pairs * Dh, 4 * bh * n * Dh * q.element_size()
         record("mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
                lambda: mh.mha_plain(q, k, v, 8.0, causal),
-               bound(4 * bh * pairs * Dh, 4 * bh * n * Dh * q.element_size(),
-                     PEAK_F32 if dtype == torch.float32 else PEAK_BF16),
-               lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, is_causal=causal, scale=8.0),
-               shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
+               bound(flops, nbytes, PEAK_BF16) if dtype == bf
+               else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
+               library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
+    mha_f32_floor(mh, g)
     return rows
+
+
+def mha_f32_floor(mh, g) -> None:
+    """The f32 mha at large logits: N(0, 1) q and k with scale 8 put them near
+    200, where one f32 ulp is 1.5e-5, so any two f32 summation orders differ
+    by ~1e-5 there. The plain version and the kernel against an f64 result:
+    the kernel within 1e-5 of it, or within twice the plain version's error
+    where that is larger."""
+    for n, causal in ((64, True), (1024, False)):
+        q, k, v = (randn(g, 2, 2, n, 64) for _ in range(3))
+        s = (q.double() @ k.double().transpose(-1, -2)) * 8.0
+        if causal:
+            s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1), -1e9)
+        want = s.softmax(-1) @ v.double()
+        plain = rel_err(mh.mha_plain(q, k, v, 8.0, causal), want)
+        kernel = rel_err(mh.mha(q, k, v, 8.0, causal), want)
+        print(f"[2] mha f32 N={n} causal={causal} at logits near 200 against f64: "
+              f"plain {plain:.3e}, kernel {kernel:.3e}")
+        if not kernel <= max(MHA_F32_REL_TOL, 2 * plain):
+            raise AssertionError(f"mha f32 at large logits: {kernel:.3e} from f64, "
+                                 f"plain {plain:.3e}")
 
 
 def bf16_slice(tag: str, cfg, expected: dict) -> dict:
@@ -506,6 +565,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     smi = phase0_card()
     phase1_build()
     rows = phase2_kernels()
@@ -520,6 +580,7 @@ def main() -> int:
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         kernels.append({"name": row["name"], "route": "cuda", "source": src, "replaces": rep,
                         "launches": by_path[row["path"]], "launches_by_path": by_path, **row})
+    print(f"[done] phases 0-6 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,9 @@
 // Helpers shared by the port's CUDA kernels (compiled for sm_90a).
 #pragma once
 
+#include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -9,6 +12,37 @@
 namespace otk {
 
 using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma descriptor of a K-major tile with 128-byte rows and the 128-byte
+// swizzle (1024-byte aligned): 8-row groups 1024 bytes apart (SBO), the
+// leading offset unused. A k step inside the row adds its byte offset to addr.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// keep the compiler from moving register reads or writes across an async
+// wgmma (its operands are read and written behind the compiler's back)
+template <int R, typename T>
+__device__ __forceinline__ void fence_regs(T* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      asm volatile("" : "+f"(d[i])::"memory");
+    } else {
+      asm volatile("" : "+r"(d[i])::"memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -32,7 +32,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "vq_argmin_launch": [P, P, P, P, I, I, I, P],
     "ln_qkv_launch": [P, P, P, P, P, P, I, I, I, I, P],
-    "geglu_ff_launch": [P, P, P, P, P, P, I, I, I, P],
+    "geglu_ff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
     "cosine_mha_launch": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
     "mha_launch": [P, P, P, P, I, I, I, ctypes.c_float, I, I, P],

@@ -4,7 +4,9 @@ LN(x; w, b) with f32 statistics, h = xn @ W1^T split [val | gate], act =
 gelu_erf(gate) * val, out = act @ W2^T; bf16 products with f32 accumulation.
 Replaces `omnitokenizer_tpu/ops/pallas/geglu_ff.py:geglu_ff` (whose tanh GELU
 is a Mosaic limitation: the port uses erf, as the JAX math path does). The
-CUDA kernel is `csrc/geglu_ff.cu` and `geglu_ff_plain` its plain version.
+CUDA kernels are `csrc/geglu_ff.cu` (LN, then two wgmma GEMMs fed by TMA,
+the GEGLU in the first one's epilogue; one wrapper call launches the three
+and counts once) and `geglu_ff_plain` is their plain version.
 
 inner = int(4 * 2/3 * dim) (1365 at dim 512) is not a tile multiple, so
 `pad_geglu_weights` pads each half of W1 with zero rows and W2 with zero
@@ -73,9 +75,15 @@ def geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _build.check(ln_b, "ln_b", torch.float32, (D,))
     _build.check(w1p, "w1p", torch.bfloat16, (2 * ip, D))
     _build.check(w2p, "w2p", torch.bfloat16, (D, ip))
+    for t, name in ((x, "x"), (w1p, "w1p"), (w2p, "w2p")):
+        if t.data_ptr() % 16:  # 16-byte vectors and TMA
+            raise ValueError(f"geglu_ff: {name} is not 16-byte aligned")
     out = torch.empty_like(x)
+    # the chain's intermediates: LN(x) and the activations, both bf16
+    xn, act = torch.empty_like(x), x.new_empty(M, ip)
     _build.launch("geglu_ff_launch", x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                  w1p.data_ptr(), w2p.data_ptr(), out.data_ptr(), M, D, ip)
+                  w1p.data_ptr(), w2p.data_ptr(), xn.data_ptr(), act.data_ptr(),
+                  out.data_ptr(), M, D, ip)
     geglu_ff.launches += 1
     return out
 

@@ -4,7 +4,8 @@ Scores and softmax in f32, P rounded to the input dtype before the P v
 product, which accumulates in f32; the output is in the input dtype. The
 optional causal mask is bottom-right aligned (col > row + Nk - Nq) and
 fills -1e9, not -inf. Replaces `omnitokenizer_tpu/ops/pallas/mha.py:mha_pallas`;
-the CUDA kernel is `csrc/mha.cu` (a flash branch for N > 16, one warp per
+the CUDA kernel is `csrc/mha.cu` (for N > 16 a flash branch: f32 on wgmma
+tensor cores with 3xTF32 error compensation, bf16 in f32 FMA; one warp per
 (batch, head) for N <= 16) and `mha_plain` its plain version.
 """
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the shapes chip_smoke.py does not reach: the other instantiated widths,
 ragged row counts and small groups, and mha at every instantiated head
-width over both of its branches. Skips without a GPU. This file imports
+width over its branches. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -53,8 +53,9 @@ def test_ln_qkv(gen, M, D, dq, dkv):
 
 
 @pytest.mark.parametrize("D", gf.DIMS)
-def test_geglu_ff(gen, D):
-    M, inner = 77, int(4 * 2 / 3 * D)
+@pytest.mark.parametrize("M", [77, 1000, 20480 + 33])  # ragged 128-row tiles, a full-size M
+def test_geglu_ff(gen, M, D):
+    inner = int(4 * 2 / 3 * D)
     x = randn(gen, M, D)
     ln_w = 1 + randn(gen, D, scale=0.1, dtype=torch.float32)
     ln_b = randn(gen, D, scale=0.1, dtype=torch.float32)
@@ -120,18 +121,51 @@ def test_mha(gen, dtype, causal, N, dim_head):
     assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
 
 
+def mha_f64(q, k, v, scale, causal):
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device=s.device).triu(1), mh.NEG_INF)
+    return s.softmax(-1) @ v.double()
+
+
+def assert_f32_large_logits(got, q, k, v, scale, causal):
+    """At logits near 200 one f32 ulp is 1.5e-5, so two f32 summation orders
+    differ by ~1e-5 and the plain version is no yardstick at 1e-5: the kernel
+    is held against an f64 result, to 1e-5 or to twice the plain version's
+    own error there, whichever is larger."""
+    want = mha_f64(q, k, v, scale, causal)
+    plain = rel_err(mh.mha_plain(q, k, v, scale, causal), want)
+    assert rel_err(got, want) <= max(F32_REL_TOL, 2 * plain)
+
+
+@pytest.mark.parametrize("dim_head", mh.DIM_HEADS)
+@pytest.mark.parametrize("N,causal", [(64, True), (100, False), (1024, False), (2048, True)])
+def test_mha_f32_large_logits(gen, dim_head, N, causal):
+    q, k, v = (randn(gen, 2, 2, N, dim_head, dtype=torch.float32) for _ in range(3))
+    assert_f32_large_logits(mh.mha(q, k, v, 8.0, causal), q, k, v, 8.0, causal)
+
+
 def test_sdpa_launches_mha_inside_its_gate(gen):
-    def qkv(N):  # (B, H, N, D) views of (B, N, H, D) tensors, as Attention passes them
-        return [randn(gen, 2, N, 2, 64, dtype=torch.float32).transpose(1, 2) for _ in range(3)]
+    def qkv(N, normalize=True):  # (B, H, N, D) views of (B, N, H, D) tensors, as
+        # Attention passes them: q and k l2-normalized by the cosine attention,
+        # so the logits stay within +-scale, or N(0, 1), which puts them near 200
+        q, k, v = (randn(gen, 2, N, 2, 64, dtype=torch.float32) for _ in range(3))
+        if normalize:
+            q, k = F.normalize(q, dim=-1), F.normalize(k, dim=-1)
+        return [t.transpose(1, 2) for t in (q, k, v)]
 
     mh.mha.launches = 0
     q, k, v = qkv(64)
     out = sdpa(q, k, v, 8.0, causal=True)
     assert mh.mha.launches == 1
     assert rel_err(out, mh.mha_plain(q, k, v, 8.0, True)) <= F32_REL_TOL
+    q, k, v = qkv(64, normalize=False)
+    assert_f32_large_logits(sdpa(q, k, v, 8.0, causal=True), q, k, v, 8.0, True)
+    assert mh.mha.launches == 2
     sdpa(q, k, v, 8.0, training=True)   # training takes the plain math
     sdpa(*qkv(5), 8.0)                  # and so does N < 8
-    assert mh.mha.launches == 1
+    assert mh.mha.launches == 2
 
 
 def test_wrappers_refuse_bad_input(gen):
