@@ -10,9 +10,12 @@ Phases (any failure raises and exits non-zero):
      gives it (B=4, 17x256^2 clips: 5 x 32 x 32 tokens for the flagship and
      the f32 VAE, 9 x 32 x 32 for the stage-1 tokenizer), with its time, its
      plain version's time, the least time the card could take (bound),
-     for mha the time of PyTorch's own attention call (and the name of the
-     kernel it runs), and for ln_qkv and geglu_ff the time of the module's
-     own plain bf16 route (layer_norm and cuBLAS bf16 F.linear);
+     for mha and cosine_mha the time of PyTorch's own attention call (and
+     the name of the kernel it runs), and as chain the time of the
+     module's own plain bf16 route: layer_norm and cuBLAS bf16 F.linear
+     for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
+     cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
+     for vq_argmin;
   3. the bf16 VQ round trip of imagenet_k600_config() at full width through
      OmniTokenizerVQGAN.reconstruct, with the launch count of every kernel,
      checked against the plain bf16 path on the same weights, and frames/s
@@ -170,6 +173,7 @@ def phase2_kernels() -> list:
     from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
     from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
     from omnitokenizer_tpu_torch.ops.norms import layer_norm
+    from omnitokenizer_tpu_torch.ops.rotary import freqs_cis_2d, rotate_pairs
 
     g = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -220,6 +224,29 @@ def phase2_kernels() -> list:
     qs, ks = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1)
     emb = randn(g, 8192, 8)
 
+    # the attention modules' bf16 route in PyTorch (ops/attention.py:_attend):
+    # [RoPE], F.normalize * scales -> bf16, then one SDPA call on (B, H, N, Dh)
+    # views; returns the SDPA inputs too, for the library call alone
+    def cos_sim_prep(q, kv, rope):
+        b, n, _ = q.shape
+        qh, k = q.view(b, n, H, Dh), kv.view(b, n, 2, H, Dh)[:, :, 0]
+        if rope:
+            cos, sin = freqs_cis_2d(Dh, n, q.device)
+            cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+            qh, k = rotate_pairs(qh, cos, sin), rotate_pairs(k, cos, sin)
+        qh = (F.normalize(qh.float(), dim=-1) * qs).to(bf)
+        k = (F.normalize(k.float(), dim=-1) * ks).to(bf)
+        return [t.transpose(1, 2) for t in (qh, k, kv.view(b, n, 2, H, Dh)[:, :, 1])]
+
+    def attention_chain(q, kv, rope, causal=False):
+        b, n, _ = q.shape
+        out = F.scaled_dot_product_attention(*cos_sim_prep(q, kv, rope), is_causal=causal,
+                                             scale=8.0)
+        return out.transpose(1, 2).reshape(b, n, H * Dh)
+
+    def vq_chain(z):  # argmin(||e||^2 - 2 z e^T) in f32, TF32 off
+        return torch.argmin((emb * emb).sum(1)[None, :] - 2.0 * (z @ emb.t()), dim=1)
+
     # the VQ paths' shapes: the flagship's 5 latent frames (RoPE) and the
     # stage-1 tokenizer's 9 ('rel': no RoPE, no small_n_attention)
     for path, t, rope in (("vq", 1 + (T - 1) // 4, True), ("rel", 1 + (T - 1) // 2, False)):
@@ -259,6 +286,7 @@ def phase2_kernels() -> list:
                    lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True),
                    bound(4 * B * hw * H * Dh * t * (t + 1) // 2,
                          2 * B * hw * t * 4 * H * Dh + 8 * Dh, PEAK_BF16),
+                   chain_fn=lambda: attention_chain(qt, kvt, False, causal=True),
                    shape=[B * hw, t, H * Dh], causal=True)
 
         # cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs it
@@ -269,11 +297,23 @@ def phase2_kernels() -> list:
             errs.append(compare(f"cosine_mha rope={r}",
                                 cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, r),
                                 cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, r)))
+        sdpa_in = cos_sim_prep(qsp, kvsp, rope)
+
+        def cosine_library():
+            return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
+
+        chain_err = max_abs(attention_chain(qsp, kvsp, rope),
+                            cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope))
+        print(f"[2] cosine_mha ({path}): chain vs plain max_abs {chain_err:.3e}; "
+              f"its SDPA call runs {device_kernels(cosine_library)}")
         record("cosine_mha", path, errs,
                lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
                lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
                bound(4 * B * t * H * hw * hw * Dh, 2 * B * t * hw * 4 * H * Dh + 8 * Dh,
-                     PEAK_BF16), shape=[B * t, hw, H * Dh], rope=rope)
+                     PEAK_BF16), cosine_library,
+               chain_fn=lambda: attention_chain(qsp, kvsp, rope),
+               shape=[B * t, hw, H * Dh], rope=rope)
+        del sdpa_in
 
         # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
         z = F.normalize(randn(g, M, 8), dim=-1).contiguous()
@@ -294,7 +334,7 @@ def phase2_kernels() -> list:
         record("vq_argmin", path, [(gap, 0.0)], lambda: vq.vq_argmin(z, emb),
                lambda: vq.vq_argmin_plain(z, emb),
                bound(2 * M * 8192 * 8, 4 * (M * 8 + 8192 * 8 + M), PEAK_F32),
-               shape=[M, 8192, 8])
+               chain_fn=lambda: vq_chain(z), shape=[M, 8192, 8])
 
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,

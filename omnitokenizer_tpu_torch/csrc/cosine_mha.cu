@@ -5,217 +5,356 @@
 // q is (B, N, H*Dh); kv is the fused projection (B, N, 2*H*Dh).
 //
 // Replaces omnitokenizer_tpu/ops/pallas/cosine_mha.py:cosine_mha.
-// Bound: tensor-core compute and the exp sweep, 4*B*H*N^2*Dh flops (43
-// GFLOP) and B*H*N^2 exps at the flagship's B=20, N=1024, H=8, Dh=64.
-// Design: FlashAttention-style. A block owns (batch, head, 64 queries) with
-// 4 warps of 16 query rows. It rotates, normalizes and rounds its q tile
-// once into shared memory, then loops over 64-key tiles: the k tile gets
-// the same treatment as it loads, S = q k^T comes from wmma bf16 products
-// in f32, an online softmax keeps the running max and sum per row in
-// registers, P is rounded to bf16 and P v accumulates into an f32 output
-// tile in shared memory (rescaled by the max correction first). The N x N
-// scores never reach device memory. The TPU kernel's bound shift with its
-// -80 floor, its ones-column denominator and its pair-swap matmul were
-// workarounds for the TPU and are left out.
-#include "common.cuh"
+// Bound: tensor-core compute, 4*B*H*N^2*Dh flops (43 GFLOP at the flagship's
+// B=20, N=1024, H=8, Dh=64: 0.043 ms at 989 TFLOP/s bf16). The B*H*N^2
+// exponentials (168 M there) cost about as much on the SFUs (~16 a clock an
+// SM: ~0.043 ms); past roughly half the bound a kernel has to overlap the
+// softmax of one tile with the products of another (FA3's two-warpgroup
+// ping-pong), which this one does not.
+// Design: two kernels behind one call, q-hat and k-hat in buffers the
+// wrapper allocates:
+//   1. prep, one pass over q and the k half of kv: a thread rotates (when
+//      RoPE is on), l2-normalizes (its head's Dh/8 threads add the squares
+//      with shuffles), scales and rounds 8 dims of a row to bf16: q-hat and
+//      k-hat (B, N, H*Dh). Every key is prepped once per call (84 MB of
+//      traffic at the flagship, ~0.025 ms at 3.35 TB/s);
+//   2. FlashAttention-2 on wgmma: a block owns (b, h, 128 queries): two
+//      consumer warpgroups of 64 query rows and one producer warp. TMA
+//      brings the q-hat tile once, then k-hat and v tiles of 64 keys into a
+//      4-stage ring guarded by mbarriers (v read straight from kv, at column
+//      H*Dh + h*Dh). S = q-hat k-hat^T runs on wgmma m64n64k16 from shared
+//      memory into f32 registers; the online softmax runs on that fragment
+//      in registers (row max and sum over the thread quad, exp2 with log2(e)
+//      folded in, f32 running max and sum); P is rounded to bf16 and, as the
+//      f32 m64nNk16 accumulator layout is the bf16 A-fragment layout, it is
+//      P V's register A operand with no data movement; O += P V runs on
+//      wgmma with B = the v tile read MN-major (tnspB = 1). O stays in
+//      registers (Dh/2 f32 a thread) and is rescaled there; the epilogue
+//      divides by the row sum and writes bf16 at column h*Dh of out.
+// Tiles carry the swizzle of their row width: 128 bytes at Dh = 64, 64 at
+// Dh = 32. The N x N scores never reach device memory. The TPU kernel's bound
+// shift with its -80 floor, its ones-column denominator and its pair-swap
+// matmul were workarounds for the TPU and are left out. Rows of a
+// 128-query block past N (N % 128 == 64) are computed on the next batch's
+// rows or TMA's zeros and not stored.
+#include "sm90_gemm.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using otk::bf16;
 
-constexpr int kTile = 64;   // queries per block and keys per step
-constexpr int kWarps = 4;   // 16 query rows each
-constexpr int kPad = 8;
-constexpr int kLdS = kTile + 4;     // f32 score row stride
-constexpr int kLdP = kTile + kPad;  // bf16 probability row stride
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBQ = 128;  // queries a block: two consumer warpgroups of 64
+constexpr int kBN = 64;   // keys a tile
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kPrepThreads = 256;
 
-// Rotate (optionally), l2-normalize, scale and round 16 rows of a head's
-// q or k into shared memory. One warp, lanes over the Dh/2 pairs.
+// ------------------------------------------------------------------ prep
+// blockIdx.y 0: q-hat = bf16(rope(q) / max(|rope(q)|, 1e-12) * q_scale * scale)
+// blockIdx.y 1: k-hat = bf16(rope(k) / max(|rope(k)|, 1e-12) * k_scale)
+// A thread owns 8 consecutive dims (4 pairs) of one row of one head.
 template <int Dh>
-__device__ __forceinline__ void prep_rows(bf16* dst, int ld_dst, const bf16* src, size_t ld_src,
-                                          int pos0, const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t, bool rope,
-                                          const float* __restrict__ dim_scale, float scale) {
-  const int lane = threadIdx.x & 31;
-  constexpr int kPairs = Dh / 2;
-  for (int r = 0; r < 16; ++r) {
-    float a[(kPairs + 31) / 32], b[(kPairs + 31) / 32];
-    float ss = 0.f;
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+            const float* __restrict__ q_scale, const float* __restrict__ k_scale,
+            const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+            bf16* __restrict__ q_hat, bf16* __restrict__ k_hat, int rows, int N, int HD,
+            float scale, int rope) {
+  constexpr int kLanes = Dh / 8;  // threads of a head: aligned groups inside a warp
+  const int chunks = HD / 8;
+  const long long idx = (long long)blockIdx.x * kPrepThreads + threadIdx.x;
+  // every lane takes part in the shuffles; one past the end works on row 0
+  const bool active = idx < (long long)rows * chunks;
+  const int r = active ? (int)(idx / chunks) : 0, c = active ? (int)(idx % chunks) : 0;
+  const bool is_k = blockIdx.y != 0;
+  const int d0 = (c % kLanes) * 8;  // first dim inside the head
+  const bf16* src = is_k ? kv + (size_t)r * 2 * HD + 8 * c : q + (size_t)r * HD + 8 * c;
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+  float x[8];
 #pragma unroll
-    for (int i = 0; i < (kPairs + 31) / 32; ++i) {
-      const int p = lane + 32 * i;
-      a[i] = b[i] = 0.f;
-      if (p < kPairs) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(src + r * ld_src + 2 * p);
-        float x0 = __low2float(v), x1 = __high2float(v);
-        if (rope) {
-          const float c = cos_t[(pos0 + r) * kPairs + p], s = sin_t[(pos0 + r) * kPairs + p];
-          const float y0 = x0 * c - x1 * s, y1 = x0 * s + x1 * c;
-          x0 = y0;
-          x1 = y1;
-        }
-        a[i] = x0;
-        b[i] = x1;
-        ss += x0 * x0 + x1 * x1;
-      }
-    }
-    const float inv = 1.f / fmaxf(sqrtf(otk::warp_sum(ss)), 1e-12f);
+  for (int p = 0; p < 4; ++p) {
+    const float2 f = __bfloat1622float2(h2[p]);
+    x[2 * p] = f.x;
+    x[2 * p + 1] = f.y;
+  }
+  if (rope) {
+    const size_t at = (size_t)(r % N) * (Dh / 2) + d0 / 2;
+    const float4 cs = *reinterpret_cast<const float4*>(cos_t + at);
+    const float4 sn = *reinterpret_cast<const float4*>(sin_t + at);
+    const float cv[4] = {cs.x, cs.y, cs.z, cs.w}, sv[4] = {sn.x, sn.y, sn.z, sn.w};
 #pragma unroll
-    for (int i = 0; i < (kPairs + 31) / 32; ++i) {
-      const int p = lane + 32 * i;
-      if (p < kPairs)
-        *reinterpret_cast<__nv_bfloat162*>(dst + r * ld_dst + 2 * p) = __floats2bfloat162_rn(
-            a[i] * inv * dim_scale[2 * p] * scale, b[i] * inv * dim_scale[2 * p + 1] * scale);
+    for (int p = 0; p < 4; ++p) {
+      const float a = x[2 * p], b = x[2 * p + 1];
+      x[2 * p] = a * cv[p] - b * sv[p];
+      x[2 * p + 1] = a * sv[p] + b * cv[p];
     }
   }
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ss += x[e] * x[e];
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float inv = 1.f / fmaxf(sqrtf(ss), 1e-12f);
+  const float* dim_scale = (is_k ? k_scale : q_scale) + d0;
+  const float mul = is_k ? 1.f : scale;
+  __align__(16) bf16 y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) y[e] = __float2bfloat16(x[e] * inv * (dim_scale[e] * mul));
+  if (active)
+    *reinterpret_cast<uint4*>((is_k ? k_hat : q_hat) + (size_t)r * HD + 8 * c) =
+        *reinterpret_cast<const uint4*>(y);
+}
+
+// ------------------------------------------------------------------ flash
+// wgmma descriptor of a tile TMA wrote with the swizzle of its row width
+// (2*Dh bytes: the 128-byte swizzle at Dh = 64, the 64-byte one at Dh = 32);
+// 8-row groups lie 16*Dh bytes apart (SBO). K-major (q-hat, k-hat: rows are
+// queries or keys, a k step inside a row adds its byte offset): the leading
+// offset is unused. MN-major (v as P V's B: rows are keys, the k dimension):
+// one swizzle row holds all Dh output columns, so the offset between MN
+// repeats (LBO) is never stepped; it is set to the group stride like SBO.
+template <int Dh, bool kMN>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  constexpr uint64_t kGroup = 16 * Dh;
+  constexpr uint64_t kLayout = Dh == 64 ? 1 : 2;
+  constexpr uint64_t kLbo = kMN ? kGroup >> 4 : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kLbo << 16) | ((kGroup >> 4) << 32) |
+         (kLayout << 62);
+}
+
+// d (64 x Dh f32) += A (64 x 16, bf16 registers: the m16n8k16 A fragment of
+// each warp's 16 rows) B, B (16 keys x Dh) MN-major in shared memory
+template <int Dh>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <int Dh>
-__global__ void __launch_bounds__(kWarps * 32)
-cosine_mha_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
-                  const float* __restrict__ q_scale, const float* __restrict__ k_scale,
-                  const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                  bf16* __restrict__ out, int N, int H, float scale, int rope) {
-  constexpr int ld = Dh + kPad;
-  constexpr int kLdO = Dh + 4;
-  constexpr int kDf = Dh / 16;  // 16-wide fragments along the head dim
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + kTile * ld;
-  bf16* s_v = s_k + kTile * ld;
-  float* s_s = reinterpret_cast<float*>(s_v + kTile * ld);  // per warp 16 x kLdS
-  float* s_o = s_s + kWarps * 16 * kLdS;                    // per warp 16 x kLdO
-  bf16* s_p = reinterpret_cast<bf16*>(s_o + kWarps * 16 * kLdO);  // per warp 16 x kLdP
+constexpr size_t flash_smem() {
+  return 1024 + (size_t)(kBQ + kStages * 2 * kBN) * 2 * Dh + (1 + 2 * kStages) * sizeof(uint64_t);
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * Dh;
-  const bf16* qb = q + (size_t)b * N * HD + h * Dh;
-  const bf16* kb = kv + (size_t)b * N * 2 * HD + h * Dh;
-  const bf16* vb = kb + HD;
-  float* my_s = s_s + warp * 16 * kLdS;
-  float* my_o = s_o + warp * 16 * kLdO;
-  bf16* my_p = s_p + warp * 16 * kLdP;
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int H) {
+  constexpr uint32_t kRowBytes = 2 * Dh;
+  constexpr uint32_t kQBytes = kBQ * kRowBytes;
+  constexpr uint32_t kTileBytes = kBN * kRowBytes;  // a k-hat or a v tile
+  constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  constexpr int kSteps = Dh / 16;  // k steps of S
+  constexpr int kPSteps = kBN / 16;  // k steps of P V
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (otk::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = otk::smem_u32(smem), kv_s = q_s + kQBytes;
+  const uint32_t q_bar = kv_s + kStages * kStageBytes;
+  const uint32_t full0 = q_bar + 8, empty0 = full0 + 8 * kStages;
 
-  prep_rows<Dh>(s_q + warp * 16 * ld, ld, qb + (size_t)(q0 + warp * 16) * HD, HD,
-                q0 + warp * 16, cos_t, sin_t, rope, q_scale, scale);
-  for (int i = lane; i < 16 * kLdO; i += 32) my_o[i] = 0.f;
-  __syncwarp();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kDf];
-#pragma unroll
-  for (int f = 0; f < kDf; ++f) wmma::load_matrix_sync(qa[f], s_q + warp * 16 * ld + f * 16, ld);
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y;
+  const int row_base = blockIdx.z * N;  // the batch's first row in the (B*N)-row maps
+  const int n_tiles = N / kBN;
 
-  // lane -> (row, half): two lanes per query row, 32 score columns each
-  const int rr = lane >> 1, half = lane & 1;
-  float m_run = -CUDART_INF_F, l_run = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous k/v tile
-    prep_rows<Dh>(s_k + warp * 16 * ld, ld, kb + (size_t)(k0 + warp * 16) * 2 * HD, 2 * HD,
-                  k0 + warp * 16, cos_t, sin_t, rope, k_scale, 1.f);
-    for (int i = threadIdx.x; i < kTile * (Dh / 8); i += kWarps * 32) {
-      const int r = i / (Dh / 8), c = (i % (Dh / 8)) * 8;
-      *reinterpret_cast<uint4*>(s_v + r * ld + c) =
-          *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * 2 * HD + c);
+  if (tid == 0) {
+    otk::mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      otk::mbar_init(full0 + 8 * s, 1);                 // the producer's expect_tx
+      otk::mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival per consumer warp
     }
-    __syncthreads();
+    otk::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S (16 x 64) = q_w k^T
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int f = 0; f < kDf; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb_frag;
-        wmma::load_matrix_sync(kb_frag, s_k + n * 16 * ld + f * 16, ld);
-        wmma::mma_sync(s, qa[f], kb_frag, s);
+  if (tid >= kConsumers) {  // producer warp: one thread keeps the ring full
+    if (tid == kConsumers) {
+      otk::mbar_expect_tx(q_bar, kQBytes);
+      otk::tma_load(q_s, &tq, q_bar, h * Dh, row_base + q0);
+      otk::tma_load(q_s + kQBytes / 2, &tq, q_bar, h * Dh, row_base + q0 + 64);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) otk::mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
+        const uint32_t full = full0 + 8 * s, k_dst = kv_s + s * kStageBytes;
+        otk::mbar_expect_tx(full, kStageBytes);
+        otk::tma_load(k_dst, &tk, full, h * Dh, row_base + it * kBN);
+        otk::tma_load(k_dst + kTileBytes, &tv, full, (H + h) * Dh, row_base + it * kBN);
       }
-      wmma::store_matrix_sync(my_s + n * 16, s, kLdS, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax over this tile's 64 columns of row rr
-    const float* srow = my_s + rr * kLdS + half * 32;
-    float mt = -CUDART_INF_F;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) mt = fmaxf(mt, srow[c]);
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m_run, mt);
-    const float alpha = __expf(m_run - m_new);
-    float sum = 0.f;
-    bf16* prow = my_p + rr * kLdP + half * 32;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = __expf(srow[c] - m_new);
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    float* orow = my_o + rr * kLdO + half * (Dh / 2);
-    for (int c = 0; c < Dh / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    // O (16 x Dh) += P (16 x 64) v
-#pragma unroll
-    for (int f = 0; f < kDf; ++f) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, my_o + f * 16, kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTile; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb_frag;
-        wmma::load_matrix_sync(pa, my_p + kk, kLdP);
-        wmma::load_matrix_sync(vb_frag, s_v + kk * ld + f * 16, ld);
-        wmma::mma_sync(o, pa, vb_frag, o);
-      }
-      wmma::store_matrix_sync(my_o + f * 16, o, kLdO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
   }
 
-  const float inv = 1.f / l_run;
-  bf16* orow_out = out + (size_t)b * N * HD + (size_t)(q0 + warp * 16 + rr) * HD + h * Dh +
-                   half * (Dh / 2);
-  const float* orow = my_o + rr * kLdO + half * (Dh / 2);
-  for (int c = 0; c < Dh / 2; c += 2)
-    *reinterpret_cast<__nv_bfloat162*>(orow_out + c) =
-        __floats2bfloat162_rn(orow[c] * inv, orow[c + 1] * inv);
+  // consumers: warpgroup wg owns queries [q0 + 64 wg, q0 + 64 wg + 64); a
+  // fragment's element 4i + 2e + c is row 16 w + g + 8 e, column 8 i + 2 t + c
+  const int wg = tid >> 7, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t qa = q_s + wg * (kQBytes / 2);
+  float o[Dh / 2], m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < Dh / 2; ++i) o[i] = 0.f;
+  otk::mbar_wait(q_bar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    otk::mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+    const uint32_t kt = kv_s + s * kStageBytes, vt = kt + kTileBytes;
+
+    // S (64 queries x 64 keys) = q-hat k-hat^T
+    float sc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    otk::fence_regs<kBN / 2>(sc);
+    otk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      otk::wgmma<kBN>(sc, tile_desc<Dh, false>(qa + 32 * kk), tile_desc<Dh, false>(kt + 32 * kk));
+    otk::wgmma_commit_wait();
+    otk::fence_regs<kBN / 2>(sc);
+
+    // online softmax in the log2 domain; rows g (e = 0) and g + 8 (e = 1)
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      sc[i] *= kLog2e;
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 1));
+      mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 2));
+      const float m_new = fmaxf(m_run[e], mt[e]);
+      alpha[e] = exp2f(m_run[e] - m_new);
+      m_run[e] = m_new;
+      l_run[e] *= alpha[e];  // a per-thread partial sum; the quad adds up at the end
+    }
+    // P in bf16 as the A fragments of P V's k steps: keys 16 j + [0, 8) are
+    // accumulator tile 2 j, keys 16 j + [8, 16) tile 2 j + 1; registers
+    // {row g, row g + 8} of the first, then of the second
+    uint32_t pa[kPSteps][4];
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* si = sc + 4 * (2 * j + half);
+        const float p0 = exp2f(si[0] - m_run[0]), p1 = exp2f(si[1] - m_run[0]);
+        const float p2 = exp2f(si[2] - m_run[1]), p3 = exp2f(si[3] - m_run[1]);
+        l_run[0] += p0 + p1;
+        l_run[1] += p2 + p3;
+        pa[j][2 * half] = pack_bf16(p0, p1);
+        pa[j][2 * half + 1] = pack_bf16(p2, p3);
+      }
+
+    // O = O * alpha + P V
+#pragma unroll
+    for (int i = 0; i < Dh / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    otk::fence_regs<Dh / 2>(o);
+    otk::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPSteps; ++j)
+      wgmma_pv<Dh>(o, pa[j], tile_desc<Dh, true>(vt + j * 16 * kRowBytes));
+    otk::wgmma_commit_wait();
+    otk::fence_regs<Dh / 2>(o);
+    otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+    __syncwarp();
+    if (lane == 0) otk::mbar_arrive(empty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 1);
+    l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 2);
+  }
+  const int row0 = q0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + 8 * e;
+    if (row >= N) continue;
+    const float inv = 1.f / l_run[e];
+    bf16* dst = out + (size_t)(row_base + row) * H * Dh + h * Dh + 2 * t;
+#pragma unroll
+    for (int i = 0; i < Dh / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+  }
 }
 
 template <int Dh>
 int launch(const void* q, const void* kv, const void* qs, const void* ks, const void* cos_t,
-           const void* sin_t, void* out, int B, int N, int H, float scale, int rope,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)3 * kTile * (Dh + kPad) * sizeof(bf16) +
-                      (size_t)kWarps * 16 * (kLdS + Dh + 4) * sizeof(float) +
-                      (size_t)kWarps * 16 * kLdP * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(cosine_mha_kernel<Dh>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / kTile, H, B);
-  cosine_mha_kernel<Dh><<<grid, kWarps * 32, smem, stream>>>(
+           const void* sin_t, void* q_hat, void* k_hat, void* out, int B, int N, int H,
+           float scale, int rope, cudaStream_t stream) {
+  const int rows = B * N, HD = H * Dh;
+  const long long threads = (long long)rows * (HD / 8);
+  const dim3 pgrid((unsigned)((threads + kPrepThreads - 1) / kPrepThreads), 2);
+  prep_kernel<Dh><<<pgrid, kPrepThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const float*>(qs),
       static_cast<const float*>(ks), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<bf16*>(out), N, H, scale, rope);
+      static_cast<const float*>(sin_t), static_cast<bf16*>(q_hat), static_cast<bf16*>(k_hat),
+      rows, N, HD, scale, rope);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  CUtensorMap tq, tk, tv;
+  if (!otk::make_map(&tq, q_hat, rows, HD, 64, Dh) || !otk::make_map(&tk, k_hat, rows, HD, 64, Dh) ||
+      !otk::make_map(&tv, kv, rows, 2 * HD, 64, Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = flash_smem<Dh>();
+  err = cudaFuncSetAttribute(flash_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
+  flash_kernel<Dh><<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// q_hat and k_hat (B, N, H*Dh) are the wrapper's scratch buffers
 extern "C" int cosine_mha_launch(const void* q, const void* kv, const void* q_scale,
                                  const void* k_scale, const void* cos_t, const void* sin_t,
-                                 void* out, int B, int N, int H, int Dh, float scale, int rope,
-                                 void* stream) {
-  if (N % kTile) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* q_hat, void* k_hat, void* out, int B, int N, int H, int Dh,
+                                 float scale, int rope, void* stream) {
+  if (B < 1 || H < 1 || N < kBN || N % kBN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 32: return launch<32>(q, kv, q_scale, k_scale, cos_t, sin_t, out, B, N, H, scale, rope, s);
-    case 64: return launch<64>(q, kv, q_scale, k_scale, cos_t, sin_t, out, B, N, H, scale, rope, s);
+    case 32:
+      return launch<32>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
+                        rope, s);
+    case 64:
+      return launch<64>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
+                        rope, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,113 +1,43 @@
 // Fused gamma-only LayerNorm + q/kv projection:
 //   q = LN_gamma(x) @ Wq^T   (f32 statistics, eps 1e-5, biased variance)
 //   kv = x @ Wkv^T           (k and v read the PRE-norm x: reference quirk)
-// bf16 products with f32 accumulation (wmma 16x16x16), bf16 outputs.
+// LN(x) rounded to bf16 before its product, bf16 products with f32
+// accumulation, bf16 outputs.
 //
 // Replaces omnitokenizer_tpu/ops/pallas/ln_qkv.py:ln_qkv.
 // Bound: tensor-core compute, 2*M*D*(Dq+Dkv) flops (32 GFLOP at the
-// flagship's M=20480, D=512, Dq=512, Dkv=1024), over ~84 MB of activations.
-// Design: a block owns 64 rows. It loads the raw x tile into shared memory
-// once, normalizes a second copy there for q, then walks the output
-// columns in chunks of 64: each chunk's weight rows are staged in shared
-// memory and shared by the 8 warps, each warp computes a 16x32 tile, and
-// the tile leaves through a per-warp f32 stage as bf16. The LayerNormed x
-// never reaches device memory. Weights come in the nn.Linear (out, in)
-// layout, which is the col-major B operand of the product.
-#include "common.cuh"
-
-namespace {
-
-using namespace nvcuda;
-using otk::bf16;
-
-constexpr int kRows = 64;
-constexpr int kCols = 64;
-constexpr int kWarps = 8;
-constexpr int kPad = 8;
-
-__global__ void __launch_bounds__(kWarps * 32)
-ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-              const bf16* __restrict__ wq, const bf16* __restrict__ wkv,
-              bf16* __restrict__ q, bf16* __restrict__ kv, int M, int D, int Dq, int Dkv) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = D + kPad;
-  bf16* s_x = reinterpret_cast<bf16*>(smem);
-  bf16* s_xn = s_x + kRows * ld;
-  bf16* s_w = s_xn + kRows * ld;
-  float* s_stage = reinterpret_cast<float*>(s_w + kCols * ld);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_valid = min(kRows, M - row0);
-
-  otk::load_rows_bf16(s_x, ld, x + (size_t)row0 * D, D, kRows, rows_valid, D);
-  __syncthreads();
-
-  // LayerNorm statistics in f32, one warp per row
-  for (int r = warp; r < kRows; r += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += __bfloat162float(s_x[r * ld + c]);
-    const float mean = otk::warp_sum(s) / D;
-    float v = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __bfloat162float(s_x[r * ld + c]) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(otk::warp_sum(v) / D + 1e-5f);
-    for (int c = lane; c < D; c += 32)
-      s_xn[r * ld + c] =
-          __float2bfloat16((__bfloat162float(s_x[r * ld + c]) - mean) * rstd * gamma[c]);
-  }
-
-  const int rt = warp % 4;  // 16-row tile of the warp
-  const int cg = warp / 4;  // 32-column half of the chunk
-  float* stage = s_stage + warp * 256;
-  const int n_chunks = (Dq + Dkv) / kCols;
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int col0 = chunk * kCols;
-    const bool is_q = col0 < Dq;
-    const bf16* w = is_q ? wq + (size_t)col0 * D : wkv + (size_t)(col0 - Dq) * D;
-    const bf16* a_src = is_q ? s_xn : s_x;
-    bf16* out = is_q ? q + col0 : kv + (col0 - Dq);
-    const int ldo = is_q ? Dq : Dkv;
-
-    __syncthreads();  // the previous chunk's weights are consumed (and LN is done)
-    otk::load_rows_bf16(s_w, ld, w, D, kCols, kCols, D);
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_src + rt * 16 * ld + k0, ld);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, s_w + (cg * 32 + f * 16) * ld + k0, ld);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-      otk::store_tile_bf16(acc[f], stage, out + (size_t)(row0 + rt * 16) * ldo + cg * 32 + f * 16,
-                           ldo, rows_valid - rt * 16);
-  }
-}
-
-}  // namespace
+// flagship's M=20480, D=512, Dq=512, Dkv=1024; 0.033 ms at 989 TFLOP/s
+// bf16), over ~84 MB of activations and weights (0.025 ms at 3.35 TB/s).
+// Design: two kernels behind one call, the normed rows in a buffer the
+// wrapper allocates:
+//   1. the LN pass of sm90_gemm.cuh, a warp a row, gamma only: x -> xn
+//      (M x D bf16; 21 MB at the flagship, ~0.006 ms each way);
+//   2. one launch of the TMA/wgmma GEMM of sm90_gemm.cuh over all Dq + Dkv
+//      output columns in two parts: column tiles in [0, Dq) read A = xn and
+//      write q, tiles in [Dq, Dq + Dkv) read A = x and write kv (12 x 160
+//      blocks of 128 rows x 128 columns at the flagship). Wq and Wkv arrive
+//      by TMA; their tensor maps are cached by pointer and shape.
+// BN is 128 where Dq and Dkv allow it, else 64. Weights come in the
+// nn.Linear (out, in) layout, which is the K-major B operand.
+#include "sm90_gemm.cuh"
 
 extern "C" int ln_qkv_launch(const void* x, const void* gamma, const void* wq, const void* wkv,
-                             void* q, void* kv, int M, int D, int Dq, int Dkv, void* stream) {
-  if (D % 16 || D > 512 || Dq % kCols || Dkv % kCols) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)(2 * kRows + kCols) * (D + kPad) * sizeof(bf16) +
-                      kWarps * 256 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ln_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kRows - 1) / kRows);
-  ln_qkv_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(wkv), static_cast<bf16*>(q), static_cast<bf16*>(kv), M, D, Dq, Dkv);
-  return static_cast<int>(cudaGetLastError());
+                             void* xn, void* q, void* kv, int M, int D, int Dq, int Dkv,
+                             void* stream) {
+  using namespace otk;
+  if (M < 1 || D % 64 || D > 512 || Dq < 64 || Dq % 64 || Dkv < 64 || Dkv % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,
+                     static_cast<bf16*>(xn), M, D, s);
+  if (rc != 0) return rc;
+  const int bn = Dq % 128 == 0 && Dkv % 128 == 0 ? 128 : 64;
+  GemmPart pq{}, pkv{};
+  if (!make_map(&pq.a, xn, M, D, kBM) || !weight_map(&pq.b, wq, Dq, D, bn) ||
+      !make_map(&pkv.a, x, M, D, kBM) || !weight_map(&pkv.b, wkv, Dkv, D, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  pq.out = static_cast<bf16*>(q), pq.ldo = Dq, pq.tiles = Dq / bn;
+  pkv.out = static_cast<bf16*>(kv), pkv.ldo = Dkv, pkv.tiles = Dkv / bn;
+  return bn == 128 ? launch_gemm<128, false>(pq, pkv, M, D, 0, s)
+                   : launch_gemm<64, false>(pq, pkv, M, D, 0, s);
 }

@@ -31,10 +31,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # each returns the cudaError_t of its launch
 SIGNATURES = {
     "vq_argmin_launch": [P, P, P, P, I, I, I, P],
-    "ln_qkv_launch": [P, P, P, P, P, P, I, I, I, I, P],
+    "ln_qkv_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
     "geglu_ff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
-    "cosine_mha_launch": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
+    "cosine_mha_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
     "mha_launch": [P, P, P, P, I, I, I, ctypes.c_float, I, I, P],
 }
 

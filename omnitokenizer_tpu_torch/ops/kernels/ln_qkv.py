@@ -2,9 +2,11 @@
 
 q = LN_gamma(x) @ Wq^T, kv = x @ Wkv^T: k and v read the PRE-norm input (the
 reference quirk). bf16 products with f32 accumulation, f32 LN statistics.
-Replaces `omnitokenizer_tpu/ops/pallas/ln_qkv.py:ln_qkv`; the CUDA kernel is
-`csrc/ln_qkv.cu` and `ln_qkv_plain` its plain version. Weights are in the
-`nn.Linear` layout (out, in), pre-cast to bf16 once at the serving step.
+Replaces `omnitokenizer_tpu/ops/pallas/ln_qkv.py:ln_qkv`; the CUDA kernels are
+`csrc/ln_qkv.cu` (an LN pass, then one TMA/wgmma GEMM launch over the q and kv
+columns; one wrapper call counts once) and `ln_qkv_plain` their plain
+version. Weights are in the `nn.Linear` layout (out, in), pre-cast to bf16
+once at the serving step.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ EPS = 1e-5
 
 
 def ln_qkv_supported(dim: int, dq: int, dkv: int) -> bool:
-    """Shapes the CUDA kernel takes: 16-aligned D up to 512 (three D-wide
-    tiles in shared memory), 64-aligned outputs."""
-    return dim % 16 == 0 and dim <= 512 and dq % 64 == 0 and dkv % 64 == 0
+    """Shapes the CUDA kernels take: D a multiple of the 64-wide TMA box up to
+    512 (the LN pass's registers), output widths whole 64-column tiles."""
+    return (dim % 64 == 0 and 0 < dim <= 512 and dq % 64 == 0 and dkv % 64 == 0
+            and dq > 0 and dkv > 0)
 
 
 def ln_qkv_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
@@ -49,10 +52,14 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
     _build.check(gamma, "gamma", torch.float32, (D,))
     _build.check(wq, "wq", torch.bfloat16, (dq, D))
     _build.check(wkv, "wkv", torch.bfloat16, (dkv, D))
+    for t, name in ((x, "x"), (wq, "wq"), (wkv, "wkv")):
+        if t.data_ptr() % 16:  # 16-byte vectors and TMA
+            raise ValueError(f"ln_qkv: {name} is not 16-byte aligned")
+    xn = torch.empty_like(x)  # the LN pass's output, the GEMM's A for q
     q = torch.empty(M, dq, dtype=x.dtype, device=x.device)
     kv = torch.empty(M, dkv, dtype=x.dtype, device=x.device)
     _build.launch("ln_qkv_launch", x.data_ptr(), gamma.data_ptr(), wq.data_ptr(),
-                  wkv.data_ptr(), q.data_ptr(), kv.data_ptr(), M, D, dq, dkv)
+                  wkv.data_ptr(), xn.data_ptr(), q.data_ptr(), kv.data_ptr(), M, D, dq, dkv)
     ln_qkv.launches += 1
     return q, kv
 

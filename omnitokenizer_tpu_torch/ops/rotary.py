@@ -35,9 +35,12 @@ def freqs_cis_2d_np(dim: int, end: int, theta: float = 10000.0) -> Tuple[np.ndar
 
 @functools.lru_cache(maxsize=16)
 def freqs_cis_2d(dim: int, end: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tables as f32 tensors on `device`, built once per shape."""
+    """The tables as f32 tensors on `device`, built once per shape (as
+    normal tensors even inside inference_mode, since the cache outlives it
+    and autograd may later save them)."""
     cos, sin = freqs_cis_2d_np(dim, end)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

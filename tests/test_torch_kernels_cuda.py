@@ -42,8 +42,11 @@ def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-@pytest.mark.parametrize("M,D,dq,dkv", [(77, 64, 64, 128), (333, 128, 128, 256),
-                                        (1000, 512, 512, 1024)])
+@pytest.mark.parametrize("M,D,dq,dkv", [
+    (77, 64, 64, 128), (333, 128, 128, 256), (1000, 512, 512, 1024),
+    # the paths' row counts (ragged 128-row tiles past the flagship's 20480)
+    (20480 + 33, 256, 256, 512), (20480 + 33, 512, 512, 1024),
+    (36864, 256, 256, 512), (36864, 512, 512, 1024)])
 def test_ln_qkv(gen, M, D, dq, dkv):
     x = randn(gen, M, D)
     gamma = 1 + randn(gen, D, scale=0.1, dtype=torch.float32)
@@ -79,8 +82,10 @@ def test_small_n_attention(gen, dim_head, n, causal):
     assert rel_err(got, want) <= REL_TOL
 
 
+# 1600 = 40^2 is the largest N the gate takes (a square, whole 64-token
+# tiles, <= 2048), and leaves half of the last 128-query block past N
 @pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
-@pytest.mark.parametrize("N", [64, 256])
+@pytest.mark.parametrize("N", [64, 256, 1024, 1600])
 @pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
 def test_cosine_mha(gen, dim_head, N, rope):
     heads, B = 3, 2
@@ -88,6 +93,21 @@ def test_cosine_mha(gen, dim_head, N, rope):
     kv = randn(gen, B, N, 2 * heads * dim_head)
     qs = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
     ks = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    got = cm.cosine_mha(q, kv, qs, ks, heads, dim_head, 8.0, rope)
+    want = cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, rope)
+    assert rel_err(got, want) <= REL_TOL
+
+
+@pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
+def test_cosine_mha_large_logits(gen, dim_head, rope):
+    """q_scale and k_scale near 3 put the logits up to ~72: the softmax is
+    sharp, and P's bf16 rounding and the running max matter."""
+    heads, B, N = 2, 2, 1024
+    q = randn(gen, B, N, heads * dim_head)
+    kv = randn(gen, B, N, 2 * heads * dim_head)
+    qs = 3 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    ks = 3 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
     got = cm.cosine_mha(q, kv, qs, ks, heads, dim_head, 8.0, rope)
     want = cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, rope)
     assert rel_err(got, want) <= REL_TOL

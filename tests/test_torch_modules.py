@@ -108,3 +108,19 @@ def test_transformer(kind):
     run_both(jtrans.Transformer(dim=D, dim_head=DIM_HEAD, heads=HEADS, **kw),
              ttrans.Transformer(dim=D, dim_head=DIM_HEAD, heads=HEADS, **kw), x,
              jax_args=(video_shape, is_spatial), torch_args=(video_shape, is_spatial))
+
+
+def test_rope_tables_first_built_in_inference_mode_serve_autograd():
+    """The cached RoPE tables outlive the call that builds them: built first
+    under inference_mode, they must still serve a later call that autograd
+    records."""
+    from omnitokenizer_tpu_torch.ops.rotary import apply_rotary_emb_2d, freqs_cis_2d
+
+    freqs_cis_2d.cache_clear()
+    q = torch.from_numpy(inputs(2, 16, HEADS, DIM_HEAD, seed=5))
+    with torch.inference_mode():
+        apply_rotary_emb_2d(q, q)
+    q.requires_grad_(True)
+    qr, kr = apply_rotary_emb_2d(q, q)
+    (qr.square().sum() + kr.sum()).backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
