@@ -8,10 +8,14 @@ Phases (any failure raises and exits non-zero):
   1. build every CUDA kernel from omnitokenizer_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version at the shapes each path
      gives it (B=4, 17x256^2 clips: 5 x 32 x 32 tokens for the flagship and
-     the f32 VAE, 9 x 32 x 32 for the stage-1 tokenizer), with its time, its
-     plain version's time, the least time the card could take (bound),
-     for mha and cosine_mha the time of PyTorch's own attention call (and
-     the name of the kernel it runs), and as chain the time of the
+     the f32 VAE, 9 x 32 x 32 for the stage-1 tokenizer), with its time
+     (also with its calls issued as a caller issues them, so the host's
+     share shows), its plain version's time, the least time the card could
+     take (bound), for mha, cosine_mha and small_n_attention the time of
+     PyTorch's own attention call on inputs made ahead (and the name of the
+     kernel it runs; mha on the views the attention module hands over, with
+     no copies), cosine_mha also at a ragged N = 784 (28^2, a 224^2 image at
+     patch 8: no path's shape), and as chain the time of the
      module's own plain bf16 route: layer_norm and cuBLAS bf16 F.linear
      for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
      cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
@@ -27,8 +31,9 @@ Phases (any failure raises and exits non-zero):
      frames/s and peak memory; then a small f32 VAE on the card against the
      CPU with the same noise;
   6. the bf16 round trip of imagenet_only_config() (temporal patch 2, 'rel'
-     positions: 9 latent frames, causal temporal attention through mha) at
-     full width, with phase 3's checks.
+     positions: 9 latent frames, causal temporal attention through mha's
+     small branch on the attention module's views, with no copies) at full
+     width, with phase 3's checks.
 The line before the last is a JSON object with a row per kernel and shape;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -110,11 +115,24 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events after warm-up."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 3, queued: bool = True) -> float:
+    """Mean time of fn() in ms between CUDA events around `iters` calls
+    after warm-up. queued: the timed calls queue behind a kernel that sleeps
+    for twice their host time, so a short kernel's time is its own and not
+    the host's (a wrapper's checks, allocation and launch take tens of us a
+    call, as long as the small attention kernels run). Not queued: the calls
+    are issued as a caller issues them, and the host's time a call shows
+    where it is the longer (the method of PRs 1-4)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(min(2 * iters * host_s, 0.2) * 2e9))  # cycles, at <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -185,16 +203,18 @@ def phase2_kernels() -> list:
     def record(name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, chain_fn=None,
                **shape):
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+        host_paced_ms = cuda_ms(kernel_fn, queued=False)
         library_ms = None if library_fn is None else cuda_ms(library_fn)
         chain_ms = None if chain_fn is None else cuda_ms(chain_fn)
         row = {"name": name, "path": path, "max_abs_err": max(e[0] for e in errs), "ms": ms,
-               "plain_ms": plain_ms, **cost, "library_ms": library_ms, "chain_ms": chain_ms,
-               **shape}
+               "host_paced_ms": host_paced_ms, "plain_ms": plain_ms, **cost,
+               "library_ms": library_ms, "chain_ms": chain_ms, **shape}
         rows.append(row)
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
         lib += "" if chain_ms is None else f"  chain {chain_ms:.4f} ms"
         print(f"[2] {name} ({path}) {shape}: max_abs {row['max_abs_err']:.3e} "
-              f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms (not queued "
+              f"{host_paced_ms:.4f} ms)  plain {plain_ms:.4f} ms"
               f"{lib}  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     def compare(name, got, want, tol=KERNEL_REL_TOL):
@@ -271,7 +291,8 @@ def phase2_kernels() -> list:
                bound(6 * M * D * inner, 2 * (2 * M * D + 3 * inner * D) + 8 * D, PEAK_BF16),
                chain_fn=lambda: geglu_chain(x), shape=[M, D, inner])
 
-        # small_n_attention: (b h w, t, H*Dh), causal and not
+        # small_n_attention: (b h w, t, H*Dh), causal and not; its library
+        # call is SDPA alone on q-hat and k-hat made ahead, causal
         if path == "vq":
             qt = randn(g, B * hw, t, H * Dh, dtype=bf)
             kvt = randn(g, B * hw, t, 2 * H * Dh, dtype=bf)
@@ -281,39 +302,51 @@ def phase2_kernels() -> list:
                                     sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, causal),
                                     sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0,
                                                                causal)))
+            small_in = cos_sim_prep(qt, kvt, False)
+
+            def small_library():
+                return F.scaled_dot_product_attention(*small_in, is_causal=True, scale=8.0)
+
+            print(f"[2] small_n_attention ({path}): its SDPA call runs "
+                  f"{device_kernels(small_library)}")
             record("small_n_attention", path, errs,
                    lambda: sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, True),
                    lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True),
                    bound(4 * B * hw * H * Dh * t * (t + 1) // 2,
-                         2 * B * hw * t * 4 * H * Dh + 8 * Dh, PEAK_BF16),
+                         2 * B * hw * t * 4 * H * Dh + 8 * Dh, PEAK_BF16), small_library,
                    chain_fn=lambda: attention_chain(qt, kvt, False, causal=True),
                    shape=[B * hw, t, H * Dh], causal=True)
+            del small_in
 
-        # cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs it
-        qsp = randn(g, B * t, hw, H * Dh, dtype=bf)
-        kvsp = randn(g, B * t, hw, 2 * H * Dh, dtype=bf)
-        errs = []
-        for r in (True, False):
-            errs.append(compare(f"cosine_mha rope={r}",
-                                cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, r),
-                                cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, r)))
-        sdpa_in = cos_sim_prep(qsp, kvsp, rope)
+        # cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs
+        # it. After the flagship's row, one at a ragged N (the last key tile
+        # partial) with the flagship's batch and RoPE
+        cos_cases = [(path, hw, rope)] + ([("ragged", 784, True)] if path == "vq" else [])
+        for row_path, n_sp, rope_sp in cos_cases:
+            qsp = randn(g, B * t, n_sp, H * Dh, dtype=bf)
+            kvsp = randn(g, B * t, n_sp, 2 * H * Dh, dtype=bf)
+            errs = []
+            for r in (True, False):
+                errs.append(compare(f"cosine_mha N={n_sp} rope={r}",
+                                    cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, r),
+                                    cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, r)))
+            sdpa_in = cos_sim_prep(qsp, kvsp, rope_sp)
 
-        def cosine_library():
-            return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
+            def cosine_library():
+                return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
 
-        chain_err = max_abs(attention_chain(qsp, kvsp, rope),
-                            cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope))
-        print(f"[2] cosine_mha ({path}): chain vs plain max_abs {chain_err:.3e}; "
-              f"its SDPA call runs {device_kernels(cosine_library)}")
-        record("cosine_mha", path, errs,
-               lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
-               lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope),
-               bound(4 * B * t * H * hw * hw * Dh, 2 * B * t * hw * 4 * H * Dh + 8 * Dh,
-                     PEAK_BF16), cosine_library,
-               chain_fn=lambda: attention_chain(qsp, kvsp, rope),
-               shape=[B * t, hw, H * Dh], rope=rope)
-        del sdpa_in
+            chain_err = max_abs(attention_chain(qsp, kvsp, rope_sp),
+                                cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp))
+            print(f"[2] cosine_mha ({row_path}): chain vs plain max_abs {chain_err:.3e}; "
+                  f"its SDPA call runs {device_kernels(cosine_library)}")
+            record("cosine_mha", row_path, errs,
+                   lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp),
+                   lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp),
+                   bound(4 * B * t * H * n_sp * n_sp * Dh,
+                         2 * B * t * n_sp * 4 * H * Dh + 8 * Dh, PEAK_BF16), cosine_library,
+                   chain_fn=lambda: attention_chain(qsp, kvsp, rope_sp),
+                   shape=[B * t, n_sp, H * Dh], rope=rope_sp)
+            del sdpa_in, qsp, kvsp
 
         # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
         z = F.normalize(randn(g, M, 8), dim=-1).contiguous()
@@ -339,11 +372,19 @@ def phase2_kernels() -> list:
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
     # (b h w, H, 9, Dh) in bf16; q and k are l2-normalized, as the cosine
-    # attention hands them over, with its logit scale 8
+    # attention hands them over, with its logit scale 8. The bf16 ones are the
+    # views that ops/attention.py:_attend hands over: (B, H, N, D) views of
+    # (B, N, H, D) memory, v inside the fused kv; the f32 ones the contiguous
+    # copies sdpa makes for the flash branch
     def mha_inputs(shape, dtype):
-        q, k = (F.normalize(randn(g, *shape), dim=-1).to(dtype)
+        b, h, n, d = shape
+        if dtype == torch.float32:
+            q, k = (F.normalize(randn(g, *shape), dim=-1) for _ in range(2))
+            return q, k, randn(g, *shape)
+        q, k = (F.normalize(randn(g, b, n, h, d), dim=-1).to(dtype).transpose(1, 2)
                 for _ in range(2))
-        return q, k, randn(g, *shape, dtype=dtype)
+        kv = randn(g, b, n, 2 * h * d, dtype=dtype)
+        return q, k, kv[..., h * d:].view(b, n, h, d).transpose(1, 2)
 
     for path, shape, dtype, causal, tol in (
             ("vae", (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False, MHA_F32_REL_TOL),
@@ -355,6 +396,9 @@ def phase2_kernels() -> list:
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=8.0)
+
+        if dtype == bf and mh.mha(q, k, v, 8.0, causal).stride() != q.stride():
+            raise AssertionError("mha: the output on views does not take q's layout")
 
         print(f"[2] mha ({path}): library call vs plain max_abs "
               f"{max_abs(library(), mh.mha_plain(q, k, v, 8.0, causal)):.3e}; "
@@ -613,13 +657,15 @@ def main() -> int:
     phase4_small_f32()
     paths["vae"] = phase5_vae()
     paths["rel"] = phase6_rel()
-    # a row per kernel and path shape; `launches` is that path's round trip
+    # a row per kernel and path shape; `launches` is that path's round trip,
+    # and null for a shape no path runs (cosine_mha's ragged row)
     kernels = []
     for row in rows:
         src, rep = SOURCES[row["name"]]
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         kernels.append({"name": row["name"], "route": "cuda", "source": src, "replaces": rep,
-                        "launches": by_path[row["path"]], "launches_by_path": by_path, **row})
+                        "launches": by_path.get(row["path"]), "launches_by_path": by_path,
+                        **row})
     print(f"[done] phases 0-6 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

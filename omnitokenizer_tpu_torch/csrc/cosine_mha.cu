@@ -22,8 +22,9 @@
 //      consumer warpgroups of 64 query rows and one producer warp. TMA
 //      brings the q-hat tile once, then k-hat and v tiles of 64 keys into a
 //      4-stage ring guarded by mbarriers (v read straight from kv, at column
-//      H*Dh + h*Dh). S = q-hat k-hat^T runs on wgmma m64n64k16 from shared
-//      memory into f32 registers; the online softmax runs on that fragment
+//      H*Dh + h*Dh, through a map of one matrix a batch). S = q-hat
+//      k-hat^T runs on wgmma m64n64k16 from shared memory into f32
+//      registers; the online softmax runs on that fragment
 //      in registers (row max and sum over the thread quad, exp2 with log2(e)
 //      folded in, f32 running max and sum); P is rounded to bf16 and, as the
 //      f32 m64nNk16 accumulator layout is the bf16 A-fragment layout, it is
@@ -34,9 +35,12 @@
 // Tiles carry the swizzle of their row width: 128 bytes at Dh = 64, 64 at
 // Dh = 32. The N x N scores never reach device memory. The TPU kernel's bound
 // shift with its -80 floor, its ones-column denominator and its pair-swap
-// matmul were workarounds for the TPU and are left out. Rows of a
-// 128-query block past N (N % 128 == 64) are computed on the next batch's
-// rows or TMA's zeros and not stored.
+// matmul were workarounds for the TPU and are left out. N is any square in
+// [16, 2048] (the JAX gate): rows of a 128-query block past N are computed on
+// the next batch's rows or TMA's zeros and not stored, and the last key tile
+// may be partial (N < 64 is one partial tile): its keys past N score -inf,
+// and their v rows are TMA's zeros (v's map holds each batch apart), so they
+// add exactly 0 whatever the next batch holds.
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -169,7 +173,9 @@ constexpr size_t flash_smem() {
   return 1024 + (size_t)(kBQ + kStages * 2 * kBN) * 2 * Dh + (1 + 2 * kStages) * sizeof(uint64_t);
 }
 
-template <int Dh>
+// kRagged: N % 64 != 0, the last key tile is partial; an instance of its
+// own, so the full tiles of the other one carry no mask
+template <int Dh, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int H) {
@@ -187,8 +193,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y;
-  const int row_base = blockIdx.z * N;  // the batch's first row in the (B*N)-row maps
-  const int n_tiles = N / kBN;
+  const int row_base = blockIdx.z * N;  // the batch's first row in q-hat's and k-hat's maps
+  const int n_tiles = (N + kBN - 1) / kBN;  // the last one may be partial
 
   if (tid == 0) {
     otk::mbar_init(q_bar, 1);
@@ -211,7 +217,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         const uint32_t full = full0 + 8 * s, k_dst = kv_s + s * kStageBytes;
         otk::mbar_expect_tx(full, kStageBytes);
         otk::tma_load(k_dst, &tk, full, h * Dh, row_base + it * kBN);
-        otk::tma_load(k_dst + kTileBytes, &tv, full, (H + h) * Dh, row_base + it * kBN);
+        otk::tma_load(k_dst + kTileBytes, &tv, full, (H + h) * Dh, it * kBN, blockIdx.z);
       }
     }
     return;
@@ -242,6 +248,16 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       otk::wgmma<kBN>(sc, tile_desc<Dh, false>(qa + 32 * kk), tile_desc<Dh, false>(kt + 32 * kk));
     otk::wgmma_commit_wait();
     otk::fence_regs<kBN / 2>(sc);
+
+    // keys of a partial last tile past N (the next batch's k-hat rows, or
+    // TMA's zeros past the end) score -inf: P is exactly 0 there, and their
+    // v rows are TMA's zeros, so they add exactly 0
+    if (kRagged && it == n_tiles - 1) {
+      const int valid = N - it * kBN;
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        if (8 * (i >> 2) + 2 * t + (i & 1) >= valid) sc[i] = -CUDART_INF_F;
+    }
 
     // online softmax in the log2 domain; rows g (e = 0) and g + 8 (e = 1)
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -328,14 +344,15 @@ int launch(const void* q, const void* kv, const void* qs, const void* ks, const 
 
   CUtensorMap tq, tk, tv;
   if (!otk::make_map(&tq, q_hat, rows, HD, 64, Dh) || !otk::make_map(&tk, k_hat, rows, HD, 64, Dh) ||
-      !otk::make_map(&tv, kv, rows, 2 * HD, 64, Dh))
+      !otk::make_map(&tv, kv, N, 2 * HD, 64, Dh, B))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = flash_smem<Dh>();
-  err = cudaFuncSetAttribute(flash_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = N % kBN ? flash_kernel<Dh, true> : flash_kernel<Dh, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kBQ - 1) / kBQ, H, B);
-  flash_kernel<Dh><<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, H);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,7 +363,7 @@ extern "C" int cosine_mha_launch(const void* q, const void* kv, const void* q_sc
                                  const void* k_scale, const void* cos_t, const void* sin_t,
                                  void* q_hat, void* k_hat, void* out, int B, int N, int H, int Dh,
                                  float scale, int rope, void* stream) {
-  if (B < 1 || H < 1 || N < kBN || N % kBN) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || N < 16 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 32:

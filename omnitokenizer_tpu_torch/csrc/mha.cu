@@ -1,7 +1,8 @@
 // Plain multi-head attention per (batch, head) over (B*H, N, D) rows:
 //   o = softmax(q k^T * scale [col > row masked to -1e9]) v
 // scores, softmax and both products in f32 on float or bf16 inputs; the
-// output is in the input type. q, k, v and o are contiguous (B*H, N, D).
+// output is in the input type. The flash branches take contiguous (B*H, N,
+// D) tensors; the small branch any (b, h, n) strides with 16-byte rows.
 //
 // Replaces omnitokenizer_tpu/ops/pallas/mha.py:mha_pallas. Two regimes reach
 // it, and each gets a branch:
@@ -42,49 +43,39 @@
 //   inside a tile masked scores are set to -1e9 as in the plain version.
 //
 // * Small branch (N <= 16, D in {32, 64}): the stage-1 tokenizer's causal
-//   temporal blocks, BH = 32768 problems of 9 x 9 in bf16. Bound: bytes, q,
+//   temporal blocks, B*H = 32768 problems of 9 x 9 in bf16. Bound: bytes, q,
 //   k, v read once and o written once (151 MB, 45 us); the flash tile would
-//   leave most of a 64-row block idle. Design: one warp per (bh), as
-//   small_attn.cu: each lane holds D/32 dims of every q, k, v row in
-//   registers, the dot products are warp reductions and the softmax runs in
-//   registers. P is normalized before its bf16 rounding, exactly as the plain
-//   version. Masked pairs are skipped: with the -1e9 fill their
-//   probabilities are exactly 0 in f32, and every row keeps its diagonal.
+//   leave most of a 64-row block idle. Design: the staged small-group core
+//   of small_group.cuh (cp.async ring of whole (b, h) problems in shared
+//   memory, a team of D/16 lanes a query row with 16-byte vectors and
+//   2-step shuffle reductions at D = 64). It reads q, k and v through their
+//   strides: the attention module hands over transposed views of (B, N, H,
+//   D) memory, v inside the fused kv projection, and the output is written
+//   in q's layout, so no copy is made on either side. P is normalized before
+//   its rounding to the input type, exactly as the plain version; masked
+//   pairs weigh exactly 0, as the -1e9 fill gives in f32.
 #include <cstdint>
 #include <type_traits>
 
-#include "common.cuh"
+#include "small_group.cuh"
 
 namespace {
 
 using otk::bf16;
 
+constexpr int kMaxSmallN = 16;
+
 // ---------------------------------------------------------------- helpers
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
-// x rounded to T and back (identity for float)
+// x rounded to T and back
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// 8 consecutive bf16 (16-byte aligned) as f32
-__device__ __forceinline__ void load8(const bf16* src, float* x) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
 
 // ------------------------------------------------------- bf16 flash branch
 constexpr int kBM = 64;        // queries per block
@@ -102,7 +93,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int 
     const int r = i / kVecs, c = (i % kVecs) * 8;
     float x[8];
     if (r < rows_valid) {
-      load8(src + (size_t)r * D + c, x);
+      otk::load8(src + (size_t)r * D + c, x);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) x[e] = 0.f;
@@ -322,15 +313,6 @@ __device__ __forceinline__ void store_hi_lo(uint8_t* hi, int lo_offset, float a,
   *reinterpret_cast<uint4*>(hi + lo_offset) = l;
 }
 
-// 16-byte asynchronous copy global -> shared; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(otk::smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
 __device__ __forceinline__ void cp_async_commit_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
@@ -480,7 +462,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int row
   for (int i = threadIdx.x; i < rows * kVecs; i += C::kThreads) {
     const int r = i / kVecs, c = (i % kVecs) * 4;
     const bool ok = r < rows_valid;
-    cp_async16(dst + r * C::kLdRaw + c, ok ? src + (size_t)r * D + c : src, ok ? 16 : 0);
+    otk::cp_async16(dst + r * C::kLdRaw + c, ok ? src + (size_t)r * D + c : src, ok ? 16 : 0);
   }
 }
 
@@ -549,7 +531,7 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   stage_rows<D>(raw, kb, kBN, N);
   stage_rows<D>(raw_v, vb, kBN, N);
-  cp_async_commit();
+  otk::cp_async_commit();
 
   float o[D / 2], m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
 #pragma unroll
@@ -701,91 +683,35 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, i
   }
 }
 
-// ------------------------------------------------------------ small branch
-constexpr int kMaxSmallN = 16;
-constexpr int kSmallWarps = 8;
-
-template <typename T, int DPL>  // dims per lane: D / 32
-__global__ void __launch_bounds__(kSmallWarps * 32)
-mha_small_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int BH, int N, float scale, int causal) {
-  constexpr int D = DPL * 32;
-  const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.x * kSmallWarps + (threadIdx.x >> 5);
-  if (bh >= BH) return;
-  const size_t base = (size_t)bh * N * D + lane * DPL;
-
-  float qv[kMaxSmallN][DPL], kk[kMaxSmallN][DPL], vv[kMaxSmallN][DPL];
-#pragma unroll
-  for (int t = 0; t < kMaxSmallN; ++t) {
-    if (t < N) {
-#pragma unroll
-      for (int d = 0; d < DPL; ++d) {
-        qv[t][d] = to_f32(q[base + (size_t)t * D + d]);
-        kk[t][d] = to_f32(k[base + (size_t)t * D + d]);
-        vv[t][d] = to_f32(v[base + (size_t)t * D + d]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kMaxSmallN; ++i) {
-    if (i < N) {
-      float s[kMaxSmallN];
-      float m = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kMaxSmallN; ++j) {
-        s[j] = 0.f;
-        if (j < N && !(causal && j > i)) {
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) dot = fmaf(qv[i][d], kk[j][d], dot);
-          s[j] = otk::warp_sum(dot) * scale;
-          m = fmaxf(m, s[j]);
-        }
-      }
-      float denom = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxSmallN; ++j) {
-        if (j < N && !(causal && j > i)) {
-          s[j] = expf(s[j] - m);
-          denom += s[j];
-        }
-      }
-      float o[DPL];
-#pragma unroll
-      for (int d = 0; d < DPL; ++d) o[d] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxSmallN; ++j) {
-        if (j < N && !(causal && j > i)) {
-          const float p = round_to<T>(s[j] / denom);
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) o[d] = fmaf(p, vv[j][d], o[d]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < DPL; ++d) out[base + (size_t)i * D + d] = from_f32<T>(o[d]);
-    }
-  }
-}
-
-template <typename T, int DPL>
-int launch_small(const void* q, const void* k, const void* v, void* o, int BH, int N, float scale,
-                 int causal, cudaStream_t stream) {
-  const dim3 grid((BH + kSmallWarps - 1) / kSmallWarps);
-  mha_small_kernel<T, DPL><<<grid, kSmallWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), BH, N, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int BH, int N, int D,
-             float scale, int causal, cudaStream_t s) {
-  if (N <= kMaxSmallN) {
-    if (D == 32) return launch_small<T, 1>(q, k, v, o, BH, N, scale, causal, s);
-    if (D == 64) return launch_small<T, 2>(q, k, v, o, BH, N, scale, causal, s);
+int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
+             int H, int N, int D, float scale, int causal, cudaStream_t s) {
+  if (N <= kMaxSmallN && (D == 32 || D == 64)) {
+    namespace sg = otk::small_group;
+    sg::Problem p;
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.out = o;
+    p.sq = {st[0], st[1], st[2]};
+    p.sk = {st[3], st[4], st[5]};
+    p.sv = {st[6], st[7], st[8]};
+    p.so = {st[9], st[10], st[11]};
+    p.H = H;
+    p.N = N;
+    p.tasks = B * H;
+    p.scale = scale;
+    p.causal = causal;
+    p.q_scale = p.k_scale = nullptr;
+    return D == 32 ? sg::launch<T, 32, kMaxSmallN, sg::Mode::Plain>(p, s)
+                   : sg::launch<T, 64, kMaxSmallN, sg::Mode::Plain>(p, s);
   }
+  // the flash branches read (B*H, N, D) tensors: refuse any other strides
+  // (a dim of size 1 may carry any stride)
+  const long long dense[3] = {(long long)H * N * D, (long long)N * D, D}, size[3] = {B, H, N};
+  for (int t = 0; t < 12; ++t)
+    if (size[t % 3] > 1 && st[t] != dense[t % 3]) return static_cast<int>(cudaErrorInvalidValue);
+  const int BH = B * H;
   switch (D) {
     case 8: return launch_flash<T, 8>(q, k, v, o, BH, N, scale, causal, s);
     case 16: return launch_flash<T, 16>(q, k, v, o, BH, N, scale, causal, s);
@@ -798,10 +724,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH, int N
 
 }  // namespace
 
-extern "C" int mha_launch(const void* q, const void* k, const void* v, void* out, int BH, int N,
-                          int D, float scale, int causal, int is_bf16, void* stream) {
-  if (BH < 1 || N < 1 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
+// strides: (b, h, n) in elements of q, k, v and out, read by the small
+// branch; the flash branches take contiguous (B*H, N, D) tensors and refuse
+// any other strides
+extern "C" int mha_launch(const void* q, const void* k, const void* v, void* out,
+                          const void* strides, int B, int H, int N, int D, float scale,
+                          int causal, int is_bf16, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<bf16>(q, k, v, out, BH, N, D, scale, causal, s)
-                 : dispatch<float>(q, k, v, out, BH, N, D, scale, causal, s);
+  const long long* st = static_cast<const long long*>(strides);
+  return is_bf16 ? dispatch<bf16>(q, k, v, out, st, B, H, N, D, scale, causal, s)
+                 : dispatch<float>(q, k, v, out, st, B, H, N, D, scale, causal, s);
 }

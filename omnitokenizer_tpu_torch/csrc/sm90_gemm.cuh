@@ -61,6 +61,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same for a map of three dimensions (make_map with batches > 0)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // d (64 x BN, f32, the warpgroup's fragment) += A (64 x 16) B (BN x 16)^T,
 // both K-major in shared memory (descriptors)
 template <int BN>
@@ -138,16 +148,20 @@ inline EncodeTiled encode_fn() {
 
 // a row-major (rows x cols) bf16 matrix, read in (box_rows x box_cols) boxes
 // with the swizzle of the box's row width (128 or 64 bytes); rows past the
-// end read as zeros
+// end read as zeros. batches > 0: that many such matrices one after another,
+// a map of three dimensions (col, row, batch) whose boxes stay inside one
+// matrix, so rows past the end of the box's own matrix read as zeros
 inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
-                     int box_cols = 64) {
+                     int box_cols = 64, int batches = 0) {
   EncodeTiled encode = encode_fn();
-  if (!encode || (box_cols != 64 && box_cols != 32)) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  if (!encode || (box_cols != 64 && box_cols != 32) || batches < 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
+                                 (cuuint64_t)rows * cols * sizeof(bf16)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batches > 0 ? 3 : 2,
+                const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

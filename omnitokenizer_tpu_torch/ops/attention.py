@@ -23,7 +23,7 @@ from .bias import ContinuousPositionBias
 from .kernels.cosine_mha import cosine_mha, cosine_mha_supported
 from .kernels.geglu_ff import geglu_ff, geglu_ff_supported, pad_geglu_weights
 from .kernels.ln_qkv import ln_qkv, ln_qkv_supported
-from .kernels.mha import mha, mha_plain, mha_supported
+from .kernels.mha import mha, mha_plain, mha_supported, small_branch
 from .kernels.small_attn import small_n_attention, small_n_supported
 from .norms import layer_norm
 from .rotary import apply_rotary_emb_2d
@@ -39,9 +39,13 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     """softmax(q k^T * scale [bottom-right causal]) v over (B, H, N, D).
     The `mha` kernel for a CUDA tensor inside its gate at inference, else
     its plain math (`mha_plain`), as `omnitokenizer_tpu.ops.attention.sdpa`
-    routes between `mha_pallas` and XLA."""
-    if not training and q.is_cuda and mha_supported(q.shape[-2], q.shape[-1], q.dtype):
-        return mha(q.contiguous(), k.contiguous(), v.contiguous(), scale, causal)
+    routes between `mha_pallas` and XLA. The kernel's small branch reads the
+    views as they stand; the flash branches take contiguous copies."""
+    n, d = q.shape[-2:]
+    if not training and q.is_cuda and mha_supported(n, d, q.dtype):
+        if not small_branch(n, d):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return mha(q, k, v, scale, causal)
     return mha_plain(q, k, v, scale, causal)
 
 

@@ -35,7 +35,7 @@ SIGNATURES = {
     "geglu_ff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
     "cosine_mha_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
-    "mha_launch": [P, P, P, P, I, I, I, ctypes.c_float, I, I, P],
+    "mha_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, I, P],
 }
 
 
@@ -120,13 +120,15 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
-    """Validate a tensor handed to a CUDA kernel."""
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+          contiguous: bool = True) -> None:
+    """Validate a tensor handed to a CUDA kernel; a kernel that reads strided
+    views (contiguous=False) checks their strides itself."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

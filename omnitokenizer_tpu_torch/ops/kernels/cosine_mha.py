@@ -18,15 +18,14 @@ import torch.nn.functional as F
 from ..rotary import freqs_cis_2d, rotate_pairs
 from . import _build
 
-TILE = 64
+MIN_N, MAX_N = 16, 2048
 DIM_HEADS = (32, 64)
 
 
 def cosine_mha_supported(n: int, dim_head: int) -> bool:
-    """The kernel takes whole 64-token tiles; the JAX gate's square-grid
-    and size bounds apply as well."""
-    return (n % TILE == 0 and 16 <= n <= 2048 and int(n ** 0.5) ** 2 == n
-            and dim_head in DIM_HEADS)
+    """The JAX gate (`cosine_mha.py:cosine_mha_supported`): a square token
+    grid of 16 to 2048 tokens, here at the kernel's head widths."""
+    return MIN_N <= n <= MAX_N and int(n ** 0.5) ** 2 == n and dim_head in DIM_HEADS
 
 
 def cosine_prep_plain(q, kv, q_scale, k_scale, heads: int, dim_head: int,

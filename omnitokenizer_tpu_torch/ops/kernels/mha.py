@@ -5,11 +5,14 @@ product, which accumulates in f32; the output is in the input dtype. The
 optional causal mask is bottom-right aligned (col > row + Nk - Nq) and
 fills -1e9, not -inf. Replaces `omnitokenizer_tpu/ops/pallas/mha.py:mha_pallas`;
 the CUDA kernel is `csrc/mha.cu` (for N > 16 a flash branch: f32 on wgmma
-tensor cores with 3xTF32 error compensation, bf16 in f32 FMA; one warp per
-(batch, head) for N <= 16) and `mha_plain` its plain version.
+tensor cores with 3xTF32 error compensation, bf16 in f32 FMA; for N <= 16 the
+staged small-group core of `csrc/small_group.cuh`, which reads strided views)
+and `mha_plain` its plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -21,6 +24,8 @@ MIN_N, MAX_N = 8, 2048
 # configs (64, 32, 8) and 16, 128; the JAX gate takes any D % 8 == 0
 DIM_HEADS = (8, 16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# the small branch: any (b, h, n) strides whose rows are 16-byte aligned
+SMALL_MAX_N, SMALL_DIM_HEADS = 16, (32, 64)
 
 
 def mha_supported(n: int, dim_head: int, dtype: torch.dtype) -> bool:
@@ -28,6 +33,12 @@ def mha_supported(n: int, dim_head: int, dtype: torch.dtype) -> bool:
     narrowed to the kernel's head widths and dtypes. The caller handles the
     other conditions: no bias, not training."""
     return MIN_N <= n <= MAX_N and dim_head in DIM_HEADS and dtype in DTYPES
+
+
+def small_branch(n: int, dim_head: int) -> bool:
+    """Whether the kernel takes (n, dim_head) in its small branch, which
+    reads strided views; the flash branches take contiguous tensors."""
+    return n <= SMALL_MAX_N and dim_head in SMALL_DIM_HEADS
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -46,20 +57,33 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         causal: bool = False) -> torch.Tensor:
-    """q, k, v contiguous (B, H, N, D) of one dtype, float32 or bfloat16.
-    Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    """q, k, v (B, H, N, D) of one dtype, float32 or bfloat16: contiguous,
+    or in the small branch any views with 16-byte rows (the attention
+    module's transposed (B, N, H, D) memory; the output then takes q's
+    layout). Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, scale, causal)
     B, H, N, D = q.shape
     if not mha_supported(N, D, q.dtype):
         raise ValueError(f"mha: unsupported N={N} dim_head={D} dtype={q.dtype}")
+    small = small_branch(N, D)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _build.check(t, name, q.dtype, (B, H, N, D))
+        _build.check(t, name, q.dtype, (B, H, N, D), contiguous=not small)
+        if small and t.stride(-1) != 1:
+            raise ValueError(f"mha: {name} needs a unit last stride, got {t.stride(-1)}")
+        if small and any(s * t.element_size() % 16
+                         for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"mha: {name} rows are not 16-byte aligned (strides {t.stride()})")
         if t.data_ptr() % 16:
             raise ValueError(f"mha: {name} is not 16-byte aligned")
-    out = torch.empty_like(q)
+    if small and q.transpose(1, 2).is_contiguous():
+        out = torch.empty(B, N, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty(B, H, N, D, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     _build.launch("mha_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B * H, N, D, float(scale), int(causal), int(q.dtype == torch.bfloat16))
+                  ctypes.addressof(strides), B, H, N, D, float(scale), int(causal),
+                  int(q.dtype == torch.bfloat16))
     mha.launches += 1
     return out
 

@@ -6,8 +6,9 @@ output, k in the first H*D lanes of each row and v in the next H*D.
 Replaces `omnitokenizer_tpu/ops/pallas/small_attn.py:small_n_attention` and
 its token-flat twin `small_n_attention_flat`: a contiguous (B', n, H*D)
 tensor is the same memory as the flat ((b h w) t) rows, so one kernel serves
-both. The CUDA kernel is `csrc/small_attn.cu`; `small_n_attention_plain` is
-its plain version.
+both. The CUDA kernel is `csrc/small_attn.cu`, on the staged small-group
+core `csrc/small_group.cuh` that mha's small branch shares;
+`small_n_attention_plain` is its plain version.
 """
 
 from __future__ import annotations

@@ -7,10 +7,13 @@ no JAX, so on the card it runs without the repo's conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import ctypes
+
 import pytest
 import torch
 import torch.nn.functional as F
 
+from omnitokenizer_tpu_torch.ops.kernels import _build
 from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
 from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
 from omnitokenizer_tpu_torch.ops.kernels import ln_qkv as lq
@@ -68,11 +71,13 @@ def test_geglu_ff(gen, M, D):
                    gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p)) <= REL_TOL
 
 
+# R = 1 and 3 leave a block's stage mostly empty; 4097 ends on a ragged stage
+@pytest.mark.parametrize("groups", [1, 3, 37, 4097])
 @pytest.mark.parametrize("dim_head", sa.DIM_HEADS)
-@pytest.mark.parametrize("n", [1, 5, 8])
+@pytest.mark.parametrize("n", range(1, 9))
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_small_n_attention(gen, dim_head, n, causal):
-    heads, groups = 3, 37
+def test_small_n_attention(gen, dim_head, n, causal, groups):
+    heads = 3
     q = randn(gen, groups, n, heads * dim_head)
     kv = randn(gen, groups, n, 2 * heads * dim_head)
     qs = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
@@ -82,10 +87,11 @@ def test_small_n_attention(gen, dim_head, n, causal):
     assert rel_err(got, want) <= REL_TOL
 
 
-# 1600 = 40^2 is the largest N the gate takes (a square, whole 64-token
-# tiles, <= 2048), and leaves half of the last 128-query block past N
+# squares with whole 64-key tiles (1600 leaves half of the last 128-query
+# block past N) and ragged ones: 16 and 144 inside one or three tiles, 784
+# (a 224^2 image at patch 8) and 2025, the largest square of the gate
 @pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
-@pytest.mark.parametrize("N", [64, 256, 1024, 1600])
+@pytest.mark.parametrize("N", [64, 256, 1024, 1600, 16, 144, 784, 2025])
 @pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
 def test_cosine_mha(gen, dim_head, N, rope):
     heads, B = 3, 2
@@ -98,12 +104,13 @@ def test_cosine_mha(gen, dim_head, N, rope):
     assert rel_err(got, want) <= REL_TOL
 
 
+@pytest.mark.parametrize("N", [1024, 784])
 @pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
 @pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
-def test_cosine_mha_large_logits(gen, dim_head, rope):
+def test_cosine_mha_large_logits(gen, dim_head, rope, N):
     """q_scale and k_scale near 3 put the logits up to ~72: the softmax is
     sharp, and P's bf16 rounding and the running max matter."""
-    heads, B, N = 2, 2, 1024
+    heads, B = 2, 2
     q = randn(gen, B, N, heads * dim_head)
     kv = randn(gen, B, N, 2 * heads * dim_head)
     qs = 3 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
@@ -111,6 +118,36 @@ def test_cosine_mha_large_logits(gen, dim_head, rope):
     got = cm.cosine_mha(q, kv, qs, ks, heads, dim_head, 8.0, rope)
     want = cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, rope)
     assert rel_err(got, want) <= REL_TOL
+
+
+@pytest.mark.parametrize("N", [16, 144, 784, 1024])
+@pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
+def test_cosine_mha_batches_stay_apart(gen, dim_head, N):
+    """inf and NaN in the second batch's v leave the first batch's output as
+    the plain version gives it on that batch alone: a partial last key tile
+    reads no v row of another batch."""
+    heads = 2
+    q = randn(gen, 2, N, heads * dim_head)
+    kv = randn(gen, 2, N, 2 * heads * dim_head)
+    kv[1, : N // 2, heads * dim_head:] = float("inf")
+    kv[1, N // 2:, heads * dim_head:] = float("nan")
+    qs = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    ks = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    got = cm.cosine_mha(q, kv, qs, ks, heads, dim_head, 8.0, True)[:1]
+    want = cm.cosine_mha_plain(q[:1], kv[:1], qs, ks, heads, dim_head, 8.0, True)
+    assert bool(torch.isfinite(got).all())
+    assert rel_err(got, want) <= REL_TOL
+
+
+@pytest.mark.parametrize("N", [16, 784, 1024])
+@pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
+def test_cosine_mha_one_batch(gen, dim_head, N):
+    heads = 3
+    q, kv = randn(gen, 1, N, heads * dim_head), randn(gen, 1, N, 2 * heads * dim_head)
+    qs = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    ks = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    assert rel_err(cm.cosine_mha(q, kv, qs, ks, heads, dim_head, 8.0, True),
+                   cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, True)) <= REL_TOL
 
 
 @pytest.mark.parametrize("D", vq.CODE_DIMS)
@@ -138,6 +175,33 @@ def test_mha(gen, dtype, causal, N, dim_head):
     want = mh.mha_plain(q, k, v, dim_head ** -0.5, causal)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
+    assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
+
+
+def bnhd_views(gen, B, H, N, D, dt):
+    """q, k and v as the attention module hands them to sdpa: (B, H, N, D)
+    views of (B, N, H, D) memory, v inside a fused (B, N, 2*H*D) kv."""
+    q, k = (randn(gen, B, N, H, D, dtype=dt).transpose(1, 2) for _ in range(2))
+    kv = randn(gen, B, N, 2 * H * D, dtype=dt)
+    return q, k, kv[..., H * D:].view(B, N, H, D).transpose(1, 2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bnhd_views"])
+@pytest.mark.parametrize("dim_head", mh.SMALL_DIM_HEADS)
+@pytest.mark.parametrize("N", range(8, 17))
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_small_branch(gen, dtype, causal, N, dim_head, layout):
+    B, H, dt = 5, 3, getattr(torch, dtype)
+    if layout == "contiguous":
+        q, k, v = (randn(gen, B, H, N, dim_head, dtype=dt) for _ in range(3))
+    else:
+        q, k, v = bnhd_views(gen, B, H, N, dim_head, dt)
+    got = mh.mha(q, k, v, dim_head ** -0.5, causal)
+    want = mh.mha_plain(q, k, v, dim_head ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert got.stride() == (q.stride() if layout == "bnhd_views" else q.contiguous().stride())
     assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
 
 
@@ -196,8 +260,8 @@ def test_wrappers_refuse_bad_input(gen):
         lq.ln_qkv(x.t(), gamma, w, w)
     with pytest.raises(ValueError, match="bfloat16"):
         lq.ln_qkv(x.float(), gamma, w, w)
-    with pytest.raises(ValueError, match="unsupported"):
-        cm.cosine_mha(randn(gen, 1, 100, 64), randn(gen, 1, 100, 128),
+    with pytest.raises(ValueError, match="unsupported"):  # 99 is no square
+        cm.cosine_mha(randn(gen, 1, 99, 64), randn(gen, 1, 99, 128),
                       gamma[:64], gamma[:64], 1, 64, 8.0)
     q = randn(gen, 1, 2, 64, 64)
     with pytest.raises(ValueError, match="contiguous"):
@@ -206,3 +270,33 @@ def test_wrappers_refuse_bad_input(gen):
         mh.mha(q, q, q.half(), 8.0)
     with pytest.raises(ValueError, match="unsupported"):
         mh.mha(q[:, :, :5], q[:, :, :5], q[:, :, :5], 8.0)
+
+
+def test_mha_small_branch_refuses_bad_views(gen):
+    """The small branch reads strided views, but only with a unit last
+    stride and rows 16 bytes apart."""
+    q = randn(gen, 1, 2, 9, 64)
+    with pytest.raises(ValueError, match="unit last stride"):
+        mh.mha(q, randn(gen, 1, 2, 9, 128)[..., ::2], q, 8.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        mh.mha(q, q, randn(gen, 1, 2, 9, 68)[..., :64], 8.0)
+    assert mh.mha(q, q, q, 8.0).is_contiguous()
+
+
+def test_mha_flash_refuses_strided_views(gen):
+    """The flash branches read dense (B*H, N, D) tensors: the C entry point
+    refuses any other strides, whatever the wrapper lets through, but takes
+    any stride of a dim of size 1."""
+    q = randn(gen, 2, 2, 64, 64)
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr())
+    for strides, ok in (((8192, 4096, 64) * 4, True), ((8192, 64, 128) * 4, False)):
+        st = (ctypes.c_longlong * 12)(*strides)
+        if ok:
+            _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 8.0, 0, 1)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 8.0, 0, 1)
+    one = randn(gen, 2, 1, 64, 64).transpose(0, 1)  # (1, 2, 64, 64), batch stride 4096
+    assert one.is_contiguous() and one.stride(0) != one.numel()
+    assert rel_err(mh.mha(one, one, one, 8.0), mh.mha_plain(one, one, one, 8.0)) <= REL_TOL

@@ -57,6 +57,34 @@ def test_mha_plain_matches_pallas(dtype, causal, N, D):
         assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
 
 
+@pytest.mark.parametrize("N", [9, 16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_plain_on_bnhd_views_matches_pallas(dtype, causal, N):
+    """The inputs of the kernel's small branch as the attention module hands
+    them over: (B, H, N, D) views of (B, N, H, D) memory, v inside a fused
+    kv. The plain version gives on them what it gives on contiguous copies,
+    and sits within the bar of mha_pallas in interpret mode."""
+    B, H, D = 2, 2, 64
+    q, k, v = _qkv(N + 100, N, D, B=B, H=H)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = np.asarray(mha_pallas(jq, jk, jv, 8.0, causal, interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch_f32(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype))
+                  for a in (jq, jk, jv))
+    kv = torch.cat([tk.transpose(1, 2), tv.transpose(1, 2)], dim=2).reshape(B, N, 2 * H * D)
+    vq, vk = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (tq, tk))
+    vv = kv[..., H * D:].view(B, N, H, D).transpose(1, 2)
+    assert not vq.is_contiguous() and vv.stride() == (N * 2 * H * D, D, 2 * H * D, 1)
+    got = mha_plain(vq, vk, vv, 8.0, causal)
+    torch.testing.assert_close(got, mha_plain(tq, tk, tv, 8.0, causal), rtol=0, atol=0)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
 def _tf32(x):
     """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
     zero, as cvt.rna.tf32.f32 does."""

@@ -75,12 +75,17 @@ def test_peg(causal, layout):
              jax_args=(video_shape, True), torch_args=(video_shape, True))
 
 
-@pytest.mark.parametrize("kind", ["spatial_rope", "temporal_causal"])
+# the rel path's 9 latent frames (mha's small-branch shape) and a ragged
+# 12 x 12 grid (cosine_mha's partial last key tile on the card)
+@pytest.mark.parametrize("kind", ["spatial_rope", "temporal_causal", "temporal_causal_9",
+                                  "spatial_rope_144"])
 def test_attention(kind):
-    if kind == "spatial_rope":
-        kw, x, is_spatial = dict(spatial_pos="rope", causal=False), inputs(3, 16, D, seed=2), True
+    if kind.startswith("spatial_rope"):
+        n = 144 if kind.endswith("144") else 16
+        kw, x, is_spatial = dict(spatial_pos="rope", causal=False), inputs(3, n, D, seed=2), True
     else:
-        kw, x, is_spatial = dict(spatial_pos="rel", causal=True), inputs(8, 5, D, seed=2), False
+        n = 9 if kind.endswith("9") else 5
+        kw, x, is_spatial = dict(spatial_pos="rel", causal=True), inputs(8, n, D, seed=2), False
     run_both(jattn.Attention(D, dim_head=DIM_HEAD, heads=HEADS, **kw),
              tattn.Attention(D, dim_head=DIM_HEAD, heads=HEADS, **kw), x,
              jax_args=(is_spatial,), torch_args=(is_spatial,))
