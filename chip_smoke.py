@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,7 +33,12 @@ Phases (any failure raises and exits non-zero):
   6. the bf16 round trip of imagenet_only_config() (temporal patch 2, 'rel'
      positions: 9 latent frames, causal temporal attention through mha's
      small branch on the attention module's views, with no copies) at full
-     width, with phase 3's checks.
+     width, with phase 3's checks;
+  7. the bf16 round trip of the flagship widened to width 768 with heads of
+     128 (B=1, full depth: ln_qkv and geglu_ff at D = 768, cosine_mha and
+     small_n_attention at a head width of 128), with phase 3's checks; then
+     each of its kernels against its plain version at its shapes, as in
+     phase 2, and vq_argmin against its plain version at a code dim of 6.
 The line before the last is a JSON object with a row per kernel and shape;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -61,6 +66,9 @@ EXPECTED_LAUNCHES = {
     # which cosine_mha refuses, so the 8 temporal blocks take mha
     "rel": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 0,
             "vq_argmin": 1, "mha": 8},
+    # the flagship at width 768, heads of 128: the flagship's routes
+    "wide": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
+             "vq_argmin": 1, "mha": 0},
 }
 SOURCES = {
     "vq_argmin": ("omnitokenizer_tpu_torch/csrc/vq_argmin.cu",
@@ -90,6 +98,10 @@ VAE_REL_TOL = 1e-4      # f32 VAE, kernel vs plain path (summation order only)
 # f32 FMA, and the f32 mha runs three TF32 passes with error compensation
 # (3xTF32), so its least time is 3x its flops at the TF32 rate.
 PEAK_BF16, PEAK_TF32, PEAK_F32, HBM_BYTES_PER_S = 989e12, 495e12, 67e12, 3.35e12
+# vq_argmin's issue floor: D FFMA and one min a (row, code) pair, one warp
+# instruction a clock on each of an SM's 4 schedulers, at the H100 SXM's
+# 1.98 GHz boost clock (an estimate beside the bound, not a measurement)
+BOOST_HZ, LANES_PER_SM = 1.98e9, 128
 
 
 def bound(flops: float, nbytes: float, peak: float) -> dict:
@@ -183,191 +195,208 @@ def phase1_build() -> None:
     print(f"[1] built {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
 
 
-def phase2_kernels() -> list:
-    from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
-    from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
+ROWS: list = []  # a row per kernel and shape: the kernels line
+BF = torch.bfloat16
+
+
+def compare(name, got, want, tol=KERNEL_REL_TOL):
+    err = (max_abs(got, want), rel_err(got, want))
+    if not err[1] <= tol:
+        raise AssertionError(f"{name}: relative error {err[1]:.3e} > {tol}")
+    return err
+
+
+def record(tag, name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, chain_fn=None,
+           **shape):
+    """Time a kernel (queued and not), its plain version and its yardsticks,
+    and keep the row."""
+    ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+    host_paced_ms = cuda_ms(kernel_fn, queued=False)
+    library_ms = None if library_fn is None else cuda_ms(library_fn)
+    chain_ms = None if chain_fn is None else cuda_ms(chain_fn)
+    row = {"name": name, "path": path, "max_abs_err": max(e[0] for e in errs), "ms": ms,
+           "host_paced_ms": host_paced_ms, "plain_ms": plain_ms, **cost,
+           "library_ms": library_ms, "chain_ms": chain_ms, **shape}
+    ROWS.append(row)
+    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+    lib += "" if chain_ms is None else f"  chain {chain_ms:.4f} ms"
+    print(f"[{tag}] {name} ({path}) {shape}: max_abs {row['max_abs_err']:.3e} "
+          f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms (not queued "
+          f"{host_paced_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+          f"{lib}  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+# Each check_* holds a kernel against its plain version at one path's
+# shapes and records its row. Its chain is the module's own plain bf16
+# route (ops/attention.py: Attention and FeedForward with training=True):
+# layer_norm, then cuBLAS bf16 F.linear; [RoPE], F.normalize and one SDPA
+# call for the attention kernels.
+def check_ln_qkv(tag, path, x, gamma, wq, wkv):
+    """ln_qkv: x (M, D) -> q (M, dq), kv (M, dkv)."""
     from omnitokenizer_tpu_torch.ops.kernels import ln_qkv as lq
-    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
-    from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
-    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
     from omnitokenizer_tpu_torch.ops.norms import layer_norm
+
+    (M, D), dqkv = x.shape, wq.shape[0] + wkv.shape[0]
+
+    def chain():
+        return F.linear((layer_norm(x) * gamma).to(BF), wq), F.linear(x, wkv)
+
+    q_k, kv_k = lq.ln_qkv(x, gamma, wq, wkv)
+    q_p, kv_p = lq.ln_qkv_plain(x, gamma, wq, wkv)
+    record(tag, "ln_qkv", path,
+           [compare("ln_qkv q", q_k, q_p), compare("ln_qkv kv", kv_k, kv_p)],
+           lambda: lq.ln_qkv(x, gamma, wq, wkv), lambda: lq.ln_qkv_plain(x, gamma, wq, wkv),
+           bound(2 * M * D * dqkv, 2 * (M * D + dqkv * D + M * dqkv) + 4 * D, PEAK_BF16),
+           chain_fn=chain, shape=[M, D, wq.shape[0], wkv.shape[0]])
+
+
+def check_geglu(tag, path, x, ln_w, ln_b, w1, w2):
+    """geglu_ff: x (M, D), w1 (2 inner, D), w2 (D, inner); the bound counts
+    the unpadded inner."""
+    from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
+    from omnitokenizer_tpu_torch.ops.norms import layer_norm
+
+    (M, D), inner = x.shape, w2.shape[1]
+    w1p, w2p = gf.pad_geglu_weights(w1, w2)
+    w1b, w2b = w1.to(BF), w2.to(BF)
+
+    def chain():
+        val, gate = F.linear((layer_norm(x) * ln_w + ln_b).to(BF), w1b).chunk(2, dim=-1)
+        return F.linear((F.gelu(gate) * val).to(BF), w2b)
+
+    record(tag, "geglu_ff", path,
+           [compare("geglu_ff", gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
+                    gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p))],
+           lambda: gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
+           lambda: gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p),
+           bound(6 * M * D * inner, 2 * (2 * M * D + 3 * inner * D) + 8 * D, PEAK_BF16),
+           chain_fn=chain, shape=[M, D, inner])
+
+
+def sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope):
+    """The attention modules' bf16 route up to SDPA (ops/attention.py:
+    _attend): [RoPE], F.normalize * scales -> bf16, as (B, H, N, Dh) views."""
     from omnitokenizer_tpu_torch.ops.rotary import freqs_cis_2d, rotate_pairs
 
+    b, n, _ = q.shape
+    qh, k = q.view(b, n, heads, dim_head), kv.view(b, n, 2, heads, dim_head)[:, :, 0]
+    if rope:
+        cos, sin = freqs_cis_2d(dim_head, n, q.device)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+        qh, k = rotate_pairs(qh, cos, sin), rotate_pairs(k, cos, sin)
+    qh = (F.normalize(qh.float(), dim=-1) * qs).to(BF)
+    k = (F.normalize(k.float(), dim=-1) * ks).to(BF)
+    return [t.transpose(1, 2) for t in (qh, k, kv.view(b, n, 2, heads, dim_head)[:, :, 1])]
+
+
+def attention_chain(q, kv, heads, dim_head, qs, ks, rope, causal=False):
+    b, n, _ = q.shape
+    out = F.scaled_dot_product_attention(*sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope),
+                                         is_causal=causal, scale=8.0)
+    return out.transpose(1, 2).reshape(b, n, heads * dim_head)
+
+
+def check_small_n(tag, path, q, kv, qs, ks, heads, dim_head):
+    """small_n_attention: (b h w, t, H*Dh), causal and not; timed causal, as
+    the paths run it; its library call is SDPA alone on q-hat and k-hat made
+    ahead."""
+    from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
+
+    R, t, _ = q.shape
+    args = (q, kv, qs, ks, heads, dim_head, 8.0)
+    errs = [compare(f"small_n_attention causal={c}", sa.small_n_attention(*args, c),
+                    sa.small_n_attention_plain(*args, c)) for c in (True, False)]
+    small_in = sdpa_inputs(q, kv, heads, dim_head, qs, ks, False)
+
+    def library():
+        return F.scaled_dot_product_attention(*small_in, is_causal=True, scale=8.0)
+
+    print(f"[{tag}] small_n_attention ({path}): its SDPA call runs {device_kernels(library)}")
+    record(tag, "small_n_attention", path, errs, lambda: sa.small_n_attention(*args, True),
+           lambda: sa.small_n_attention_plain(*args, True),
+           bound(4 * R * heads * dim_head * t * (t + 1) // 2,
+                 2 * R * t * 4 * heads * dim_head + 8 * dim_head, PEAK_BF16), library,
+           chain_fn=lambda: attention_chain(q, kv, heads, dim_head, qs, ks, False, causal=True),
+           shape=[R, t, heads * dim_head], causal=True)
+
+
+def check_cosine(tag, path, q, kv, qs, ks, heads, dim_head, rope):
+    """cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs
+    it."""
+    from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
+
+    bt, n, _ = q.shape
+    args = (q, kv, qs, ks, heads, dim_head, 8.0)
+    errs = [compare(f"cosine_mha N={n} rope={r}", cm.cosine_mha(*args, r),
+                    cm.cosine_mha_plain(*args, r)) for r in (True, False)]
+    sdpa_in = sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope)
+
+    def library():
+        return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
+
+    chain_err = max_abs(attention_chain(q, kv, heads, dim_head, qs, ks, rope),
+                        cm.cosine_mha_plain(*args, rope))
+    print(f"[{tag}] cosine_mha ({path}): chain vs plain max_abs {chain_err:.3e}; "
+          f"its SDPA call runs {device_kernels(library)}")
+    record(tag, "cosine_mha", path, errs, lambda: cm.cosine_mha(*args, rope),
+           lambda: cm.cosine_mha_plain(*args, rope),
+           bound(4 * bt * heads * n * n * dim_head,
+                 2 * bt * n * 4 * heads * dim_head + 8 * dim_head, PEAK_BF16), library,
+           chain_fn=lambda: attention_chain(q, kv, heads, dim_head, qs, ks, rope),
+           shape=[bt, n, heads * dim_head], rope=rope)
+
+
+def check_vq(tag, path, z, emb):
+    """vq_argmin: rows (M, D) f32 against codes (K, D); its chain is the
+    f32 distance argmin (TF32 off); its row also carries the issue floor."""
+    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+
+    (M, D), K = z.shape, emb.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gap = vq_gap(tag, f"vq_argmin ({path})", z, emb)
+    record(tag, "vq_argmin", path, [(gap, 0.0)], lambda: vq.vq_argmin(z, emb),
+           lambda: vq.vq_argmin_plain(z, emb),
+           bound(2 * M * K * D, 4 * (M * D + K * D + M), PEAK_F32),
+           chain_fn=lambda: torch.argmin((emb * emb).sum(1)[None, :] - 2.0 * (z @ emb.t()),
+                                         dim=1),
+           shape=[M, K, D],
+           issue_bound_ms=M * K * (D + 1) / (sms * LANES_PER_SM * BOOST_HZ) * 1e3)
+
+
+def phase2_kernels() -> None:
+    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
+
     g = torch.Generator().manual_seed(0)
-    bf = torch.bfloat16
     D, H, Dh = 512, 8, 64
     hw = (RES // 8) ** 2  # 32 x 32 tokens a frame
     inner = int(4 * 2 / 3 * D)  # 1365, padded to 1408 for geglu_ff
-    rows = []
-
-    def record(name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, chain_fn=None,
-               **shape):
-        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        host_paced_ms = cuda_ms(kernel_fn, queued=False)
-        library_ms = None if library_fn is None else cuda_ms(library_fn)
-        chain_ms = None if chain_fn is None else cuda_ms(chain_fn)
-        row = {"name": name, "path": path, "max_abs_err": max(e[0] for e in errs), "ms": ms,
-               "host_paced_ms": host_paced_ms, "plain_ms": plain_ms, **cost,
-               "library_ms": library_ms, "chain_ms": chain_ms, **shape}
-        rows.append(row)
-        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-        lib += "" if chain_ms is None else f"  chain {chain_ms:.4f} ms"
-        print(f"[2] {name} ({path}) {shape}: max_abs {row['max_abs_err']:.3e} "
-              f"max_rel {max(e[1] for e in errs):.3e}  kernel {ms:.4f} ms (not queued "
-              f"{host_paced_ms:.4f} ms)  plain {plain_ms:.4f} ms"
-              f"{lib}  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-
-    def compare(name, got, want, tol=KERNEL_REL_TOL):
-        err = (max_abs(got, want), rel_err(got, want))
-        if not err[1] <= tol:
-            raise AssertionError(f"{name}: relative error {err[1]:.3e} > {tol}")
-        return err
 
     ln_w, ln_b = 1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1)
     gamma = 1 + randn(g, D, scale=0.1)
-    wq = randn(g, D, D, scale=D ** -0.5, dtype=bf)
-    wkv = randn(g, 2 * D, D, scale=D ** -0.5, dtype=bf)
+    wq = randn(g, D, D, scale=D ** -0.5, dtype=BF)
+    wkv = randn(g, 2 * D, D, scale=D ** -0.5, dtype=BF)
     w1, w2 = randn(g, 2 * inner, D, scale=D ** -0.5), randn(g, D, inner, scale=inner ** -0.5)
-    w1p, w2p = gf.pad_geglu_weights(w1, w2)
-    w1b, w2b = w1.to(bf), w2.to(bf)
-
-    # the modules' own plain bf16 routes (ops/attention.py: Attention and
-    # FeedForward with training=True): layer_norm, then cuBLAS bf16 F.linear
-    def ln_qkv_chain(x):
-        xn = (layer_norm(x) * gamma).to(bf)
-        return F.linear(xn, wq), F.linear(x, wkv)
-
-    def geglu_chain(x):
-        h = F.linear((layer_norm(x) * ln_w + ln_b).to(bf), w1b)
-        val, gate = h.chunk(2, dim=-1)
-        return F.linear((F.gelu(gate) * val).to(bf), w2b)
     qs, ks = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1)
     emb = randn(g, 8192, 8)
-
-    # the attention modules' bf16 route in PyTorch (ops/attention.py:_attend):
-    # [RoPE], F.normalize * scales -> bf16, then one SDPA call on (B, H, N, Dh)
-    # views; returns the SDPA inputs too, for the library call alone
-    def cos_sim_prep(q, kv, rope):
-        b, n, _ = q.shape
-        qh, k = q.view(b, n, H, Dh), kv.view(b, n, 2, H, Dh)[:, :, 0]
-        if rope:
-            cos, sin = freqs_cis_2d(Dh, n, q.device)
-            cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-            qh, k = rotate_pairs(qh, cos, sin), rotate_pairs(k, cos, sin)
-        qh = (F.normalize(qh.float(), dim=-1) * qs).to(bf)
-        k = (F.normalize(k.float(), dim=-1) * ks).to(bf)
-        return [t.transpose(1, 2) for t in (qh, k, kv.view(b, n, 2, H, Dh)[:, :, 1])]
-
-    def attention_chain(q, kv, rope, causal=False):
-        b, n, _ = q.shape
-        out = F.scaled_dot_product_attention(*cos_sim_prep(q, kv, rope), is_causal=causal,
-                                             scale=8.0)
-        return out.transpose(1, 2).reshape(b, n, H * Dh)
-
-    def vq_chain(z):  # argmin(||e||^2 - 2 z e^T) in f32, TF32 off
-        return torch.argmin((emb * emb).sum(1)[None, :] - 2.0 * (z @ emb.t()), dim=1)
 
     # the VQ paths' shapes: the flagship's 5 latent frames (RoPE) and the
     # stage-1 tokenizer's 9 ('rel': no RoPE, no small_n_attention)
     for path, t, rope in (("vq", 1 + (T - 1) // 4, True), ("rel", 1 + (T - 1) // 2, False)):
         M = B * t * hw
-
-        # ln_qkv: x (M, 512) -> q (M, 512), kv (M, 1024)
-        x = randn(g, M, D, dtype=bf)
-        q_k, kv_k = lq.ln_qkv(x, gamma, wq, wkv)
-        q_p, kv_p = lq.ln_qkv_plain(x, gamma, wq, wkv)
-        record("ln_qkv", path,
-               [compare("ln_qkv q", q_k, q_p), compare("ln_qkv kv", kv_k, kv_p)],
-               lambda: lq.ln_qkv(x, gamma, wq, wkv), lambda: lq.ln_qkv_plain(x, gamma, wq, wkv),
-               bound(2 * M * D * 3 * D, 2 * (M * D + 3 * D * D + 3 * M * D) + 4 * D, PEAK_BF16),
-               chain_fn=lambda: ln_qkv_chain(x), shape=[M, D])
-
-        # geglu_ff (the bound counts the unpadded inner 1365)
-        record("geglu_ff", path,
-               [compare("geglu_ff", gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
-                        gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p))],
-               lambda: gf.geglu_ff(x, ln_w, ln_b, w1p, w2p),
-               lambda: gf.geglu_ff_plain(x, ln_w, ln_b, w1p, w2p),
-               bound(6 * M * D * inner, 2 * (2 * M * D + 3 * inner * D) + 8 * D, PEAK_BF16),
-               chain_fn=lambda: geglu_chain(x), shape=[M, D, inner])
-
-        # small_n_attention: (b h w, t, H*Dh), causal and not; its library
-        # call is SDPA alone on q-hat and k-hat made ahead, causal
+        x = randn(g, M, D, dtype=BF)
+        check_ln_qkv("2", path, x, gamma, wq, wkv)
+        check_geglu("2", path, x, ln_w, ln_b, w1, w2)
         if path == "vq":
-            qt = randn(g, B * hw, t, H * Dh, dtype=bf)
-            kvt = randn(g, B * hw, t, 2 * H * Dh, dtype=bf)
-            errs = []
-            for causal in (True, False):
-                errs.append(compare(f"small_n_attention causal={causal}",
-                                    sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, causal),
-                                    sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0,
-                                                               causal)))
-            small_in = cos_sim_prep(qt, kvt, False)
-
-            def small_library():
-                return F.scaled_dot_product_attention(*small_in, is_causal=True, scale=8.0)
-
-            print(f"[2] small_n_attention ({path}): its SDPA call runs "
-                  f"{device_kernels(small_library)}")
-            record("small_n_attention", path, errs,
-                   lambda: sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, True),
-                   lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True),
-                   bound(4 * B * hw * H * Dh * t * (t + 1) // 2,
-                         2 * B * hw * t * 4 * H * Dh + 8 * Dh, PEAK_BF16), small_library,
-                   chain_fn=lambda: attention_chain(qt, kvt, False, causal=True),
-                   shape=[B * hw, t, H * Dh], causal=True)
-            del small_in
-
-        # cosine_mha: (b t, h w, H*Dh), RoPE on and off; timed as the path runs
-        # it. After the flagship's row, one at a ragged N (the last key tile
+            check_small_n("2", path, randn(g, B * hw, t, H * Dh, dtype=BF),
+                          randn(g, B * hw, t, 2 * H * Dh, dtype=BF), qs, ks, H, Dh)
+        # after the flagship's row, one at a ragged N (the last key tile
         # partial) with the flagship's batch and RoPE
-        cos_cases = [(path, hw, rope)] + ([("ragged", 784, True)] if path == "vq" else [])
-        for row_path, n_sp, rope_sp in cos_cases:
-            qsp = randn(g, B * t, n_sp, H * Dh, dtype=bf)
-            kvsp = randn(g, B * t, n_sp, 2 * H * Dh, dtype=bf)
-            errs = []
-            for r in (True, False):
-                errs.append(compare(f"cosine_mha N={n_sp} rope={r}",
-                                    cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, r),
-                                    cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, r)))
-            sdpa_in = cos_sim_prep(qsp, kvsp, rope_sp)
-
-            def cosine_library():
-                return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
-
-            chain_err = max_abs(attention_chain(qsp, kvsp, rope_sp),
-                                cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp))
-            print(f"[2] cosine_mha ({row_path}): chain vs plain max_abs {chain_err:.3e}; "
-                  f"its SDPA call runs {device_kernels(cosine_library)}")
-            record("cosine_mha", row_path, errs,
-                   lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp),
-                   lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, rope_sp),
-                   bound(4 * B * t * H * n_sp * n_sp * Dh,
-                         2 * B * t * n_sp * 4 * H * Dh + 8 * Dh, PEAK_BF16), cosine_library,
-                   chain_fn=lambda: attention_chain(qsp, kvsp, rope_sp),
-                   shape=[B * t, n_sp, H * Dh], rope=rope_sp)
-            del sdpa_in, qsp, kvsp
-
-        # vq_argmin: l2-normalized latents against an N(0, 1) 8192 x 8 codebook
-        z = F.normalize(randn(g, M, 8), dim=-1).contiguous()
-        idx_k = vq.vq_argmin(z, emb)
-        idx_p = vq.vq_argmin_plain(z, emb)
-        bad = (idx_k != idx_p).nonzero().flatten()
-        gap = 0.0
-        if bad.numel():
-            zz, e64 = z[bad].double(), emb.double()
-            d_k = (zz - e64[idx_k[bad].long()]).square().sum(-1)
-            d_p = (zz - e64[idx_p[bad].long()]).square().sum(-1)
-            rel_gap = ((d_k - d_p).abs() / d_p.clamp_min(1e-12)).max()
-            gap = float((d_k - d_p).abs().max())
-            if not float(rel_gap) <= VQ_TIE_TOL:
-                raise AssertionError(
-                    f"vq_argmin: mismatch with relative distance gap {rel_gap:.3e}")
-        print(f"[2] vq_argmin ({path}): {bad.numel()} of {M} indices differ (near-ties only)")
-        record("vq_argmin", path, [(gap, 0.0)], lambda: vq.vq_argmin(z, emb),
-               lambda: vq.vq_argmin_plain(z, emb),
-               bound(2 * M * 8192 * 8, 4 * (M * 8 + 8192 * 8 + M), PEAK_F32),
-               chain_fn=lambda: vq_chain(z), shape=[M, 8192, 8])
+        for row_path, n_sp, rope_sp in [(path, hw, rope)] + (
+                [("ragged", 784, True)] if path == "vq" else []):
+            check_cosine("2", row_path, randn(g, B * t, n_sp, H * Dh, dtype=BF),
+                         randn(g, B * t, n_sp, 2 * H * Dh, dtype=BF), qs, ks, H, Dh, rope_sp)
+        # l2-normalized latents against an N(0, 1) 8192 x 8 codebook
+        check_vq("2", path, F.normalize(randn(g, M, 8), dim=-1).contiguous(), emb)
 
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
@@ -388,7 +417,7 @@ def phase2_kernels() -> list:
 
     for path, shape, dtype, causal, tol in (
             ("vae", (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False, MHA_F32_REL_TOL),
-            ("rel", (B * hw, H, 1 + (T - 1) // 2, Dh), bf, True, KERNEL_REL_TOL)):
+            ("rel", (B * hw, H, 1 + (T - 1) // 2, Dh), BF, True, KERNEL_REL_TOL)):
         q, k, v = mha_inputs(shape, dtype)
         bh, n = shape[0] * shape[1], shape[2]
         err = compare(f"mha {dtype} causal={causal}", mh.mha(q, k, v, 8.0, causal),
@@ -397,7 +426,7 @@ def phase2_kernels() -> list:
         def library():
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=8.0)
 
-        if dtype == bf and mh.mha(q, k, v, 8.0, causal).stride() != q.stride():
+        if dtype == BF and mh.mha(q, k, v, 8.0, causal).stride() != q.stride():
             raise AssertionError("mha: the output on views does not take q's layout")
 
         print(f"[2] mha ({path}): library call vs plain max_abs "
@@ -405,13 +434,34 @@ def phase2_kernels() -> list:
               f"it runs {device_kernels(library)}")
         pairs = n * (n + 1) // 2 if causal else n * n
         flops, nbytes = 4 * bh * pairs * Dh, 4 * bh * n * Dh * q.element_size()
-        record("mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
+        record("2", "mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
                lambda: mh.mha_plain(q, k, v, 8.0, causal),
-               bound(flops, nbytes, PEAK_BF16) if dtype == bf
+               bound(flops, nbytes, PEAK_BF16) if dtype == BF
                else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
                library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
     mha_f32_floor(mh, g)
-    return rows
+
+
+def vq_gap(tag: str, name: str, z: torch.Tensor, emb: torch.Tensor) -> float:
+    """vq_argmin against its plain version: indices may differ only at
+    near-ties (relative distance gap <= VQ_TIE_TOL); returns the largest
+    absolute distance gap of a differing index."""
+    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+
+    idx_k = vq.vq_argmin(z, emb)
+    idx_p = vq.vq_argmin_plain(z, emb)
+    bad = (idx_k != idx_p).nonzero().flatten()
+    gap = 0.0
+    if bad.numel():
+        zz, e64 = z[bad].double(), emb.double()
+        d_k = (zz - e64[idx_k[bad].long()]).square().sum(-1)
+        d_p = (zz - e64[idx_p[bad].long()]).square().sum(-1)
+        rel_gap = ((d_k - d_p).abs() / d_p.clamp_min(1e-12)).max()
+        gap = float((d_k - d_p).abs().max())
+        if not float(rel_gap) <= VQ_TIE_TOL:
+            raise AssertionError(f"{name}: mismatch with relative distance gap {rel_gap:.3e}")
+    print(f"[{tag}] {name}: {bad.numel()} of {z.shape[0]} indices differ (near-ties only)")
+    return gap
 
 
 def mha_f32_floor(mh, g) -> None:
@@ -435,7 +485,7 @@ def mha_f32_floor(mh, g) -> None:
                                  f"plain {plain:.3e}")
 
 
-def bf16_slice(tag: str, cfg, expected: dict) -> dict:
+def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
     """A bf16 VQ round trip at full width through OmniTokenizerVQGAN: launch
     counts, then the slice bars against the plain bf16 path on the same
     weights and against the f32 model, then frames/s of both paths."""
@@ -446,7 +496,7 @@ def bf16_slice(tag: str, cfg, expected: dict) -> dict:
 
     model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda").serving()
     g = torch.Generator().manual_seed(1)
-    video = (torch.rand(B, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
+    video = (torch.rand(batch, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -458,10 +508,10 @@ def bf16_slice(tag: str, cfg, expected: dict) -> dict:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
     t, hw = 1 + (T - 1) // cfg.temporal_patch_size, RES // cfg.patch_size
-    if tuple(recon.shape) != (B, 3, T, RES, RES) or not bool(torch.isfinite(recon).all()):
+    if tuple(recon.shape) != (batch, 3, T, RES, RES) or not bool(torch.isfinite(recon).all()):
         raise AssertionError(f"bad reconstruction {tuple(recon.shape)}")
     idx = aux["encodings"]
-    if tuple(idx.shape) != (B, t, hw, hw) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
+    if tuple(idx.shape) != (batch, t, hw, hw) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
         raise AssertionError("bad indices")
 
     net, emb = model.net, model.net.codebook.embeddings
@@ -500,9 +550,9 @@ def bf16_slice(tag: str, cfg, expected: dict) -> dict:
         if not floor_k <= FLOOR_RATIO * floor_p:
             raise AssertionError(f"kernel path is {floor_k:.3e} from f32, plain {floor_p:.3e}")
 
-        fps_k, mem_k = fps_and_peak(lambda: model.reconstruct(video, is_image=False), B * T)
-        fps_p, mem_p = fps_and_peak(plain_round_trip, B * T)
-    print(f"[{tag}] round trip B={B} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
+        fps_k, mem_k = fps_and_peak(lambda: model.reconstruct(video, is_image=False), batch * T)
+        fps_p, mem_p = fps_and_peak(plain_round_trip, batch * T)
+    print(f"[{tag}] round trip B={batch} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
           f"(peak {mem_k:.2f} GiB), plain path {fps_p:.2f} frames/s (peak {mem_p:.2f} GiB)")
     return counts
 
@@ -645,6 +695,37 @@ def phase6_rel() -> dict:
                       EXPECTED_LAUNCHES["rel"])
 
 
+def phase7_wide() -> dict:
+    """The flagship at width 768 with heads of 128 (8 x 128), B=1: the
+    widths the port's gates opened last. Then each kernel of that path
+    against its plain version at the path's shapes, and vq_argmin at a code
+    dim of 6, which the kernel zero-pads to 8."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+
+    cfg = imagenet_k600_config().replace(embedding_dim=768, dim_head=128, dtype=BF)
+    counts = bf16_slice("7", cfg, EXPECTED_LAUNCHES["wide"], batch=1)
+    g = torch.Generator().manual_seed(4)
+    D, H, Dh = cfg.embedding_dim, cfg.heads, cfg.dim_head
+    t, hw = 1 + (T - 1) // cfg.temporal_patch_size, (RES // cfg.patch_size) ** 2
+    M, inner = t * hw, int(4 * 2 / 3 * D)
+    x = randn(g, M, D, dtype=BF)
+    check_ln_qkv("7", "wide", x, 1 + randn(g, D, scale=0.1),
+                 randn(g, H * Dh, D, scale=D ** -0.5, dtype=BF),
+                 randn(g, 2 * H * Dh, D, scale=D ** -0.5, dtype=BF))
+    check_geglu("7", "wide", x, 1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1),
+                randn(g, 2 * inner, D, scale=D ** -0.5), randn(g, D, inner, scale=inner ** -0.5))
+    qs, ks = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1)
+    check_small_n("7", "wide", randn(g, hw, t, H * Dh, dtype=BF),
+                  randn(g, hw, t, 2 * H * Dh, dtype=BF), qs, ks, H, Dh)
+    check_cosine("7", "wide", randn(g, t, hw, H * Dh, dtype=BF),
+                 randn(g, t, hw, 2 * H * Dh, dtype=BF), qs, ks, H, Dh, True)
+    check_vq("7", "wide", F.normalize(randn(g, M, cfg.codebook_dim), dim=-1).contiguous(),
+             randn(g, cfg.n_codes, cfg.codebook_dim))
+    vq_gap("7", "vq_argmin at code dim 6", F.normalize(randn(g, 20480, 6), dim=-1).contiguous(),
+           randn(g, 8192, 6))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -652,21 +733,22 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase0_card()
     phase1_build()
-    rows = phase2_kernels()
+    phase2_kernels()
     paths = {"vq": phase3_slice()}
     phase4_small_f32()
     paths["vae"] = phase5_vae()
     paths["rel"] = phase6_rel()
+    paths["wide"] = phase7_wide()
     # a row per kernel and path shape; `launches` is that path's round trip,
     # and null for a shape no path runs (cosine_mha's ragged row)
     kernels = []
-    for row in rows:
+    for row in ROWS:
         src, rep = SOURCES[row["name"]]
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         kernels.append({"name": row["name"], "route": "cuda", "source": src, "replaces": rep,
                         "launches": by_path.get(row["path"]), "launches_by_path": by_path,
                         **row})
-    print(f"[done] phases 0-6 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-7 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of one checkout of the PyTorch port by both of
-chip_smoke.py's timing methods, so that two checkouts (a commit and its
-parent) are compared with one yardstick on one GPU.
+"""Time the attention and code-search kernels of one checkout of the PyTorch
+port by both of chip_smoke.py's timing methods, so that two checkouts (a
+commit and its parent) are compared with one yardstick on one GPU.
 
     python3 kernel_ab.py --root DIR
 
@@ -16,9 +16,14 @@ change, parent). Rows, at chip_smoke.py phase 2's shapes:
     the stage-1 tokenizer's route: `sdpa` on the attention module's
     (B, H, N, D) views of (B, N, H, D) memory, v inside the fused kv, and
     the transpose-reshape after it, with whatever copies the checkout makes;
-  cosine_mha at the flagship's (20, 1024, 8x64) with RoPE.
+  cosine_mha at the flagship's (20, 1024, 8x64) with RoPE;
+  vq_argmin at the flagship's 20480 and the stage-1 tokenizer's 36864 rows
+    of 8 against an 8192 x 8 codebook, called as the checkout's codebook
+    calls it; where that passes squared code norms made ahead, also with
+    the norms left to the wrapper.
 Each row is timed `--repeats` times a method and held against its plain
-version. Prints one JSON line {"root": ..., "rows": [...]}.
+version (vq_argmin: indices equal but at near-ties). Prints one JSON line
+{"root": ..., "rows": [...]}.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ def main() -> int:
     from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
     from omnitokenizer_tpu_torch.ops.kernels import mha as mh
     from omnitokenizer_tpu_torch.ops.kernels import small_attn as sa
+    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
 
     if not Path(mh.__file__).resolve().is_relative_to(root):
         raise AssertionError(f"imported {mh.__file__}, not the package under {root}")
@@ -75,6 +81,18 @@ def main() -> int:
     # cosine_mha: (b t, h w, H*Dh) at the flagship's shape
     qsp, kvsp = randn(20, 1024, H * Dh), randn(20, 1024, 2 * H * Dh)
 
+    # vq_argmin: l2-normalized rows against an N(0, 1) codebook; the
+    # codebook of a checkout that keeps the norms hands them over
+    emb = randn(8192, 8, dtype=torch.float32)
+    norms = (vq.code_norms(emb),) if hasattr(vq, "code_norms") else ()
+    zs = {m: F.normalize(randn(m, 8, dtype=torch.float32), dim=-1).contiguous()
+          for m in (20480, 36864)}
+
+    def vq_case(m, args):
+        made = ", norms made in the call" if norms and not args else ""
+        return (f"vq_argmin, {m} rows{made}", lambda: vq.vq_argmin(zs[m], emb, *args),
+                lambda: vq.vq_argmin_plain(zs[m], emb))
+
     cases = [
         ("small_n_attention", lambda: sa.small_n_attention(qt, kvt, qs, ks, H, Dh, 8.0, True),
          lambda: sa.small_n_attention_plain(qt, kvt, qs, ks, H, Dh, 8.0, True)),
@@ -85,12 +103,18 @@ def main() -> int:
          lambda: mh.mha_plain(q, k, v, 8.0, True).transpose(1, 2).reshape(b, n, H * Dh)),
         ("cosine_mha", lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, True),
          lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, True)),
-    ]
+        vq_case(20480, norms), vq_case(36864, norms),
+    ] + ([vq_case(20480, ()), vq_case(36864, ())] if norms else [])
     rows = []
     for name, fn, plain in cases:
-        err = chip_smoke.rel_err(fn(), plain())
-        if not err <= chip_smoke.KERNEL_REL_TOL:
-            raise AssertionError(f"{name}: relative error {err:.3e}")
+        if name.startswith("vq_argmin"):  # the share of indices that differ
+            err = float((fn() != plain()).float().mean())
+            if not err <= 1e-3:
+                raise AssertionError(f"{name}: {err:.3e} of the indices differ")
+        else:
+            err = chip_smoke.rel_err(fn(), plain())
+            if not err <= chip_smoke.KERNEL_REL_TOL:
+                raise AssertionError(f"{name}: relative error {err:.3e}")
         row = {"name": name, "rel_err": err}
         for method, queued in (("queued_ms", True), ("host_paced_ms", False)):
             times = [chip_smoke.cuda_ms(fn, queued=queued) for _ in range(args.repeats)]

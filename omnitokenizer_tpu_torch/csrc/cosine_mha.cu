@@ -32,8 +32,11 @@
 //      wgmma with B = the v tile read MN-major (tnspB = 1). O stays in
 //      registers (Dh/2 f32 a thread) and is rescaled there; the epilogue
 //      divides by the row sum and writes bf16 at column h*Dh of out.
-// Tiles carry the swizzle of their row width: 128 bytes at Dh = 64, 64 at
-// Dh = 32. The N x N scores never reach device memory. The TPU kernel's bound
+// Dh is 16, 32, 64 or 128. Tiles carry the swizzle of their row width: 32,
+// 64 or 128 bytes at Dh = 16, 32, 64; at Dh = 128 a tile is two boxes of 64
+// columns, each 128-byte swizzled, with the K-major descriptor stepped from
+// one box to the next and the MN-major one's LBO set to the box stride. The
+// N x N scores never reach device memory. The TPU kernel's bound
 // shift with its -80 floor, its ones-column denominator and its pair-swap
 // matmul were workarounds for the TPU and are left out. N is any square in
 // [16, 2048] (the JAX gate): rows of a 128-query block past N are computed on
@@ -113,20 +116,58 @@ prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 }
 
 // ------------------------------------------------------------------ flash
-// wgmma descriptor of a tile TMA wrote with the swizzle of its row width
-// (2*Dh bytes: the 128-byte swizzle at Dh = 64, the 64-byte one at Dh = 32);
-// 8-row groups lie 16*Dh bytes apart (SBO). K-major (q-hat, k-hat: rows are
-// queries or keys, a k step inside a row adds its byte offset): the leading
-// offset is unused. MN-major (v as P V's B: rows are keys, the k dimension):
-// one swizzle row holds all Dh output columns, so the offset between MN
-// repeats (LBO) is never stepped; it is set to the group stride like SBO.
+// A tile of 64 rows (queries, keys or v rows) x Dh lies in shared memory as
+// kBoxes column boxes of kBoxCols, each as TMA wrote it with the swizzle of
+// its row width: 32, 64 or 128 bytes at Dh = 16, 32, 64; two 128-byte boxes
+// at Dh = 128 (a 256-byte row is wider than any swizzle).
+template <int Dh>
+struct Box {
+  static constexpr int kCols = Dh < 64 ? Dh : 64;
+  static constexpr int kCount = Dh / kCols;
+  static constexpr uint32_t kRowBytes = 2 * kCols;
+  static constexpr uint32_t kBytes = 64 * kRowBytes;  // one box of a 64-row tile
+  static constexpr int kSteps = kCols / 16;           // k steps of 16 inside a box
+};
+
+// wgmma descriptor of such a tile; 8-row groups lie 8 box rows apart (SBO).
+// K-major (q-hat, k-hat: rows are queries or keys): a k step adds its byte
+// offset inside the box, or steps to the next box; the leading offset is
+// unused. MN-major (v as P V's B: rows are keys, the k dimension): the Dh
+// output columns are the MN dimension, one swizzle row a box, and LBO is the
+// stride from one box to the next (unused with one box; set like SBO).
 template <int Dh, bool kMN>
 __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  constexpr uint64_t kGroup = 16 * Dh;
-  constexpr uint64_t kLayout = Dh == 64 ? 1 : 2;
-  constexpr uint64_t kLbo = kMN ? kGroup >> 4 : 1;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kLbo << 16) | ((kGroup >> 4) << 32) |
+  using Bx = Box<Dh>;
+  constexpr uint64_t kGroup = 8 * Bx::kRowBytes;
+  constexpr uint64_t kLayout = Bx::kRowBytes == 128 ? 1 : Bx::kRowBytes == 64 ? 2 : 3;
+  constexpr uint64_t kLbo = !kMN ? 16 : Bx::kCount > 1 ? Bx::kBytes : kGroup;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((kLbo >> 4) << 16) | ((kGroup >> 4) << 32) |
          (kLayout << 62);
+}
+
+// the K-major descriptor of k step kk of a 64-row tile at addr
+template <int Dh>
+__device__ __forceinline__ uint64_t kstep_desc(uint32_t addr, int kk) {
+  using Bx = Box<Dh>;
+  return tile_desc<Dh, false>(addr + (kk / Bx::kSteps) * Bx::kBytes + 32 * (kk % Bx::kSteps));
+}
+
+// TMA: the boxes of a 64-row tile at column c0, rows (c1[, batch]) of a map
+template <int Dh>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1) {
+  using Bx = Box<Dh>;
+#pragma unroll
+  for (int b = 0; b < Bx::kCount; ++b)
+    otk::tma_load(dst + b * Bx::kBytes, map, bar, c0 + b * Bx::kCols, c1);
+}
+template <int Dh>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  using Bx = Box<Dh>;
+#pragma unroll
+  for (int b = 0; b < Bx::kCount; ++b)
+    otk::tma_load(dst + b * Bx::kBytes, map, bar, c0 + b * Bx::kCols, c1, c2);
 }
 
 // d (64 x Dh f32) += A (64 x 16, bf16 registers: the m16n8k16 A fragment of
@@ -151,6 +192,20 @@ __device__ __forceinline__ void wgmma_pv<64>(float* d, const uint32_t* a, uint64
 }
 
 template <>
+__device__ __forceinline__ void wgmma_pv<16>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_pv<32>(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -160,6 +215,31 @@ __device__ __forceinline__ void wgmma_pv<32>(float* d, const uint32_t* a, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -174,9 +254,10 @@ constexpr size_t flash_smem() {
 }
 
 // kRagged: N % 64 != 0, the last key tile is partial; an instance of its
-// own, so the full tiles of the other one carry no mask
+// own, so the full tiles of the other one carry no mask. At Dh = 128 O takes
+// 64 registers a thread and a block 161 KB of shared memory: one block an SM
 template <int Dh, bool kRagged>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Dh == 128 ? 1 : 2)
 flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int H) {
   constexpr uint32_t kRowBytes = 2 * Dh;
@@ -209,15 +290,15 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   if (tid >= kConsumers) {  // producer warp: one thread keeps the ring full
     if (tid == kConsumers) {
       otk::mbar_expect_tx(q_bar, kQBytes);
-      otk::tma_load(q_s, &tq, q_bar, h * Dh, row_base + q0);
-      otk::tma_load(q_s + kQBytes / 2, &tq, q_bar, h * Dh, row_base + q0 + 64);
+      load_tile<Dh>(q_s, &tq, q_bar, h * Dh, row_base + q0);
+      load_tile<Dh>(q_s + kQBytes / 2, &tq, q_bar, h * Dh, row_base + q0 + 64);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         if (it >= kStages) otk::mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
         const uint32_t full = full0 + 8 * s, k_dst = kv_s + s * kStageBytes;
         otk::mbar_expect_tx(full, kStageBytes);
-        otk::tma_load(k_dst, &tk, full, h * Dh, row_base + it * kBN);
-        otk::tma_load(k_dst + kTileBytes, &tv, full, (H + h) * Dh, it * kBN, blockIdx.z);
+        load_tile<Dh>(k_dst, &tk, full, h * Dh, row_base + it * kBN);
+        load_tile<Dh>(k_dst + kTileBytes, &tv, full, (H + h) * Dh, it * kBN, blockIdx.z);
       }
     }
     return;
@@ -245,7 +326,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     otk::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk)
-      otk::wgmma<kBN>(sc, tile_desc<Dh, false>(qa + 32 * kk), tile_desc<Dh, false>(kt + 32 * kk));
+      otk::wgmma<kBN>(sc, kstep_desc<Dh>(qa, kk), kstep_desc<Dh>(kt, kk));
     otk::wgmma_commit_wait();
     otk::fence_regs<kBN / 2>(sc);
 
@@ -300,7 +381,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     otk::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kPSteps; ++j)
-      wgmma_pv<Dh>(o, pa[j], tile_desc<Dh, true>(vt + j * 16 * kRowBytes));
+      wgmma_pv<Dh>(o, pa[j], tile_desc<Dh, true>(vt + j * 16 * Box<Dh>::kRowBytes));
     otk::wgmma_commit_wait();
     otk::fence_regs<Dh / 2>(o);
     otk::fence_regs<4 * kPSteps>(&pa[0][0]);
@@ -343,8 +424,10 @@ int launch(const void* q, const void* kv, const void* qs, const void* ks, const 
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap tq, tk, tv;
-  if (!otk::make_map(&tq, q_hat, rows, HD, 64, Dh) || !otk::make_map(&tk, k_hat, rows, HD, 64, Dh) ||
-      !otk::make_map(&tv, kv, N, 2 * HD, 64, Dh, B))
+  constexpr int kBox = Box<Dh>::kCols;
+  if (!otk::make_map(&tq, q_hat, rows, HD, 64, kBox) ||
+      !otk::make_map(&tk, k_hat, rows, HD, 64, kBox) ||
+      !otk::make_map(&tv, kv, N, 2 * HD, 64, kBox, B))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = flash_smem<Dh>();
   auto kernel = N % kBN ? flash_kernel<Dh, true> : flash_kernel<Dh, false>;
@@ -366,12 +449,18 @@ extern "C" int cosine_mha_launch(const void* q, const void* kv, const void* q_sc
   if (B < 1 || H < 1 || N < 16 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
+    case 16:
+      return launch<16>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
+                        rope, s);
     case 32:
       return launch<32>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
                         rope, s);
     case 64:
       return launch<64>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
                         rope, s);
+    case 128:
+      return launch<128>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
+                         rope, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

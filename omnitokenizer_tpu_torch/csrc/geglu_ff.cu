@@ -24,45 +24,29 @@
 // pre-activation never reaches device memory.
 #include "sm90_gemm.cuh"
 
-namespace {
-
-using otk::bf16;
-
-template <int D>
-int launch(const bf16* x, const float* ln_w, const float* ln_b, const bf16* w1, const bf16* w2,
-           bf16* xn, bf16* act, bf16* out, int M, int Ip, cudaStream_t stream) {
-  using namespace otk;
-  constexpr int BN2 = D >= 128 ? 128 : 64;  // GEMM2's output columns per block
-  int rc = launch_ln(x, ln_w, ln_b, xn, M, D, stream);
-  if (rc != 0) return rc;
-  GemmPart g1{}, g2{};
-  if (!make_map(&g1.a, xn, M, D, kBM) || !weight_map(&g1.b, w1, 2 * Ip, D, 64) ||
-      !make_map(&g2.a, act, M, Ip, kBM) || !weight_map(&g2.b, w2, D, Ip, BN2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  g1.out = act, g1.ldo = Ip, g1.tiles = Ip / 64;
-  g2.out = out, g2.ldo = D, g2.tiles = D / BN2;
-  rc = launch_gemm<128, true>(g1, M, D, Ip, stream);
-  if (rc != 0) return rc;
-  return launch_gemm<BN2, false>(g2, M, Ip, 0, stream);
-}
-
-}  // namespace
-
-// xn (M, D) and act (M, Ip) are the wrapper's scratch buffers
+// xn (M, D) and act (M, Ip) are the wrapper's scratch buffers. D is any
+// multiple of 64 up to the LN pass's 2048; GEMM2 writes 128 output columns a
+// block where D allows it, else 64
 extern "C" int geglu_ff_launch(const void* x, const void* ln_w, const void* ln_b, const void* w1,
                                const void* w2, void* xn, void* act, void* out, int M, int D,
                                int Ip, void* stream) {
-  if (M < 1 || Ip < 64 || Ip % 64) return static_cast<int>(cudaErrorInvalidValue);
+  using namespace otk;
+  if (M < 1 || D < 64 || D % 64 || D > kMaxLnDim || Ip < 64 || Ip % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1),
-             *w2b = static_cast<const bf16*>(w2);
-  const float *lw = static_cast<const float*>(ln_w), *lb = static_cast<const float*>(ln_b);
-  bf16 *xnb = static_cast<bf16*>(xn), *actb = static_cast<bf16*>(act), *ob = static_cast<bf16*>(out);
-  switch (D) {
-    case 64: return launch<64>(xb, lw, lb, w1b, w2b, xnb, actb, ob, M, Ip, s);
-    case 128: return launch<128>(xb, lw, lb, w1b, w2b, xnb, actb, ob, M, Ip, s);
-    case 256: return launch<256>(xb, lw, lb, w1b, w2b, xnb, actb, ob, M, Ip, s);
-    case 512: return launch<512>(xb, lw, lb, w1b, w2b, xnb, actb, ob, M, Ip, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  bf16 *xnb = static_cast<bf16*>(xn), *actb = static_cast<bf16*>(act);
+  int rc = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
+                     static_cast<const float*>(ln_b), xnb, M, D, s);
+  if (rc != 0) return rc;
+  const int bn2 = D % 128 == 0 ? 128 : 64;  // GEMM2's output columns a block
+  GemmPart g1{}, g2{};
+  if (!make_map(&g1.a, xn, M, D, kBM) || !weight_map(&g1.b, w1, 2 * Ip, D, 64) ||
+      !make_map(&g2.a, act, M, Ip, kBM) || !weight_map(&g2.b, w2, D, Ip, bn2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g1.out = actb, g1.ldo = Ip, g1.tiles = Ip / 64;
+  g2.out = static_cast<bf16*>(out), g2.ldo = D, g2.tiles = D / bn2;
+  rc = launch_gemm<128, true>(g1, M, D, Ip, s);
+  if (rc != 0) return rc;
+  return bn2 == 128 ? launch_gemm<128, false>(g2, M, Ip, 0, s)
+                    : launch_gemm<64, false>(g2, M, Ip, 0, s);
 }

@@ -18,14 +18,16 @@
 //      blocks of 128 rows x 128 columns at the flagship). Wq and Wkv arrive
 //      by TMA; their tensor maps are cached by pointer and shape.
 // BN is 128 where Dq and Dkv allow it, else 64. Weights come in the
-// nn.Linear (out, in) layout, which is the K-major B operand.
+// nn.Linear (out, in) layout, which is the K-major B operand. D is any
+// multiple of the 64-wide TMA box up to the LN pass's 2048 (a row in a warp's
+// registers); the GEMM's K loop runs D / 64 stages.
 #include "sm90_gemm.cuh"
 
 extern "C" int ln_qkv_launch(const void* x, const void* gamma, const void* wq, const void* wkv,
                              void* xn, void* q, void* kv, int M, int D, int Dq, int Dkv,
                              void* stream) {
   using namespace otk;
-  if (M < 1 || D % 64 || D > 512 || Dq < 64 || Dq % 64 || Dkv < 64 || Dkv % 64)
+  if (M < 1 || D < 64 || D % 64 || D > kMaxLnDim || Dq < 64 || Dq % 64 || Dkv < 64 || Dkv % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = launch_ln(static_cast<const bf16*>(x), static_cast<const float*>(gamma), nullptr,

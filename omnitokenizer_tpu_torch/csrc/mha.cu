@@ -3,6 +3,9 @@
 // scores, softmax and both products in f32 on float or bf16 inputs; the
 // output is in the input type. The flash branches take contiguous (B*H, N,
 // D) tensors; the small branch any (b, h, n) strides with 16-byte rows.
+// The wrapper zero-pads any other D % 8 == 0 up to 128 to the flash
+// branches' next width; it takes no D above 128 (the registers of O and the
+// shared memory of the f32 branch's split tiles).
 //
 // Replaces omnitokenizer_tpu/ops/pallas/mha.py:mha_pallas. Two regimes reach
 // it, and each gets a branch:
@@ -42,8 +45,9 @@
 //   skipped, padding keys score -inf and padded rows are zero (no NaN), and
 //   inside a tile masked scores are set to -1e9 as in the plain version.
 //
-// * Small branch (N <= 16, D in {32, 64}): the stage-1 tokenizer's causal
-//   temporal blocks, B*H = 32768 problems of 9 x 9 in bf16. Bound: bytes, q,
+// * Small branch (N <= 16, D any multiple of 16 up to 128): the stage-1
+//   tokenizer's causal temporal blocks, B*H = 32768 problems of 9 x 9 in
+//   bf16. Bound: bytes, q,
 //   k, v read once and o written once (151 MB, 45 us); the flash tile would
 //   leave most of a 64-row block idle. Design: the staged small-group core
 //   of small_group.cuh (cp.async ring of whole (b, h) problems in shared
@@ -686,7 +690,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, i
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
              int H, int N, int D, float scale, int causal, cudaStream_t s) {
-  if (N <= kMaxSmallN && (D == 32 || D == 64)) {
+  if (N <= kMaxSmallN && D % 16 == 0 && D >= 16 && D <= 128) {
     namespace sg = otk::small_group;
     sg::Problem p;
     p.q = q;
@@ -703,8 +707,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const long lo
     p.scale = scale;
     p.causal = causal;
     p.q_scale = p.k_scale = nullptr;
-    return D == 32 ? sg::launch<T, 32, kMaxSmallN, sg::Mode::Plain>(p, s)
-                   : sg::launch<T, 64, kMaxSmallN, sg::Mode::Plain>(p, s);
+    switch (D) {
+      case 16: return sg::launch<T, 16, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 32: return sg::launch<T, 32, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 48: return sg::launch<T, 48, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 64: return sg::launch<T, 64, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 80: return sg::launch<T, 80, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 96: return sg::launch<T, 96, kMaxSmallN, sg::Mode::Plain>(p, s);
+      case 112: return sg::launch<T, 112, kMaxSmallN, sg::Mode::Plain>(p, s);
+      default: return sg::launch<T, 128, kMaxSmallN, sg::Mode::Plain>(p, s);
+    }
   }
   // the flash branches read (B*H, N, D) tensors: refuse any other strides
   // (a dim of size 1 may carry any stride)

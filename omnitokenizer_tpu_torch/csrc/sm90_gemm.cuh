@@ -147,14 +147,15 @@ inline EncodeTiled encode_fn() {
 }
 
 // a row-major (rows x cols) bf16 matrix, read in (box_rows x box_cols) boxes
-// with the swizzle of the box's row width (128 or 64 bytes); rows past the
+// with the swizzle of the box's row width (128, 64 or 32 bytes); rows past the
 // end read as zeros. batches > 0: that many such matrices one after another,
 // a map of three dimensions (col, row, batch) whose boxes stay inside one
 // matrix, so rows past the end of the box's own matrix read as zeros
 inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
                      int box_cols = 64, int batches = 0) {
   EncodeTiled encode = encode_fn();
-  if (!encode || (box_cols != 64 && box_cols != 32) || batches < 0) return false;
+  if (!encode || (box_cols != 64 && box_cols != 32 && box_cols != 16) || batches < 0)
+    return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
                                  (cuuint64_t)rows * cols * sizeof(bf16)};
@@ -163,7 +164,9 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int 
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batches > 0 ? 3 : 2,
                 const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -195,10 +198,13 @@ namespace {  // kernels: each translation unit keeps its own instances
 
 // ------------------------------------------------------------------ LN
 constexpr int kLnWarps = 8;
+constexpr int kMaxLnDim = 2048;
 
 // xn = bf16(LN(x) * w [+ b]) per row, f32 statistics, eps 1e-5, biased
 // variance; b may be null (gamma only). A warp a row, 16-byte chunks of the
 // row spread over the lanes, kPer chunks a lane: D <= 256 kPer, D % 8 == 0.
+// The row lives in the warp's registers (8 kPer floats a lane), which is
+// what bounds D: 2048 at kPer = 8.
 template <int kPer>
 __global__ void __launch_bounds__(kLnWarps * 32)
 ln_kernel(const bf16* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
@@ -246,12 +252,16 @@ ln_kernel(const bf16* __restrict__ x, const float* __restrict__ w, const float* 
 
 inline int launch_ln(const bf16* x, const float* w, const float* b, bf16* xn, int M, int D,
                      cudaStream_t stream) {
-  if (D % 8 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 || D > kMaxLnDim) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((M + kLnWarps - 1) / kLnWarps);
   if (D <= 256)
     ln_kernel<1><<<grid, kLnWarps * 32, 0, stream>>>(x, w, b, xn, M, D);
-  else
+  else if (D <= 512)
     ln_kernel<2><<<grid, kLnWarps * 32, 0, stream>>>(x, w, b, xn, M, D);
+  else if (D <= 1024)
+    ln_kernel<4><<<grid, kLnWarps * 32, 0, stream>>>(x, w, b, xn, M, D);
+  else
+    ln_kernel<8><<<grid, kLnWarps * 32, 0, stream>>>(x, w, b, xn, M, D);
   return static_cast<int>(cudaGetLastError());
 }
 

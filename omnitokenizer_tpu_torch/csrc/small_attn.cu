@@ -12,7 +12,8 @@
 // staged small-group core of small_group.cuh, one task per (group, head):
 // cp.async brings whole groups (n rows of q and of kv, contiguous) into a
 // 3-stage shared-memory ring of a persistent block; a team of Dh/16 lanes
-// owns a query row, with 16-byte vectors, 2-step shuffle reductions at
+// (rounded up to a power of two; Dh any multiple of 16 up to 128) owns a
+// query row, with 16-byte vectors, 2-step shuffle reductions at
 // Dh = 64 and the inverse norms of every row computed once a stage. The TPU
 // kernel's block-indicator matmuls (a lane-segmented reduction on the MXU)
 // have no counterpart: team shuffles do that here.
@@ -48,8 +49,13 @@ extern "C" int small_attn_launch(const void* q, const void* kv, const void* q_sc
   p.k_scale = static_cast<const float*>(k_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
+    case 16: return sg::launch<bf16, 16, kMaxN, sg::Mode::Cosine>(p, s);
     case 32: return sg::launch<bf16, 32, kMaxN, sg::Mode::Cosine>(p, s);
+    case 48: return sg::launch<bf16, 48, kMaxN, sg::Mode::Cosine>(p, s);
     case 64: return sg::launch<bf16, 64, kMaxN, sg::Mode::Cosine>(p, s);
+    case 80: return sg::launch<bf16, 80, kMaxN, sg::Mode::Cosine>(p, s);
+    case 96: return sg::launch<bf16, 96, kMaxN, sg::Mode::Cosine>(p, s);
+    case 112: return sg::launch<bf16, 112, kMaxN, sg::Mode::Cosine>(p, s);
     case 128: return sg::launch<bf16, 128, kMaxN, sg::Mode::Cosine>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

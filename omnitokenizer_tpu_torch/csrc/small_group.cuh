@@ -1,4 +1,4 @@
-// Attention inside many tiny groups (n <= 16 rows, head width 32-128), the
+// Attention inside many tiny groups (n <= 16 rows, head width 16-128), the
 // core under two entry points: small_attn.cu (cosine attention in groups of
 // n <= 8, the temporal stack) and mha.cu's small branch (plain softmax
 // attention at N <= 16, the stage-1 tokenizer's causal temporal blocks).
@@ -21,10 +21,11 @@
 //     with the loads wide the kernel is bound by instruction issue, and
 //     runtime integer divisions on every 16-byte copy were ~40% of a
 //     stage's instructions, counted from the code.
-//   * Compute. A team of D/16 lanes owns one (task, query row); a lane holds
-//     16 dims (two 16-byte vectors of bf16). Dots and norms reduce over the
-//     team in log2(D/16) shuffle steps (2 at D = 64): fewer instructions a
-//     pair than 8 dims a lane, measured faster on the H100. Keys go in pairs
+//   * Compute. A team of D/16 lanes, rounded up to a power of two (lanes
+//     past D hold zeros: one of 4 at D = 48), owns one (task, query row); a
+//     lane holds 16 dims (two 16-byte vectors of bf16). Dots and norms reduce
+//     over the team in log2 of its size shuffle steps (2 at D = 64): fewer
+//     instructions a pair than 8 dims a lane, measured faster on the H100. Keys go in pairs
 //     between two branches, so two loads and dot chains overlap. Query rows
 //     are numbered row major over the stage's tasks, so the teams of a warp
 //     mostly share their row index and with it the causal loop bound. k_j
@@ -47,6 +48,13 @@ constexpr int kStages = 3;
 constexpr int kStageBytes = 24 * 1024;  // about what one stage may hold
 constexpr int kDimsPerLane = 16;        // two 16-byte vectors of bf16 a lane
 constexpr int kKeysAtOnce = 2;          // keys a team takes between two branches
+
+// lanes of a team: D / 16 rounded up to a power of two, for the shuffles
+__host__ __device__ constexpr int team_lanes(int D) {
+  int l = 1;
+  while (l * kDimsPerLane < D) l *= 2;
+  return l;
+}
 
 struct Strides {
   long long b, h, n;  // elements
@@ -93,11 +101,19 @@ __device__ __forceinline__ void store8(float* p, const float* x) {
   reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
 }
 
-// V consecutive elements (a multiple of 8, 16-byte aligned) as f32, and back
+// V consecutive elements (a multiple of 8, 16-byte aligned) as f32, or
+// zeros where the lane holds no dims; and back
 template <int V, typename T>
-__device__ __forceinline__ void load_row(const T* p, float* x) {
+__device__ __forceinline__ void load_row(const T* p, float* x, bool dims) {
 #pragma unroll
-  for (int u = 0; u < V; u += 8) load8(p + u, x + u);
+  for (int u = 0; u < V; u += 8) {
+    if (dims) {
+      load8(p + u, x + u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[u + e] = 0.f;
+    }
+  }
 }
 template <int V, typename T>
 __device__ __forceinline__ void store_row(T* p, const float* x) {
@@ -123,7 +139,7 @@ template <typename T, int D, int kMaxN, Mode kMode>
 __global__ void __launch_bounds__(kThreads)
 small_group_kernel(const Problem p, int G) {
   constexpr int V = kDimsPerLane;
-  constexpr int L = D / V;                 // lanes of a team
+  constexpr int L = team_lanes(D);         // lanes of a team
   constexpr int kTeams = kThreads / L;
   constexpr int kVec = 16 / sizeof(T);     // elements a copy
   constexpr int kChunks = D / kVec;        // copies a row
@@ -161,6 +177,8 @@ small_group_kernel(const Problem p, int G) {
       off[i] = o;
     }
     __syncthreads();
+    // threads past a whole number of rows' copies (D = 48: 252 of 256) issue none
+    if (threadIdx.x >= kThreads / kChunks * kChunks) return;
     T* dst = ring + (size_t)slot * stage_elems + c * kVec;
 #pragma unroll
     for (int which = 0; which < 3; ++which) {
@@ -177,10 +195,11 @@ small_group_kernel(const Problem p, int G) {
 
   const int lane = threadIdx.x & 31, team = threadIdx.x / L;
   const int d0 = (lane & (L - 1)) * V;  // this lane's dims
+  const bool dims = d0 < D;             // a lane past D holds zeros
   float qks[V];                         // Cosine: q_scale * k_scale of those dims
   if constexpr (kCosine) {
 #pragma unroll
-    for (int e = 0; e < V; ++e) qks[e] = p.q_scale[d0 + e] * p.k_scale[d0 + e];
+    for (int e = 0; e < V; ++e) qks[e] = dims ? p.q_scale[d0 + e] * p.k_scale[d0 + e] : 0.f;
   }
   // a team owns one query row of a task; rows are numbered row major
   // (item = i * G + task in the stage), so the teams of a warp mostly share
@@ -207,8 +226,8 @@ small_group_kernel(const Problem p, int G) {
       for (int base = 0; base < rows; base += kTeams) {
         const int r = min(base + team, rows - 1);
         float x[V], y[V], sxx = 0.f, syy = 0.f;
-        load_row<V>(sq + r * D + d0, x);
-        load_row<V>(sk + r * D + d0, y);
+        load_row<V>(sq + r * D + d0, x, dims);
+        load_row<V>(sk + r * D + d0, y, dims);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           sxx = fmaf(x[e], x[e], sxx);
@@ -228,7 +247,7 @@ small_group_kernel(const Problem p, int G) {
       const int item = min(base + team, rows - 1);
       const int i = static_cast<int>((item + 0.5f) * inv_g), tl = item - i * G;
       float a[V];
-      load_row<V>(sq + (tl * N + i) * D + d0, a);
+      load_row<V>(sq + (tl * N + i) * D + d0, a, dims);
       if constexpr (kCosine) {
         const float iq = inv_q[tl * N + i];
 #pragma unroll
@@ -247,7 +266,7 @@ small_group_kernel(const Problem p, int G) {
         if (j0 < jw) {
           float kk[J][V], dot[J];
 #pragma unroll
-          for (int u = 0; u < J; ++u) load_row<V>(kr + min(j0 + u, N - 1) * D, kk[u]);
+          for (int u = 0; u < J; ++u) load_row<V>(kr + min(j0 + u, N - 1) * D, kk[u], dims);
 #pragma unroll
           for (int u = 0; u < J; ++u) {
             float d2[2] = {0.f, 0.f};  // two chains of V / 2 products
@@ -285,7 +304,7 @@ small_group_kernel(const Problem p, int G) {
         if (j0 < jw) {
           float vv[J][V];
 #pragma unroll
-          for (int u = 0; u < J; ++u) load_row<V>(vr + min(j0 + u, N - 1) * D, vv[u]);
+          for (int u = 0; u < J; ++u) load_row<V>(vr + min(j0 + u, N - 1) * D, vv[u], dims);
 #pragma unroll
           for (int u = 0; u < J; ++u) {
             // Plain: P normalized, then rounded to T
@@ -296,7 +315,7 @@ small_group_kernel(const Problem p, int G) {
         }
       }
       const long long o_off = offs[(it % kStages) * 4 * G + 3 * G + tl];
-      if (base + team < rows && o_off >= 0) {
+      if (base + team < rows && o_off >= 0 && dims) {
         if constexpr (kCosine) {
 #pragma unroll
           for (int e = 0; e < V; ++e) o[e] *= inv;
@@ -315,7 +334,7 @@ small_group_kernel(const Problem p, int G) {
 // stage's query rows fill the block's teams as evenly as possible (the
 // larger count at equal fill)
 inline int stage_tasks(int N, int D, int elem_bytes, int tasks) {
-  const int teams = kThreads / (D / kDimsPerLane);
+  const int teams = kThreads / team_lanes(D);
   const int task_bytes = 3 * N * D * elem_bytes;
   int g_max = kStageBytes / task_bytes;
   if (g_max < 1) g_max = 1;

@@ -91,16 +91,19 @@ class Attention(nn.Module):
         self.kernel_weights: Optional[tuple] = None
 
     def prepare_kernels(self) -> None:
-        inner = self.dim_head * self.heads
-        if not ln_qkv_supported(self.dim, inner, 2 * inner):
+        """The bf16 kernels' weights: the q/k scales for the attention
+        kernels, and the bf16 projection weights where `ln_qkv` takes the
+        shape (as the JAX module gates the two apart)."""
+        if self.dtype != torch.bfloat16:
             return
-        self.kernel_weights = (
-            self.norm_gamma.detach().float().contiguous(),
-            self.to_q.weight.detach().to(torch.bfloat16).contiguous(),
-            self.to_kv.weight.detach().to(torch.bfloat16).contiguous(),
-            self.q_scale.detach().float().contiguous(),
-            self.k_scale.detach().float().contiguous(),
-        )
+        inner = self.dim_head * self.heads
+        proj = None
+        if ln_qkv_supported(self.dim, inner, 2 * inner):
+            proj = (self.norm_gamma.detach().float().contiguous(),
+                    self.to_q.weight.detach().to(torch.bfloat16).contiguous(),
+                    self.to_kv.weight.detach().to(torch.bfloat16).contiguous())
+        self.kernel_weights = (proj, self.q_scale.detach().float().contiguous(),
+                               self.k_scale.detach().float().contiguous())
 
     def _proj_out(self, o: torch.Tensor) -> torch.Tensor:
         return F.linear(o.to(self.dtype), self.to_out.weight.to(self.dtype))
@@ -126,25 +129,34 @@ class Attention(nn.Module):
         inner = self.dim_head * self.heads
         uses_rope = self.spatial_pos == "rope" and is_spatial
 
-        if (self.dtype == torch.bfloat16 and not training
-                and ln_qkv_supported(D, inner, 2 * inner)):
-            gamma, wq, wkv, qs, ks = _kernels_ready(self)
-            q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), gamma, wq, wkv)
-            q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
-            if not uses_rope and small_n_supported(N, self.dim_head):
-                out = small_n_attention(q, kv, qs, ks, self.heads, self.dim_head,
-                                        self.scale, self.causal)
-            elif not self.causal and cosine_mha_supported(N, self.dim_head):
-                out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head,
-                                 self.scale, uses_rope)
-            else:
-                out = self._attend(q, kv, uses_rope, training)
-            return self._proj_out(out)
+        if self.dtype != torch.bfloat16 or training:
+            return self._proj_out(self._attend(*self._project(x), uses_rope, training))
 
+        # bf16 inference, as the JAX module dispatches: the projections by
+        # ln_qkv inside its gate, else plain; then the attention kernel that
+        # takes (N, dim_head), whatever made q and kv
+        proj, qs, ks = _kernels_ready(self)
+        if proj is not None:
+            q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), *proj)
+            q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
+        else:
+            q, kv = self._project(x)
+        if not uses_rope and small_n_supported(N, self.dim_head):
+            out = small_n_attention(q, kv, qs, ks, self.heads, self.dim_head,
+                                    self.scale, self.causal)
+        elif not self.causal and cosine_mha_supported(N, self.dim_head):
+            out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope)
+        else:
+            out = self._attend(q, kv, uses_rope, training)
+        return self._proj_out(out)
+
+    def _project(self, x: torch.Tensor):
+        """The plain projections: q from the normed tokens, kv from the
+        pre-norm input, products in the module's dtype."""
         xn = (layer_norm(x) * self.norm_gamma).to(self.dtype)
         q = F.linear(xn, self.to_q.weight.to(self.dtype))
         kv = F.linear(x.to(self.dtype), self.to_kv.weight.to(self.dtype))
-        return self._proj_out(self._attend(q, kv, uses_rope, training))
+        return q, kv
 
 
 class FeedForward(nn.Module):
@@ -162,7 +174,7 @@ class FeedForward(nn.Module):
         self.kernel_weights: Optional[tuple] = None
 
     def prepare_kernels(self) -> None:
-        if not geglu_ff_supported(self.dim):
+        if self.dtype != torch.bfloat16 or not geglu_ff_supported(self.dim):
             return
         w1p, w2p = pad_geglu_weights(self.proj_in.weight.detach(),
                                      self.proj_out.weight.detach())

@@ -19,13 +19,24 @@ from ..rotary import freqs_cis_2d, rotate_pairs
 from . import _build
 
 MIN_N, MAX_N = 16, 2048
-DIM_HEADS = (32, 64)
+# head widths of the kernel: rows of 32, 64, 128 or 256 bytes, the first three
+# one TMA box with the swizzle of their width, 256 two 128-byte boxes
+DIM_HEADS = (16, 32, 64, 128)
 
 
 def cosine_mha_supported(n: int, dim_head: int) -> bool:
     """The JAX gate (`cosine_mha.py:cosine_mha_supported`): a square token
     grid of 16 to 2048 tokens, here at the kernel's head widths."""
     return MIN_N <= n <= MAX_N and int(n ** 0.5) ** 2 == n and dim_head in DIM_HEADS
+
+
+def narrowed(n: int, dim_head: int) -> bool:
+    """Shapes the JAX gate takes (it sets no head width) and the kernel does
+    not, which take the attention module's plain route: a head width other
+    than 16, 32, 64 or 128. wgmma's k step is 16 wide and its shared-memory
+    layouts swizzle rows of 32, 64 or 128 bytes; other widths would need
+    zero-padded copies of q, k and v per call."""
+    return MIN_N <= n <= MAX_N and int(n ** 0.5) ** 2 == n and dim_head not in DIM_HEADS
 
 
 def cosine_prep_plain(q, kv, q_scale, k_scale, heads: int, dim_head: int,

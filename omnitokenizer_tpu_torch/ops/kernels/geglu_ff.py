@@ -25,7 +25,7 @@ from . import _build
 
 EPS = 1e-5
 INNER_TILE = 64
-DIMS = (64, 128, 256, 512)  # model widths the kernel is instantiated for
+MAX_DIM = 2048  # the LN pass holds a row in one warp's registers
 
 
 def padded_inner(inner: int) -> int:
@@ -45,7 +45,16 @@ def pad_geglu_weights(w1: torch.Tensor, w2: torch.Tensor,
 
 
 def geglu_ff_supported(dim: int) -> bool:
-    return dim in DIMS
+    """Any D a multiple of 64 up to MAX_DIM: a superset of the JAX gate's
+    D % 128 == 0 but for `narrowed`."""
+    return dim % 64 == 0 and 0 < dim <= MAX_DIM
+
+
+def narrowed(dim: int) -> bool:
+    """Widths the JAX gate takes and the kernels do not, which take the
+    plain route: D above 2048, where the LN pass's row (8 16-byte chunks a
+    lane of one warp) would outgrow its registers."""
+    return dim % 128 == 0 and dim > MAX_DIM
 
 
 def geglu_ff_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,

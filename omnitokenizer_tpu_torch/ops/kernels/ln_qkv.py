@@ -18,13 +18,22 @@ import torch
 from . import _build
 
 EPS = 1e-5
+MAX_DIM = 2048  # the LN pass holds a row in one warp's registers
 
 
 def ln_qkv_supported(dim: int, dq: int, dkv: int) -> bool:
     """Shapes the CUDA kernels take: D a multiple of the 64-wide TMA box up to
-    512 (the LN pass's registers), output widths whole 64-column tiles."""
-    return (dim % 64 == 0 and 0 < dim <= 512 and dq % 64 == 0 and dkv % 64 == 0
+    MAX_DIM, output widths whole 64-column tiles. A superset of the JAX
+    gate's D % 128 == 0 but for `narrowed`."""
+    return (dim % 64 == 0 and 0 < dim <= MAX_DIM and dq % 64 == 0 and dkv % 64 == 0
             and dq > 0 and dkv > 0)
+
+
+def narrowed(dim: int) -> bool:
+    """Widths the JAX gate takes and the kernels do not, which take the
+    plain route: D above 2048, where the LN pass's row (8 16-byte chunks a
+    lane of one warp) would outgrow its registers."""
+    return dim % 128 == 0 and dim > MAX_DIM
 
 
 def ln_qkv_plain(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,

@@ -15,24 +15,37 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 NEG_INF = -1e9
 MIN_N, MAX_N = 8, 2048
-# head widths the kernel is instantiated for: every dim_head of the repo's
-# configs (64, 32, 8) and 16, 128; the JAX gate takes any D % 8 == 0
+# head widths the flash branches are instantiated for; any other D % 8 == 0
+# up to 128 is zero-padded to the next one (zero columns of q and k add
+# nothing to q k^T, zero columns of v give zero output columns, sliced off)
 DIM_HEADS = (8, 16, 32, 64, 128)
+MAX_DIM_HEAD = DIM_HEADS[-1]
 DTYPES = (torch.float32, torch.bfloat16)
 # the small branch: any (b, h, n) strides whose rows are 16-byte aligned
-SMALL_MAX_N, SMALL_DIM_HEADS = 16, (32, 64)
+SMALL_MAX_N, SMALL_DIM_HEADS = 16, tuple(range(16, 129, 16))
 
 
 def mha_supported(n: int, dim_head: int, dtype: torch.dtype) -> bool:
-    """The JAX gate (`mha.py:mha_supported`) without its backend check,
-    narrowed to the kernel's head widths and dtypes. The caller handles the
-    other conditions: no bias, not training."""
-    return MIN_N <= n <= MAX_N and dim_head in DIM_HEADS and dtype in DTYPES
+    """The JAX gate (`mha.py:mha_supported`) without its backend check:
+    8 <= N <= 2048 and D % 8 == 0, here up to D = 128 and in the kernel's
+    dtypes. The caller handles the other conditions: no bias, not training."""
+    return (MIN_N <= n <= MAX_N and dim_head % 8 == 0 and 0 < dim_head <= MAX_DIM_HEAD
+            and dtype in DTYPES)
+
+
+def narrowed(n: int, dim_head: int) -> bool:
+    """Shapes the JAX gate takes and the kernel does not, which take the
+    plain math: D above 128. A flash block keeps 64 query rows of O in a
+    warpgroup's registers (D / 2 f32 a thread) beside the score tile, and
+    the f32 branch splits each K/V tile into hi and lo TF32 copies in shared
+    memory; at D = 256 neither fits."""
+    return MIN_N <= n <= MAX_N and dim_head % 8 == 0 and dim_head > MAX_DIM_HEAD
 
 
 def small_branch(n: int, dim_head: int) -> bool:
@@ -76,16 +89,19 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             raise ValueError(f"mha: {name} rows are not 16-byte aligned (strides {t.stride()})")
         if t.data_ptr() % 16:
             raise ValueError(f"mha: {name} is not 16-byte aligned")
+    width = D if small else next(d for d in DIM_HEADS if d >= D)
+    if width != D:  # zero columns to the flash branch's next instance
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
     if small and q.transpose(1, 2).is_contiguous():
         out = torch.empty(B, N, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
     else:
-        out = torch.empty(B, H, N, D, dtype=q.dtype, device=q.device)
+        out = torch.empty(B, H, N, width, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     _build.launch("mha_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  ctypes.addressof(strides), B, H, N, D, float(scale), int(causal),
+                  ctypes.addressof(strides), B, H, N, width, float(scale), int(causal),
                   int(q.dtype == torch.bfloat16))
     mha.launches += 1
-    return out
+    return out[..., :D] if width != D else out
 
 
 mha.launches = 0

@@ -19,11 +19,21 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_SMALL_N = 8
-DIM_HEADS = (32, 64, 128)
+# head widths of the small-group core: a team of D/16 lanes (rounded up to a
+# power of two) holds 16 dims a lane
+DIM_HEADS = tuple(range(16, 129, 16))
 
 
 def small_n_supported(n: int, dim_head: int) -> bool:
-    return n <= MAX_SMALL_N and dim_head in DIM_HEADS
+    return 1 <= n <= MAX_SMALL_N and dim_head in DIM_HEADS
+
+
+def narrowed(n: int, dim_head: int) -> bool:
+    """Shapes the JAX gate takes (it sets no head width) and the kernel does
+    not, which take the attention module's plain route: a head width that is
+    no multiple of 16 or above 128. A lane holds two 16-byte vectors of a
+    row, and a team of up to 8 lanes a row."""
+    return 1 <= n <= MAX_SMALL_N and dim_head not in DIM_HEADS
 
 
 def small_n_attention_plain(q, kv, q_scale, k_scale, heads: int, dim_head: int,

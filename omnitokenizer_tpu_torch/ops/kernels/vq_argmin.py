@@ -1,7 +1,8 @@
 """Nearest-code search: argmin_k(||e_k||^2 - 2 x.e_k) in f32.
 
 Replaces `omnitokenizer_tpu/ops/pallas/vq_kernel.py:vq_argmin_pallas`. The
-CUDA kernel is `csrc/vq_argmin.cu`; `vq_argmin_plain` is its plain version.
+CUDA kernel is `csrc/vq_argmin.cu`, at any code dim; `vq_argmin_plain` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -10,13 +11,11 @@ import torch
 
 from . import _build
 
-CODE_DIMS = (4, 8, 16, 32)  # code widths the kernel is instantiated for
-
 
 def vq_argmin_plain(flat: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
-    """(M, D), (K, D) -> (M,) int32 nearest-code indices, ties to the
-    lowest index. The row term ||x||^2 cannot change the argmin and is
-    left out, as in the TPU kernel."""
+    """(M, D), (K, D) -> (M,) int32 nearest-code indices, ties to the lowest
+    index. The row term ||x||^2 cannot change the argmin and is left out, as
+    in the TPU kernel."""
     x = flat.float()
     e = embeddings.float()
     dist = (e * e).sum(1)[None, :] - 2.0 * (x @ e.t())
@@ -29,14 +28,13 @@ def vq_argmin(flat: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
         return vq_argmin_plain(flat, embeddings)
     M, D = flat.shape
     K = embeddings.shape[0]
-    if D not in CODE_DIMS:
-        raise ValueError(f"vq_argmin: unsupported code dim {D}")
     _build.check(flat, "flat", torch.float32, (M, D))
     _build.check(embeddings, "embeddings", torch.float32, (K, D))
-    esq = (embeddings * embeddings).sum(1)
+    # the code slices' (distance, index) minima, merged by the kernel
+    part = torch.empty(M, dtype=torch.int64, device=flat.device)
     out = torch.empty(M, dtype=torch.int32, device=flat.device)
-    _build.launch("vq_argmin_launch", flat.data_ptr(), embeddings.data_ptr(),
-                  esq.data_ptr(), out.data_ptr(), M, K, D)
+    _build.launch("vq_argmin_launch", flat.data_ptr(), embeddings.data_ptr(), part.data_ptr(),
+                  out.data_ptr(), M, K, D)
     vq_argmin.launches += 1
     return out
 

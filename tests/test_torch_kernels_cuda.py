@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the shapes chip_smoke.py does not reach: the other instantiated widths,
-ragged row counts and small groups, and mha at every instantiated head
-width over its branches. Skips without a GPU. This file imports
+at the shapes chip_smoke.py does not reach: the other widths and head
+widths the gates take (model widths up to 2048, cosine_mha at head widths
+16 to 128, the small-group core at every multiple of 16, mha's flash
+branches on zero-padded widths, vq_argmin at any code dim with duplicate
+codes), ragged row counts and small groups, and the wrappers refusing what
+the kernels do not take. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -49,7 +52,10 @@ def rel_err(got, want) -> float:
     (77, 64, 64, 128), (333, 128, 128, 256), (1000, 512, 512, 1024),
     # the paths' row counts (ragged 128-row tiles past the flagship's 20480)
     (20480 + 33, 256, 256, 512), (20480 + 33, 512, 512, 1024),
-    (36864, 256, 256, 512), (36864, 512, 512, 1024)])
+    (36864, 256, 256, 512), (36864, 512, 512, 1024),
+    # the widths past 512 (the LN pass at 4 and 8 chunks a lane)
+    (333, 640, 640, 1280), (4097, 768, 1024, 2048), (1000, 1024, 1024, 2048),
+    (20480 + 33, 768, 1024, 2048), (77, 2048, 2048, 4096), (4097, 2048, 512, 1024)])
 def test_ln_qkv(gen, M, D, dq, dkv):
     x = randn(gen, M, D)
     gamma = 1 + randn(gen, D, scale=0.1, dtype=torch.float32)
@@ -58,7 +64,7 @@ def test_ln_qkv(gen, M, D, dq, dkv):
         assert rel_err(got, want) <= REL_TOL
 
 
-@pytest.mark.parametrize("D", gf.DIMS)
+@pytest.mark.parametrize("D", [64, 128, 256, 512, 640, 768, 1024, 2048])
 @pytest.mark.parametrize("M", [77, 1000, 20480 + 33])  # ragged 128-row tiles, a full-size M
 def test_geglu_ff(gen, M, D):
     inner = int(4 * 2 / 3 * D)
@@ -150,21 +156,61 @@ def test_cosine_mha_one_batch(gen, dim_head, N):
                    cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, True)) <= REL_TOL
 
 
-@pytest.mark.parametrize("D", vq.CODE_DIMS)
-@pytest.mark.parametrize("K", [64, 1000, 8192])
-def test_vq_argmin(gen, D, K):
-    z = F.normalize(randn(gen, 1000, D, dtype=torch.float32), dim=-1).contiguous()
-    emb = randn(gen, K, D, dtype=torch.float32)
-    got, want = vq.vq_argmin(z, emb), vq.vq_argmin_plain(z, emb)
+VQ_TIE_TOL = 1e-5  # relative distance gap allowed for an index mismatch
+
+
+@pytest.mark.parametrize("M", [1, 1000, 20480 + 33])
+@pytest.mark.parametrize("K", [1, 64, 1000, 8192, 8193])
+@pytest.mark.parametrize("D", [1, 3, 4, 6, 8, 12, 16, 32, 40, 64])
+def test_vq_argmin(gen, D, K, M):
+    """Every code repeats with a period of 97, so exact ties lie across
+    every chunk and code-slice boundary: the kernel gives the first
+    occurrence (an index below 97), and differs from the plain version only
+    at near-ties between distinct codes."""
+    period = min(K, 97)
+    z = F.normalize(randn(gen, M, D, dtype=torch.float32), dim=-1).contiguous()
+    emb = randn(gen, period, D, dtype=torch.float32)[torch.arange(K) % period].contiguous()
+    got = vq.vq_argmin(z, emb)
+    assert got.dtype == torch.int32 and got.shape == (M,)
+    assert bool((got >= 0).all()) and bool((got < period).all())
+    assert_near_ties_only(z, emb, got, vq.vq_argmin_plain(z, emb))
+
+
+def assert_near_ties_only(z, emb, got, want):
     bad = (got != want).nonzero().flatten()
-    if bad.numel():  # only near-ties may differ
+    if bad.numel():
         zz, e = z[bad].double(), emb.double()
         d_got = (zz - e[got[bad].long()]).square().sum(-1)
         d_want = (zz - e[want[bad].long()]).square().sum(-1)
-        assert float(((d_got - d_want).abs() / d_want).max()) <= 1e-5
+        assert float(((d_got - d_want).abs() / d_want.clamp_min(1e-12)).max()) <= VQ_TIE_TOL
 
 
-@pytest.mark.parametrize("dim_head", mh.DIM_HEADS)
+@pytest.mark.parametrize("K", [1, 1000])
+@pytest.mark.parametrize("D", [100, 2049, 4096])
+def test_vq_argmin_wide_code_dims(gen, D, K):
+    """Code dims past any shared-memory slice: the runtime-D kernel reads
+    the codes through the cache, so no code dim is refused."""
+    z = F.normalize(randn(gen, 333, D, dtype=torch.float32), dim=-1).contiguous()
+    emb = randn(gen, K, D, dtype=torch.float32)
+    assert_near_ties_only(z, emb, vq.vq_argmin(z, emb), vq.vq_argmin_plain(z, emb))
+
+
+@pytest.mark.parametrize("K", [1000, 8192, 8193])
+@pytest.mark.parametrize("D", [3, 8, 40])
+def test_vq_argmin_zero_distance_ties(gen, D, K):
+    """Zero codes are at distance exactly 0 from every row, and every other
+    code farther: zero codes planted at every 61st index, across chunk and
+    slice boundaries, give the first of them."""
+    z = 1e-3 * F.normalize(randn(gen, 20480 + 33, D, dtype=torch.float32), dim=-1)
+    emb = randn(gen, K, D, dtype=torch.float32)
+    emb[61::61] = 0
+    assert bool((vq.vq_argmin(z, emb) == 61).all())
+
+
+# the instantiated widths, and widths with no instance, zero-padded to the
+# next (24 -> 32, 40 -> 64, 96 and 120 -> 128; at N <= 16 the small branch
+# runs at the padded width)
+@pytest.mark.parametrize("dim_head", mh.DIM_HEADS + (24, 40, 96, 120))
 @pytest.mark.parametrize("N", [8, 9, 17, 64, 100, 1024, 2048])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -300,3 +346,33 @@ def test_mha_flash_refuses_strided_views(gen):
     one = randn(gen, 2, 1, 64, 64).transpose(0, 1)  # (1, 2, 64, 64), batch stride 4096
     assert one.is_contiguous() and one.stride(0) != one.numel()
     assert rel_err(mh.mha(one, one, one, 8.0), mh.mha_plain(one, one, one, 8.0)) <= REL_TOL
+
+
+def test_wrappers_refuse_narrowed_widths(gen):
+    """Each wrapper raises on the residual narrowing it exports, which the
+    modules route to plain math, and on what no gate takes."""
+    x = randn(gen, 64, 4096)
+    assert lq.narrowed(4096) and gf.narrowed(4096)
+    with pytest.raises(ValueError, match="unsupported"):
+        lq.ln_qkv(x, torch.ones(4096, device="cuda"), randn(gen, 64, 4096),
+                  randn(gen, 128, 4096))
+    with pytest.raises(ValueError, match="unsupported"):
+        gf.geglu_ff(x, torch.ones(4096, device="cuda"), torch.zeros(4096, device="cuda"),
+                    randn(gen, 128, 4096), randn(gen, 4096, 64))
+    qs = torch.ones(48, device="cuda")
+    assert cm.narrowed(64, 48)
+    with pytest.raises(ValueError, match="unsupported"):
+        cm.cosine_mha(randn(gen, 1, 64, 96), randn(gen, 1, 64, 192), qs, qs, 2, 48, 8.0)
+    assert sa.narrowed(5, 24)
+    with pytest.raises(ValueError, match="unsupported"):
+        sa.small_n_attention(randn(gen, 4, 5, 48), randn(gen, 4, 5, 96), qs[:24], qs[:24], 2,
+                             24, 8.0)
+    q = randn(gen, 1, 2, 64, 256)
+    assert mh.narrowed(64, 256)
+    with pytest.raises(ValueError, match="unsupported"):
+        mh.mha(q, q, q, 8.0)
+    with pytest.raises(ValueError, match="unsupported"):
+        mh.mha(q[..., :12], q[..., :12], q[..., :12], 8.0)  # D % 8 != 0: no gate takes it
+    z = randn(gen, 8, 16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="expected shape"):
+        vq.vq_argmin(z, z[:, :8].contiguous())  # code dims that differ

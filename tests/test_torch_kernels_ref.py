@@ -105,11 +105,12 @@ def test_small_n_attention_plain_matches_pallas(causal):
     assert rel_err(got, want) <= REL_TOL
 
 
-def test_vq_argmin_plain_matches_xla_exactly():
+@pytest.mark.parametrize("D", [3, 6, 8, 12, 40])
+def test_vq_argmin_plain_matches_xla_exactly(D):
     rng = np.random.RandomState(4)
-    flat = rng.randn(300, 8).astype(np.float32)
+    flat = rng.randn(300, D).astype(np.float32)
     flat /= np.linalg.norm(flat, axis=1, keepdims=True)
-    emb = rng.randn(64, 8).astype(np.float32)
+    emb = rng.randn(64, D).astype(np.float32)
     want = np.asarray(vq_argmin_xla(jnp.asarray(flat), jnp.asarray(emb)))
     got = vq_argmin_plain(torch.from_numpy(flat), torch.from_numpy(emb)).numpy()
     assert got.dtype == np.int32

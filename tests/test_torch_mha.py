@@ -137,7 +137,9 @@ def test_mha_gate():
     assert mha_supported(8, 8, torch.float32) and mha_supported(2048, 32, torch.float32)
     assert not mha_supported(5, 64, torch.float32)      # below N = 8, as the JAX gate
     assert not mha_supported(2049, 64, torch.float32)   # above the JAX gate's 2048
-    assert not mha_supported(64, 24, torch.float32)     # no kernel for D = 24
+    assert mha_supported(64, 24, torch.float32)         # zero-padded to D = 32
+    assert not mha_supported(64, 12, torch.float32)     # D % 8 != 0, as the JAX gate
+    assert not mha_supported(64, 256, torch.float32)    # above 128: the residual narrowing
     assert not mha_supported(64, 64, torch.float16)     # nor for float16
 
 

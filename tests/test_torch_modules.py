@@ -129,3 +129,54 @@ def test_rope_tables_first_built_in_inference_mode_serve_autograd():
     qr, kr = apply_rotary_emb_2d(q, q)
     (qr.square().sum() + kr.sum()).backward()
     assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
+
+WIDE_DIM, WIDE_DIM_HEAD = 256, 128
+# relative to the largest output: the perturbed weights put outputs near 10
+F32_REL_TOL = 1e-5   # f32, another summation order over 256-wide sums
+BF16_REL_TOL = 5e-2  # bf16 products and roundings at other places in the two packages
+
+
+def run_both_dtype(jax_module, torch_module, x, dtype, jax_args=(), torch_args=()):
+    """Both modules on the same weights and inputs; in bf16 the torch module
+    cast and its kernels' weights built as the wrapper's serving step does."""
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    tree = bridged(jax_module, torch_module, jnp.asarray(x), *jax_args)
+    want = np.asarray(jax_module.apply(tree, jnp.asarray(x, jax_module.dtype), *jax_args)
+                      .astype(jnp.float32))
+    if bf16:
+        with torch.no_grad():
+            for p in torch_module.parameters():
+                p.data = p.data.to(torch.bfloat16)
+        torch_module.prepare_kernels()
+    with torch.no_grad():
+        got = torch_module(torch.from_numpy(x).to(getattr(torch, dtype)), *torch_args)
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= (BF16_REL_TOL if bf16 else F32_REL_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["spatial_rope", "temporal_causal"])
+def test_attention_wide_head(kind, dtype):
+    """dim 256 with 2 heads of 128: in bf16 ln_qkv, then cosine_mha (a 4x4
+    grid) or small_n_attention (5 frames), at the head width the port's
+    kernels took last."""
+    spatial = kind == "spatial_rope"
+    kw = dict(spatial_pos="rope" if spatial else "rel", causal=not spatial)
+    x = inputs(3, 16 if spatial else 5, WIDE_DIM, seed=6)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    run_both_dtype(
+        jattn.Attention(WIDE_DIM, dim_head=WIDE_DIM_HEAD, heads=2, dtype=jdt, **kw),
+        tattn.Attention(WIDE_DIM, dim_head=WIDE_DIM_HEAD, heads=2, dtype=getattr(torch, dtype),
+                        **kw),
+        x, dtype, jax_args=(spatial,), torch_args=(spatial,))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_feed_forward_wide(dtype):
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    run_both_dtype(jattn.FeedForward(WIDE_DIM, dtype=jdt),
+                   tattn.FeedForward(WIDE_DIM, dtype=getattr(torch, dtype)),
+                   inputs(4, 9, WIDE_DIM, seed=7), dtype)
