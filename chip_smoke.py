@@ -38,16 +38,35 @@ Phases (any failure raises and exits non-zero):
      128 (B=1, full depth: ln_qkv and geglu_ff at D = 768, cosine_mha and
      small_n_attention at a head width of 128), with phase 3's checks; then
      each of its kernels against its plain version at its shapes, as in
-     phase 2, and vq_argmin against its plain version at a code dim of 6.
-The line before the last is a JSON object with a row per kernel and shape;
-the last line is {"ok": true, "device": {...}}.
+     phase 2, and vq_argmin against its plain version at a code dim of 6;
+  8. the GAN training step of the flagship in bf16 (B=4, 17x256^2 clips,
+     the losses of bench.py's train_gan mode, random weights from seed 0)
+     through train_tokenizer: one warm-up step that writes a checkpoint,
+     then a run that resumes from it for 6 more steps, 5 of them timed;
+     the launches of each kernel a step (mha none), every loss finite,
+     every parameter of G and D and the codebook moved, the checkpoint
+     equal to the state it saved; the inference wrappers refusing a
+     grad-requiring input; each of the four training routes (kernels as
+     the primal, the plain math recomputed as the backward:
+     ops/kernel_grad.py) at the flagship's shapes against its plain math,
+     primal and gradients, timed forward and forward + backward; one whole
+     step of the kernel route against the plain route from the same state
+     (losses, gradient norms, the reconstruction); and a step with a
+     wiring fault (q and k projections swapped in one block of the kernel
+     route) that this comparison must fail.
+The line before the last is a JSON object with a row per kernel and shape
+(and one per training route); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -69,7 +88,20 @@ EXPECTED_LAUNCHES = {
     # the flagship at width 768, heads of 128: the flagship's routes
     "wide": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
              "vq_argmin": 1, "mha": 0},
+    # a flagship training step: the generator's training forward (every 't'
+    # block and feed-forward on the training route: ln_qkv 14, geglu_ff 16,
+    # cosine_mha 6, small_n 8, the codebook's search 1), then the second
+    # codebook advance's encoder on the inference route (ln_qkv 6, geglu_ff
+    # 8, cosine_mha 2, small_n 4, vq_argmin 1); training sdpa is plain, the
+    # backward recomputes plain math
+    "train": {"geglu_ff": 24, "ln_qkv": 20, "cosine_mha": 8, "small_n_attention": 12,
+              "vq_argmin": 2, "mha": 0},
 }
+# training-route calls a step (ops/kernel_grad.py): the flat temporal route
+# in the 8 temporal blocks, cosine attention in the 6 spatial 't' blocks,
+# geglu_ff in the 16 feed-forwards; the spatial small-group route (N = 8)
+# is on no path of the flagship
+EXPECTED_TRAIN_ROUTES = {"flat": 8, "cosine": 6, "small": 0, "ff": 16}
 SOURCES = {
     "vq_argmin": ("omnitokenizer_tpu_torch/csrc/vq_argmin.cu",
                   "omnitokenizer_tpu/ops/pallas/vq_kernel.py:39"),
@@ -93,6 +125,24 @@ LATENT_REL_TOL = 5e-2   # pre-VQ latents, kernel vs plain bf16 path
 DECODE_REL_TOL = 2e-2   # decode of the same indices, kernel vs plain
 FLOOR_RATIO = 1.25      # kernel path's distance from f32 vs the plain path's
 VAE_REL_TOL = 1e-4      # f32 VAE, kernel vs plain path (summation order only)
+# One training step, kernel route vs plain route from the same state, each
+# reading relative to the larger of the two or 0.1. The losses are means
+# over whole tensors, so the routes' bf16 rounding (1.7e-2 whole-tensor at
+# the decoder's output, phase 3) mostly averages out of them: the largest
+# reading on an H100 80GB HBM3 (700 W) was 2.48e-3 (aeloss, a mean of few
+# logits). The gradient norms are sums of squares over every parameter's
+# gradient, the plain math at inputs that differ by that rounding: largest
+# reading 1.30e-2 (grad_norm_d). The bars sit at about 2x and 4x those.
+# The reconstruction of the training forward, whole-tensor relative: a
+# code that the two routes pick apart changes its tokens' output
+# wholesale (largest reading 4.45e-2), so its bar sits at about 2x too.
+# Each module's training call is held against its plain route on the same
+# input at KERNEL_REL_TOL, whole-tensor. A fault run (q and k projections
+# swapped in one attention block of the kernel route) must fail the step's
+# bars and the module check at that block alone.
+TRAIN_LOSS_REL_TOL = 5e-3
+TRAIN_GRAD_NORM_REL_TOL = 5e-2
+TRAIN_RECON_REL_TOL = 1e-1
 # Published H100 SXM peaks (dense): bf16 and TF32 tensor cores, f32 outside
 # them, HBM3. The f32 paths must not round to one TF32 pass: vq_argmin runs in
 # f32 FMA, and the f32 mha runs three TF32 passes with error compensation
@@ -125,6 +175,21 @@ def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+@contextlib.contextmanager
+def train_kernel_ops(ops: str):
+    """OMNITOK_TRAIN_KERNEL_FWD for the calls inside: "0" makes a bf16
+    training=True call the plain route (ops/kernel_grad.py)."""
+    old = os.environ.get("OMNITOK_TRAIN_KERNEL_FWD")
+    os.environ["OMNITOK_TRAIN_KERNEL_FWD"] = ops
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["OMNITOK_TRAIN_KERNEL_FWD"]
+        else:
+            os.environ["OMNITOK_TRAIN_KERNEL_FWD"] = old
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 3, queued: bool = True) -> float:
@@ -228,7 +293,8 @@ def record(tag, name, path, errs, kernel_fn, plain_fn, cost, library_fn=None, ch
 
 # Each check_* holds a kernel against its plain version at one path's
 # shapes and records its row. Its chain is the module's own plain bf16
-# route (ops/attention.py: Attention and FeedForward with training=True):
+# route (ops/attention.py: Attention and FeedForward with training=True and
+# OMNITOK_TRAIN_KERNEL_FWD=0):
 # layer_norm, then cuBLAS bf16 F.linear; [RoPE], F.normalize and one SDPA
 # call for the attention kernels.
 def check_ln_qkv(tag, path, x, gamma, wq, wkv):
@@ -523,7 +589,9 @@ def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
         return net.decode_latent(net.codebook.lookup(i.view(h.shape[:-1])), False,
                                  training=True)
 
-    with torch.inference_mode():
+    # the plain bf16 path: training=True calls with the training route's
+    # kernels off
+    with torch.inference_mode(), train_kernel_ops("0"):
         h_k = net.encode_latent(xl, False)
         h_p = net.encode_latent(xl, False, training=True)
         lat_err = rel_norm(h_k, h_p)
@@ -726,6 +794,438 @@ def phase7_wide() -> dict:
     return counts
 
 
+TRAIN_ROWS: list = []  # a row per training route (ops/kernel_grad.py)
+TRAIN_TIMED = 5  # timed steps after the warm-up
+
+
+def check_train_route(name, kernels, kern, ref, args, cost, launches, **shape):
+    """A training route against its plain math: the primal within the
+    kernels' bar; the gradient of every input, from one upstream gradient,
+    equal to the plain math's bit for bit (the backward is that math on
+    the same inputs, on the same card), with no kernel launched; times of
+    the forward and of forward + backward, each against the plain math's."""
+    from omnitokenizer_tpu_torch.ops.kernel_grad import kernel_fwd_ref_bwd
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    def route():
+        return kernel_fwd_ref_bwd(kern, ref, *args)
+
+    out, want = route(), ref(*args)
+    err = compare(f"training route {name}", out.detach(), want.detach())
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(out.device, out.dtype)
+    reset_launch_counts()
+    got = torch.autograd.grad(out, args, g)
+    torch.cuda.synchronize()
+    bwd_launches = sum(launch_counts().values())
+    diffs = [max_abs(a, b) for a, b in zip(got, torch.autograd.grad(want, args, g))]
+    if bwd_launches or any(d != 0 for d in diffs):
+        raise AssertionError(f"training route {name}: backward launched {bwd_launches} kernels; "
+                             f"gradients differ from the plain math's by {diffs}")
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    ms, plain_ms = cuda_ms(no_grad(route)), cuda_ms(no_grad(lambda: ref(*args)))
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(route(), args, g))
+    plain_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(ref(*args), args, g))
+    TRAIN_ROWS.append({"name": f"train_route:{name}", "kernels": kernels, "path": "train",
+                       "max_abs_err": err[0], "ms": ms, "plain_ms": plain_ms, **cost,
+                       "library_ms": None, "fwd_bwd_ms": fwd_bwd_ms,
+                       "plain_fwd_bwd_ms": plain_fwd_bwd_ms, "launches": launches,
+                       "grad_max_abs_diff": max(diffs), **shape})
+    print(f"[8] training route {name} ({kernels}) {shape}: primal max_abs {err[0]:.3e} "
+          f"max_rel {err[1]:.3e}; gradients equal to plain, 0 launches in the backward; "
+          f"forward {ms:.4f} ms (plain {plain_ms:.4f}), forward + backward {fwd_bwd_ms:.4f} ms "
+          f"(plain {plain_fwd_bwd_ms:.4f}); bound {cost['bound_ms']:.4f} ms ({cost['bound_by']})")
+
+
+def train_route_rows(route_calls: dict) -> None:
+    """The four training routes at the flagship's shapes: the flat temporal
+    route (B*32*32 groups of 5 frames, causal), the spatial small-group
+    route at N = 8 (as 29-frame clips' 8 latent frames would give it under
+    the 'attn' group alone; on no path of the flagship), cosine attention
+    over the 32x32 grid with RoPE, and the feed-forward over every token.
+    The bound counts the function's own inputs (x once, the f32 parameters
+    it casts) and output, and the flops of all its kernels."""
+    from omnitokenizer_tpu_torch.ops import attention as tattn
+
+    g = torch.Generator().manual_seed(8)
+    D, H, Dh = 512, 8, 64
+    hw, t = (RES // 8) ** 2, 1 + (T - 1) // 4
+    for name, route, rows, n, spatial, causal, ops in (
+            ("flat", "small", B * hw, t, False, True, "attn,ff,flat"),
+            ("small", "small", B * hw, 8, False, True, "attn"),
+            ("cosine", "cosine", B * t, hw, True, False, "attn,ff,flat")):
+        m = tattn.Attention(D, Dh, H, causal=causal, spatial_pos="rope", dtype=BF,
+                            spatial=spatial).cuda()
+        with torch.no_grad():
+            for lin in (m.to_q, m.to_kv):
+                lin.weight.copy_(randn(g, *lin.weight.shape, scale=D ** -0.5))
+            for prm in (m.norm_gamma, m.q_scale, m.k_scale):
+                prm.add_(randn(g, *prm.shape, scale=0.1))
+        with train_kernel_ops(ops):
+            if m.train_route(n, spatial) != route:
+                raise AssertionError(f"training route {name}: took {m.train_route(n, spatial)}")
+        x = randn(g, rows, n, D, dtype=BF).requires_grad_()
+        args = (x, m.norm_gamma, m.to_q.weight, m.to_kv.weight, m.q_scale, m.k_scale)
+        ref = functools.partial(tattn.attention_ref_math, dtype=BF, heads=H, dim_head=Dh,
+                                scale=8.0, causal=causal, use_rope=spatial)
+        M = rows * n
+        pairs = n * (n + 1) // 2 if causal else n * n
+        flops = 2 * M * D * 3 * H * Dh + 4 * rows * H * Dh * pairs
+        nbytes = 2 * M * D + 4 * (3 * H * Dh * D + D + 2 * Dh) + 2 * M * H * Dh
+        kernels = "ln_qkv+" + ("small_n_attention" if route == "small" else "cosine_mha")
+        check_train_route(name, kernels, functools.partial(m._train_kernel, route, spatial), ref,
+                          args, bound(flops, nbytes, PEAK_BF16),
+                          route_calls.get(name), shape=[rows, n, H * Dh], causal=causal,
+                          rope=spatial)
+    ff = tattn.FeedForward(D, dtype=BF).cuda()
+    inner = ff.proj_out.weight.shape[1]
+    with torch.no_grad():
+        ff.proj_in.weight.copy_(randn(g, *ff.proj_in.weight.shape, scale=D ** -0.5))
+        ff.proj_out.weight.copy_(randn(g, *ff.proj_out.weight.shape, scale=inner ** -0.5))
+        ff.norm_weight.add_(randn(g, D, scale=0.1))
+        ff.norm_bias.add_(randn(g, D, scale=0.1))
+    M = B * t * hw
+    x = randn(g, M, D, dtype=BF).requires_grad_()
+    check_train_route("ff", "geglu_ff", ff._train_kernel,
+                      functools.partial(tattn.feed_forward_ref_math, dtype=BF),
+                      (x, *ff._params()),
+                      bound(6 * M * D * inner, 2 * 2 * M * D + 4 * (2 * D + 3 * inner * D),
+                            PEAK_BF16), route_calls.get("ff"), shape=[M, D, inner])
+
+
+def _train_tensors(state) -> dict:
+    """G and D parameters and the codebook's buffers, by name."""
+    out = {f"G.{n}": p for n, p in state.net.named_parameters()}
+    out.update({f"D.image.{n}": p for n, p in state.image_disc.named_parameters()})
+    out.update({f"D.video.{n}": p for n, p in state.video_disc.named_parameters()})
+    cb = state.net.codebook
+    out.update({f"codebook.{n}": getattr(cb, n) for n in ("embeddings", "N", "z_avg",
+                                                           "codebook_usage")})
+    return out
+
+
+STAGES = {"g_forward": "_g_losses", "g_backward": "_grads", "g_update": "_g_update",
+          "codebook_again": "_codebook_again", "d_forward": "_d_losses",
+          "d_backward": "_grads", "d_update": "_d_update"}
+
+
+def profile_train_step(trainer, state, video) -> dict:
+    """One training step timed by stage: CUDA events around each of the
+    trainer's stage methods (the device's time from the stage's first
+    kernel to its last, gaps included), and the whole step; then one more
+    step under torch.profiler for the device's busy time and the kernels
+    that take the most. Returns the stages' ms and the step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marks = []
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return run
+
+    for method in set(STAGES.values()):
+        setattr(trainer, method, timed(method, getattr(trainer, method)))
+    try:
+        step = timed("step", trainer.train_step)
+        step(state, video)
+        torch.cuda.synchronize()
+    finally:
+        for method in set(STAGES.values()):
+            delattr(trainer, method)
+    names = [n for n, _, _ in marks if n != "step"]
+    order = [n for n in STAGES if STAGES[n] in names]
+    if [STAGES[n] for n in order] != names:  # the stages ran in this order
+        raise AssertionError(f"stages ran as {names}")
+    ms = {n: a.elapsed_time(b) for n, (_, a, b) in zip(order, marks)}
+    ms["step"] = marks[-1][1].elapsed_time(marks[-1][2])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, video)
+        torch.cuda.synchronize()
+
+    def self_dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=self_dev, reverse=True)
+    ms["busy"] = sum(self_dev(e) for e in kernels)
+    route = os.environ.get("OMNITOK_TRAIN_KERNEL_FWD")
+    print(f"[8] step by stage ({route}), device ms: " + ", ".join(f"{k} {v:.2f}"
+                                                                 for k, v in ms.items())
+          + f"; device busy {ms['busy'] / ms['step']:.1%} of the step (profiled step)")
+    for e in kernels[:10]:
+        print(f"[8]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+    return ms
+
+
+LOSSES = ("recon_loss", "commitment_loss", "aeloss", "perceptual_loss", "gan_feat_loss",
+          "g_total", "discloss", "d_image_loss", "d_video_loss")
+
+
+def one_step(trainer, state, video, wiring=None) -> tuple:
+    """One train_step: its metrics as floats and the reconstruction of its
+    training forward. With a list for `wiring`, every training call of an
+    Attention or FeedForward appends (module, relative error): its output
+    against the module's plain route on the same input and parameters,
+    whole-tensor, computed as the call returns (before the step moves the
+    parameters)."""
+    from omnitokenizer_tpu_torch.ops import attention as tattn
+
+    kept, handles = [], []
+    g_losses = trainer._g_losses
+
+    def keep(*args):
+        res = g_losses(*args)
+        kept.append(res[1].detach())
+        return res
+
+    def against_plain(name, mod, args, kwargs, out):
+        if kwargs.get("training"):
+            with torch.no_grad(), train_kernel_ops("0"):
+                wiring.append((name, rel_norm(out.detach(), mod.forward(*args, **kwargs))))
+
+    if wiring is not None:
+        handles = [mod.register_forward_hook(functools.partial(against_plain, name),
+                                             with_kwargs=True)
+                   for name, mod in state.net.named_modules()
+                   if isinstance(mod, (tattn.Attention, tattn.FeedForward))]
+    trainer._g_losses = keep
+    try:
+        _, m = trainer.train_step(state, video)
+    finally:
+        del trainer._g_losses
+        for h in handles:
+            h.remove()
+    return {k: float(v) for k, v in m.items()}, kept[0]
+
+
+def wiring_over(name, wiring) -> list:
+    """The module calls of a step over the kernels' bar against their plain
+    route; prints the largest."""
+    worst = max(wiring, key=lambda w: w[1])
+    print(f"[8] {name}: {len(wiring)} training calls of Attention/FeedForward against their "
+          f"plain route on the same input, largest whole-tensor error {worst[1]:.3e} "
+          f"({worst[0]})")
+    return [f"{n} {e:.3e} > {KERNEL_REL_TOL}" for n, e in wiring if not e <= KERNEL_REL_TOL]
+
+
+def step_vs_plain(name, got, got_recon, want, want_recon) -> list:
+    """A step's losses, gradient norms and reconstruction against the plain
+    route's; prints the readings and returns those over their bars."""
+    errs = {k: abs(got[k] - want[k]) / max(abs(got[k]), abs(want[k]), 0.1)
+            for k in LOSSES + ("grad_norm_g", "grad_norm_d")}
+    errs["x_recon"] = rel_norm(got_recon, want_recon)
+    bars = {k: TRAIN_LOSS_REL_TOL for k in LOSSES}
+    bars.update(grad_norm_g=TRAIN_GRAD_NORM_REL_TOL, grad_norm_d=TRAIN_GRAD_NORM_REL_TOL,
+                x_recon=TRAIN_RECON_REL_TOL)
+    print(f"[8] one step, {name} vs plain route (relative to the larger or 0.1; x_recon "
+          f"whole-tensor): " + ", ".join(f"{k} {got[k]:.5g}/{want[k]:.5g} ({errs[k]:.2e})"
+                                        for k in LOSSES + ("grad_norm_g", "grad_norm_d"))
+          + f", x_recon ({errs['x_recon']:.2e})")
+    return [f"{k} {v:.3e} > {bars[k]}" for k, v in errs.items() if not v <= bars[k]]
+
+
+def swap_qk_once(real, route):
+    """kernel_fwd_ref_bwd that hands the first call of `route` its q and k
+    projection weights swapped (a wiring fault), and the rest unchanged."""
+    done = []
+
+    def call(kern, ref, x, gamma, wq, wkv, *rest):
+        if not done and isinstance(kern, functools.partial) and kern.args[0] == route:
+            done.append(route)
+            inner = wq.shape[0]
+            wq, wkv = wkv[:inner], torch.cat([wq, wkv[inner:]])
+        return real(kern, ref, x, gamma, wq, wkv, *rest)
+    return call
+
+
+def phase8_train(smi: str) -> dict:
+    """The flagship GAN training step through train_tokenizer (see the
+    module docstring); returns the launches of one step."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+    from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+    from omnitokenizer_tpu_torch.ops import attention as tattn
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.ops.kernels.ln_qkv import ln_qkv
+    from omnitokenizer_tpu_torch.training.loop import (find_latest_checkpoint, load_state,
+                                                       train_tokenizer)
+    from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+
+    cfg = imagenet_k600_config().replace(dtype=BF)
+    # bench.py's train_gan losses and schedule
+    trainer = TokenizerTrainer(
+        cfg, LossConfig(perceptual_weight=1.0, image_gan_weight=1.0, video_gan_weight=1.0,
+                        gan_feat_weight=4.0, discriminator_iter_start=0),
+        TrainConfig(lr=1e-4, warmup_steps=10, max_steps=1000, warmup_lr_init=1e-5,
+                    ema_advances_per_step=2), device="cuda")
+    state = trainer.init_state(seed=0)
+    print(f"[8] trainer on {trainer.device}: G {sum(p.numel() for p in state.g_params())} "
+          f"parameters, D {sum(p.numel() for p in state.d_params())}, LPIPS pretrained "
+          f"{trainer.lpips_pretrained}")
+    before = {k: v.detach().clone() for k, v in _train_tensors(state).items()}
+    video = (torch.randn(B, T, RES, RES, 3, generator=torch.Generator().manual_seed(5))
+             * 0.2).cuda()
+    stamps = []
+
+    def batches():
+        while True:
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            yield {"video": video}
+
+    routes, spatial = {}, [None]
+    real, real_forward = tattn.kernel_fwd_ref_bwd, tattn.Attention.forward
+
+    def attention_call(self, x, is_spatial=True, training=False):
+        spatial[0] = is_spatial
+        return real_forward(self, x, is_spatial, training)
+
+    def counting(kern, ref, *args):
+        key = kern.args[0] if isinstance(kern, functools.partial) else "ff"
+        if key == "small" and not spatial[0]:
+            key = "flat"
+        routes[key] = routes.get(key, 0) + 1
+        return real(kern, ref, *args)
+
+    with tempfile.TemporaryDirectory() as root:
+        # the warm-up step, its launches, its checkpoint
+        reset_launch_counts()
+        tattn.kernel_fwd_ref_bwd, tattn.Attention.forward = counting, attention_call
+        try:
+            train_tokenizer(trainer, batches(), root, max_steps=1, initial_state=state,
+                            img_every=0, log_every=1)
+        finally:
+            tattn.kernel_fwd_ref_bwd, tattn.Attention.forward = real, real_forward
+        torch.cuda.synchronize()
+        per_step = launch_counts()
+        print(f"[8] launches in one training step: {per_step}; training-route calls {routes}")
+        if per_step != EXPECTED_LAUNCHES["train"]:
+            raise AssertionError(f"launch counts {per_step} != {EXPECTED_LAUNCHES['train']}")
+        if {k: routes.get(k, 0) for k in EXPECTED_TRAIN_ROUTES} != EXPECTED_TRAIN_ROUTES:
+            raise AssertionError(f"training routes {routes} != {EXPECTED_TRAIN_ROUTES}")
+        ckpt = find_latest_checkpoint(root)
+        saved = load_state(ckpt, trainer.init_state(seed=1))
+        if saved.step != 1 or any(not torch.equal(a, b) for a, b in zip(
+                _train_tensors(saved).values(), _train_tensors(state).values())):
+            raise AssertionError(f"{ckpt} does not hold the state it saved")
+        del saved
+
+        # the resumed run: 1 + TRAIN_TIMED steps, the first TRAIN_TIMED timed
+        stamps.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        last = 2 + TRAIN_TIMED
+        resumed = train_tokenizer(trainer, batches(), root, max_steps=last, img_every=0,
+                                  log_every=1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = launch_counts()
+        want = {k: v * (last - 1) for k, v in EXPECTED_LAUNCHES["train"].items()}
+        if counts != want or resumed.step != last:
+            raise AssertionError(f"resumed run: step {resumed.step}, launches {counts} != {want}")
+        step_s = (stamps[TRAIN_TIMED] - stamps[0]) / TRAIN_TIMED
+        with open(os.path.join(root, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        if [r["step"] for r in records] != list(range(last)):
+            raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in records]}")
+        bad = [(r["step"], k) for r in records for k in LOSSES if not abs(r[k]) < float("inf")]
+        if bad:
+            raise AssertionError(f"non-finite losses {bad}")
+        after = _train_tensors(resumed)
+        still = [k for k, v in before.items() if torch.equal(v, after[k])]
+        if still:
+            raise AssertionError(f"{len(still)} tensors did not move: {still[:5]}")
+        print(f"[8] resumed from {os.path.basename(ckpt)} to step {resumed.step}; all "
+              f"{len(before)} G/D parameters and codebook buffers moved; last step "
+              + ", ".join(f"{k} {records[-1][k]:.4f}" for k in LOSSES + ("perplexity",
+                                                                           "avg_usage")))
+        print(f"[8] flagship GAN step B={B} {T}x{RES}^2 bf16 ({smi}): {step_s * 1e3:.2f} ms a "
+              f"step (mean of {TRAIN_TIMED}), {B * T / step_s:.2f} frames/s, peak "
+              f"{peak:.2f} GiB")
+        del resumed, state, before, after
+
+        # one step of the kernel route against the plain route from the same
+        # state; then 3 more steps of each, timed, in the order kernel,
+        # plain, plain, kernel; then one step of each timed by stage
+        out, recon, timing, stages, wiring = {}, {}, {"attn,ff,flat": [], "0": []}, {}, []
+        for i, ops in enumerate(("attn,ff,flat", "0", "0", "attn,ff,flat")):
+            st = load_state(find_latest_checkpoint(root), trainer.init_state(seed=2))
+            with train_kernel_ops(ops):
+                m, x_recon = one_step(trainer, st, video, wiring if i == 0 else None)
+                out.setdefault(ops, m)
+                recon.setdefault(ops, x_recon)
+                del x_recon
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    _, m = trainer.train_step(st, video)
+                    float(m["g_total"])
+                timing[ops].append(((time.perf_counter() - t0) / 3 * 1e3,
+                                    torch.cuda.max_memory_allocated() / 2 ** 30))
+                if i >= 2:
+                    stages[ops] = profile_train_step(trainer, st, video)
+            del st
+        for ops, name in (("attn,ff,flat", "kernel route"), ("0", "plain route")):
+            print(f"[8] {name}: ms a step (peak GiB), 3 steps each, in the order kernel, "
+                  f"plain, plain, kernel: " + ", ".join(f"{t:.2f} ({p:.2f})"
+                                                        for t, p in timing[ops]))
+        print("[8] device ms by stage, kernel route / plain route: "
+              + ", ".join(f"{k} {stages['attn,ff,flat'][k]:.2f} / {stages['0'][k]:.2f}"
+                          for k in stages["0"]))
+        failed = step_vs_plain("kernel route", out["attn,ff,flat"], recon["attn,ff,flat"],
+                               out["0"], recon["0"]) + wiring_over("kernel route", wiring)
+        if failed or len(wiring) != sum(EXPECTED_TRAIN_ROUTES.values()):
+            raise AssertionError(f"kernel vs plain training step ({len(wiring)} module calls): "
+                                 f"{failed}")
+
+        # the fault runs: both comparisons must fail a step whose kernel
+        # route swaps the q and k projections in one attention block
+        for route in ("cosine", "small"):
+            st, wiring = load_state(find_latest_checkpoint(root), trainer.init_state(seed=2)), []
+            tattn.kernel_fwd_ref_bwd = swap_qk_once(real, route)
+            try:
+                m, x_recon = one_step(trainer, st, video, wiring)
+            finally:
+                tattn.kernel_fwd_ref_bwd = real
+            name = f"fault: q/k swapped in the first {route} block"
+            if not step_vs_plain(name, m, x_recon, out["0"], recon["0"]):
+                raise AssertionError(f"the step comparison passes a q/k swap in a {route} block")
+            if len(wiring_over(name, wiring)) != 1:
+                raise AssertionError(f"the module check does not single out the {route} block")
+            del st, x_recon
+
+    # the inference wrappers refuse a grad-requiring input under grad mode
+    gen = torch.Generator().manual_seed(6)
+    x = randn(gen, 64, 512, dtype=BF).requires_grad_()
+    w = randn(gen, 512, 512, dtype=BF)
+    for call in (lambda: ln_qkv(x, torch.ones(512, device=x.device), w, torch.cat([w, w])),
+                 lambda: tattn.Attention(512, 64, 8, dtype=BF).to(x.device)(
+                     x.detach().view(4, 16, 512))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError("an inference kernel took a grad-requiring input")
+    print("[8] ln_qkv and a bf16 Attention's inference call refuse grad-requiring inputs")
+
+    train_route_rows(routes)
+    return per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -739,8 +1239,10 @@ def main() -> int:
     paths["vae"] = phase5_vae()
     paths["rel"] = phase6_rel()
     paths["wide"] = phase7_wide()
-    # a row per kernel and path shape; `launches` is that path's round trip,
-    # and null for a shape no path runs (cosine_mha's ragged row)
+    paths["train"] = phase8_train(smi)
+    # a row per kernel and path shape; `launches` is that path's round trip
+    # (a step for "train"), and null for a shape no path runs (cosine_mha's
+    # ragged row); then a row per training route, `launches` its calls a step
     kernels = []
     for row in ROWS:
         src, rep = SOURCES[row["name"]]
@@ -748,7 +1250,9 @@ def main() -> int:
         kernels.append({"name": row["name"], "route": "cuda", "source": src, "replaces": rep,
                         "launches": by_path.get(row["path"]), "launches_by_path": by_path,
                         **row})
-    print(f"[done] phases 0-7 in {time.perf_counter() - t0:.1f} s")
+    src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
+    kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
+    print(f"[done] phases 0-8 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE).
+"""PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE) and its
+GAN training (`training/`).
 
 The JAX package `omnitokenizer_tpu` is the reference; this package mirrors
 its module layout and imports no JAX.

@@ -1,6 +1,7 @@
-"""Typed configuration of the tokenizer, mirroring `omnitokenizer_tpu.config`.
+"""Typed configuration of the tokenizer and its GAN trainer, mirroring
+`omnitokenizer_tpu.config`.
 
-Field names and defaults are the JAX package's (a test holds the two
+Field names and defaults are the JAX package's (tests hold the
 dataclasses together); only `dtype` is a `torch.dtype` here.
 `fast_patchify` and `flat_temporal` are kept so the mirror stays exact, but
 the port ignores them: both are TPU layout workarounds, and the port always
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -89,6 +90,62 @@ class TokenizerConfig:
 
     def replace(self, **kw) -> "TokenizerConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """GAN and reconstruction loss weights (the reference's stage-2 recipe)."""
+
+    recon_loss_type: str = "l1"  # 'l1' | 'l2'
+    l1_weight: float = 4.0
+    perceptual_weight: float = 4.0
+    video_perceptual_weight: float = 0.0
+    image_gan_weight: float = 0.0
+    video_gan_weight: float = 0.01
+    gan_feat_weight: float = 4.0
+    logitslaplace_weight: float = 0.0
+    disc_loss_type: str = "hinge"  # 'hinge' | 'vanilla'
+    disc_channels: int = 64
+    disc_layers: int = 3
+    discriminator_iter_start: int = 0
+    sigmoid_in_disc: bool = False
+    activation_in_disc: str = "leaky_relu"
+    apply_blur: bool = False  # the reference's Blur2d(f=None) is the identity
+    apply_noise: bool = True
+    apply_diffaug: bool = False
+    apply_allframes: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule and skip gates of the GAN trainer."""
+
+    lr: float = 5e-5
+    lr_min: float = 5e-5
+    warmup_steps: int = 50_000
+    warmup_lr_init: float = 0.0
+    max_steps: int = 500_000
+    dis_lr_multiplier: float = 0.1
+    dis_minlr_multiplier: bool = True
+    dis_warmup_steps: int = 500_000
+    grad_accumulates: int = 1
+    grad_clip_val: Optional[float] = 1.0
+    grad_clip_val_disc: Optional[float] = 1.0
+    disloss_check_thres: Optional[float] = 0.001
+    perloss_check_thres: Optional[float] = None
+    recloss_check_thres: Optional[float] = None
+    resolution_scale: Optional[Sequence[float]] = None
+    sample_ratio: Optional[Sequence[float]] = None
+    force_alternation: bool = False
+    batch_size: int = 8
+    seed: int = 1234
+    # zero the gradients of every {enc,dec}_{spatial,temporal}_transformer
+    # parameter (the finetune stage)
+    freeze_trans: bool = False
+    # 2: the D pass re-encodes the batch with the updated generator and
+    # advances the codebook EMA a second time, as the reference's
+    # two-forward step does; 1: one codebook update a step
+    ema_advances_per_step: int = 2
 
 
 def imagenet_k600_config(use_vae: bool = False) -> TokenizerConfig:

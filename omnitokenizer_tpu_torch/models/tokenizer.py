@@ -159,7 +159,9 @@ class OmniTokenizerNet(nn.Module):
         out_dim = cfg.codebook_dim * (2 if cfg.use_vae else 1)
         self.pre_vq_conv = nn.Linear(cfg.embedding_dim, out_dim)
         self.post_vq_conv = nn.Linear(cfg.codebook_dim, cfg.embedding_dim)
-        self.codebook = None if cfg.use_vae else Codebook(cfg.n_codes, cfg.codebook_dim)
+        self.codebook = None if cfg.use_vae else Codebook(
+            cfg.n_codes, cfg.codebook_dim, no_random_restart=cfg.no_random_restart,
+            restart_thres=cfg.restart_thres)
 
     @property
     def vq_dtype(self) -> torch.dtype:
@@ -179,10 +181,13 @@ class OmniTokenizerNet(nn.Module):
         h = self.encoder(x, is_image, training=training)
         return dense(h, self.pre_vq_conv, self.vq_dtype)
 
-    def quantize(self, h: torch.Tensor, training: bool = False) -> Dict[str, torch.Tensor]:
+    def quantize(self, h: torch.Tensor, training: bool = False,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """training=True advances the codebook (its init and restart rows
+        drawn from `generator`)."""
         if self.cfg.l2_code:
             h = l2norm(h)
-        return self.codebook(h, training=training)
+        return self.codebook(h, training=training, generator=generator)
 
     def decode_latent(self, z: torch.Tensor, is_image: bool,
                       training: bool = False) -> torch.Tensor:
@@ -224,7 +229,8 @@ class OmniTokenizerNet(nn.Module):
         """Full autoencode pass; returns (x_recon, aux dict). VAE mode
         decodes a sample when given a generator, else the mode, and returns
         dict(commitment_loss, kl_loss, posterior), both losses
-        sum(kl) / B * kl_weight."""
+        sum(kl) / B * kl_weight. VQ mode with training=True advances the
+        codebook, drawing its random rows from `generator`."""
         h = self.encode_latent(x, is_image, training=training)
         if self.cfg.use_vae:
             posterior = DiagonalGaussian.from_params(h)
@@ -233,7 +239,7 @@ class OmniTokenizerNet(nn.Module):
             kl = posterior.kl()
             kl_loss = kl.sum() / kl.shape[0] * self.cfg.kl_weight
             return recon, dict(commitment_loss=kl_loss, kl_loss=kl_loss, posterior=posterior)
-        vq = self.quantize(h, training=training)
+        vq = self.quantize(h, training=training, generator=generator)
         return self.decode_latent(vq["embeddings"], is_image, training=training), vq
 
 

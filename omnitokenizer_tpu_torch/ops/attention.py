@@ -3,16 +3,21 @@
 
 Gates, as in the JAX package: a bf16 module called with training=False
 takes the fused kernels (ops/kernels); they launch CUDA kernels for a CUDA
-tensor and run their plain versions for a CPU tensor. f32 and training
-calls take the plain math below, which is the JAX f32 parity path; its
-softmax core, `sdpa`, runs the `mha` kernel on a CUDA tensor inside that
-kernel's gate at inference, in f32 and bf16 alike, as the JAX package runs
-`mha_pallas`. `prepare_kernels()` builds the kernels' bf16 (and padded)
-weights once, at the serving step.
+tensor and run their plain versions for a CPU tensor. A bf16 training call
+takes them too where `OMNITOK_TRAIN_KERNEL_FWD` names the op group, through
+ops/kernel_grad.py: the kernels as the primal, the plain math below
+recomputed as the backward. f32 calls and the other training calls take
+the plain math, which is the JAX f32 parity path; its softmax core,
+`sdpa`, runs the `mha` kernel on a CUDA tensor inside that kernel's gate at
+inference, in f32 and bf16 alike, as the JAX package runs `mha_pallas`
+(its training `sdpa` is plain). `prepare_kernels()` caches the kernels'
+bf16 (and padded) weights for serving; without the cache an inference
+call casts the live parameters, and a training call always does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .bias import ContinuousPositionBias
+from .kernel_grad import kernel_fwd_ref_bwd, train_kernel_fwd_ops
 from .kernels.cosine_mha import cosine_mha, cosine_mha_supported
 from .kernels.geglu_ff import geglu_ff, geglu_ff_supported, pad_geglu_weights
 from .kernels.ln_qkv import ln_qkv, ln_qkv_supported
@@ -49,11 +55,40 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return mha_plain(q, k, v, scale, causal)
 
 
-def _kernels_ready(module: nn.Module):
-    if module.kernel_weights is None:
-        raise RuntimeError(f"{type(module).__name__}: kernel weights not built; "
-                           "call prepare_kernels() (the wrapper's serving step)")
-    return module.kernel_weights
+def project(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wkv: torch.Tensor,
+            dtype: torch.dtype):
+    """The plain projections: q from the normed tokens, kv from the
+    pre-norm input (the reference quirk), products in `dtype`."""
+    xn = (layer_norm(x) * gamma).to(dtype)
+    return F.linear(xn, wq.to(dtype)), F.linear(x.to(dtype), wkv.to(dtype))
+
+
+def attend(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, *,
+           heads: int, dim_head: int, scale: float, causal: bool, use_rope: bool,
+           dtype: torch.dtype, training: bool) -> torch.Tensor:
+    """Plain math from the projections q (B, N, H*D), kv (B, N, 2*H*D) to
+    the (B, N, H*D) tokens before the out-projection."""
+    B, N, inner = q.shape
+    k, v = kv.chunk(2, dim=-1)
+    q, k, v = (t.reshape(B, N, heads, dim_head) for t in (q, k, v))
+    if use_rope:
+        q, k = apply_rotary_emb_2d(q, k)
+    q = l2norm(q.float()) * q_scale
+    k = l2norm(k.float()) * k_scale
+    q = q.transpose(1, 2).to(dtype)
+    k = k.transpose(1, 2).to(dtype)
+    out = sdpa(q, k, v.transpose(1, 2), scale, causal=causal, training=training)
+    return out.transpose(1, 2).reshape(B, N, inner)
+
+
+def attention_ref_math(x, gamma, wq, wkv, q_scale, k_scale, *, dtype, heads, dim_head,
+                       scale, causal, use_rope) -> torch.Tensor:
+    """The plain route from x (B, N, D) and the parameters to the tokens
+    before the out-projection (the JAX `_attention_ref_math`): the
+    recomputed backward of the training route's kernels."""
+    q, kv = project(x, gamma, wq, wkv, dtype)
+    return attend(q, kv, q_scale, k_scale, heads=heads, dim_head=dim_head, scale=scale,
+                  causal=causal, use_rope=use_rope, dtype=dtype, training=True)
 
 
 class Attention(nn.Module):
@@ -90,54 +125,98 @@ class Attention(nn.Module):
             self.spatial_rel_pos_bias = ContinuousPositionBias(dim, heads)
         self.kernel_weights: Optional[tuple] = None
 
-    def prepare_kernels(self) -> None:
-        """The bf16 kernels' weights: the q/k scales for the attention
-        kernels, and the bf16 projection weights where `ln_qkv` takes the
-        shape (as the JAX module gates the two apart)."""
-        if self.dtype != torch.bfloat16:
-            return
+    def _cast_weights(self) -> tuple:
+        """The kernels' weights from the live parameters: the q/k scales
+        for the attention kernels, and the bf16 projection weights where
+        `ln_qkv` takes the shape (as the JAX module gates the two apart)."""
         inner = self.dim_head * self.heads
         proj = None
         if ln_qkv_supported(self.dim, inner, 2 * inner):
-            proj = (self.norm_gamma.detach().float().contiguous(),
-                    self.to_q.weight.detach().to(torch.bfloat16).contiguous(),
-                    self.to_kv.weight.detach().to(torch.bfloat16).contiguous())
-        self.kernel_weights = (proj, self.q_scale.detach().float().contiguous(),
-                               self.k_scale.detach().float().contiguous())
+            proj = (self.norm_gamma.float().contiguous(),
+                    self.to_q.weight.to(torch.bfloat16).contiguous(),
+                    self.to_kv.weight.to(torch.bfloat16).contiguous())
+        return proj, self.q_scale.float().contiguous(), self.k_scale.float().contiguous()
+
+    @torch.no_grad()
+    def prepare_kernels(self) -> None:
+        """The serving cache: the kernels' weights built once, so that an
+        inference call casts nothing. Training never reads it."""
+        if self.dtype == torch.bfloat16:
+            self.kernel_weights = self._cast_weights()
 
     def _proj_out(self, o: torch.Tensor) -> torch.Tensor:
         return F.linear(o.to(self.dtype), self.to_out.weight.to(self.dtype))
 
+    def _project(self, x: torch.Tensor):
+        return project(x, self.norm_gamma, self.to_q.weight, self.to_kv.weight, self.dtype)
+
     def _attend(self, q: torch.Tensor, kv: torch.Tensor, uses_rope: bool,
                 training: bool) -> torch.Tensor:
-        """Plain math from the projections q (B, N, H*D), kv (B, N, 2*H*D)."""
-        B, N, inner = q.shape
-        k, v = kv.chunk(2, dim=-1)
-        q, k, v = (t.reshape(B, N, self.heads, self.dim_head) for t in (q, k, v))
-        if uses_rope:
-            q, k = apply_rotary_emb_2d(q, k)
-        q = l2norm(q.float()) * self.q_scale
-        k = l2norm(k.float()) * self.k_scale
-        q = q.transpose(1, 2).to(self.dtype)
-        k = k.transpose(1, 2).to(self.dtype)
-        out = sdpa(q, k, v.transpose(1, 2), self.scale, causal=self.causal, training=training)
-        return out.transpose(1, 2).reshape(B, N, inner)
+        return attend(q, kv, self.q_scale, self.k_scale, heads=self.heads,
+                      dim_head=self.dim_head, scale=self.scale, causal=self.causal,
+                      use_rope=uses_rope, dtype=self.dtype, training=training)
+
+    def train_route(self, n: int, is_spatial: bool) -> Optional[str]:
+        """The kernel that a bf16 training call runs under kernel_grad, as
+        the JAX gates pick it: 'small' (ln_qkv + small_n_attention) or
+        'cosine' (ln_qkv + cosine_mha), or None for the plain math. A
+        temporal call of n <= 8 frames is the JAX flat route: the port's
+        contiguous (B', n, D) tensor is the flat rows' memory."""
+        ops = train_kernel_fwd_ops()
+        inner = self.dim_head * self.heads
+        if self.dtype != torch.bfloat16 or not ln_qkv_supported(self.dim, inner, 2 * inner):
+            return None
+        uses_rope = self.spatial_pos == "rope" and is_spatial
+        if not is_spatial and "flat" in ops and small_n_supported(n, self.dim_head):
+            return "small"
+        if "attn" not in ops or n % 8:
+            return None
+        if not uses_rope and small_n_supported(n, self.dim_head):
+            return "small"
+        if not self.causal and cosine_mha_supported(n, self.dim_head):
+            return "cosine"
+        return None
+
+    def _train_kernel(self, route: str, uses_rope: bool, x, gamma, wq, wkv, qs, ks):
+        """The training route's primal: the kernels on the live parameters,
+        cast on this call."""
+        B, N, D = x.shape
+        inner = self.dim_head * self.heads
+        q2, kv2 = ln_qkv(x.reshape(B * N, D).contiguous(), gamma.float().contiguous(),
+                         wq.to(torch.bfloat16).contiguous(), wkv.to(torch.bfloat16).contiguous())
+        q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
+        qs, ks = qs.float().contiguous(), ks.float().contiguous()
+        if route == "small":
+            return small_n_attention(q, kv, qs, ks, self.heads, self.dim_head, self.scale,
+                                     self.causal)
+        return cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope)
 
     def forward(self, x: torch.Tensor, is_spatial: bool = True,
                 training: bool = False) -> torch.Tensor:
         B, N, D = x.shape
-        inner = self.dim_head * self.heads
         uses_rope = self.spatial_pos == "rope" and is_spatial
 
+        route = self.train_route(N, is_spatial) if training else None
+        if route is not None:
+            ref = functools.partial(
+                attention_ref_math, dtype=self.dtype, heads=self.heads, dim_head=self.dim_head,
+                scale=self.scale, causal=self.causal, use_rope=uses_rope)
+            out = kernel_fwd_ref_bwd(
+                functools.partial(self._train_kernel, route, uses_rope), ref,
+                x.to(self.dtype), self.norm_gamma, self.to_q.weight, self.to_kv.weight,
+                self.q_scale, self.k_scale)
+            return self._proj_out(out)
         if self.dtype != torch.bfloat16 or training:
             return self._proj_out(self._attend(*self._project(x), uses_rope, training))
 
         # bf16 inference, as the JAX module dispatches: the projections by
         # ln_qkv inside its gate, else plain; then the attention kernel that
-        # takes (N, dim_head), whatever made q and kv
-        proj, qs, ks = _kernels_ready(self)
+        # takes (N, dim_head), whatever made q and kv. Weights from the
+        # serving cache where it is built, else cast from the live parameters
+        proj, qs, ks = self.kernel_weights or self._cast_weights()
         if proj is not None:
             q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), *proj)
+            inner = self.dim_head * self.heads
             q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
         else:
             q, kv = self._project(x)
@@ -150,13 +229,16 @@ class Attention(nn.Module):
             out = self._attend(q, kv, uses_rope, training)
         return self._proj_out(out)
 
-    def _project(self, x: torch.Tensor):
-        """The plain projections: q from the normed tokens, kv from the
-        pre-norm input, products in the module's dtype."""
-        xn = (layer_norm(x) * self.norm_gamma).to(self.dtype)
-        q = F.linear(xn, self.to_q.weight.to(self.dtype))
-        kv = F.linear(x.to(self.dtype), self.to_kv.weight.to(self.dtype))
-        return q, kv
+
+def feed_forward_ref_math(x, ln_w, ln_b, w1, w2, *, dtype) -> torch.Tensor:
+    """LayerNorm -> Linear -> GEGLU (erf) -> Linear, products in `dtype`:
+    the plain route, and the recomputed backward of geglu_ff's training
+    route."""
+    h = (layer_norm(x) * ln_w + ln_b).to(dtype)
+    h = F.linear(h, w1.to(dtype))
+    val, gate = h.chunk(2, dim=-1)
+    h = F.gelu(gate) * val
+    return F.linear(h.to(dtype), w2.to(dtype))
 
 
 class FeedForward(nn.Module):
@@ -173,21 +255,35 @@ class FeedForward(nn.Module):
         self.proj_out = nn.Linear(inner, dim, bias=False)
         self.kernel_weights: Optional[tuple] = None
 
+    @staticmethod
+    def _cast(ln_w, ln_b, w1, w2) -> tuple:
+        """geglu_ff's weights from the parameters given: f32 LN, bf16 W1
+        and W2 zero-padded to whole tiles."""
+        w1p, w2p = pad_geglu_weights(w1, w2)
+        return ln_w.float().contiguous(), ln_b.float().contiguous(), w1p, w2p
+
+    def _params(self) -> tuple:
+        return self.norm_weight, self.norm_bias, self.proj_in.weight, self.proj_out.weight
+
+    @torch.no_grad()
     def prepare_kernels(self) -> None:
-        if self.dtype != torch.bfloat16 or not geglu_ff_supported(self.dim):
-            return
-        w1p, w2p = pad_geglu_weights(self.proj_in.weight.detach(),
-                                     self.proj_out.weight.detach())
-        self.kernel_weights = (self.norm_weight.detach().float().contiguous(),
-                               self.norm_bias.detach().float().contiguous(), w1p, w2p)
+        """The serving cache (see Attention.prepare_kernels)."""
+        if self.dtype == torch.bfloat16 and geglu_ff_supported(self.dim):
+            self.kernel_weights = self._cast(*self._params())
+
+    def _train_kernel(self, x, ln_w, ln_b, w1, w2):
+        return geglu_ff(x, *self._cast(ln_w, ln_b, w1, w2))
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        if self.dtype == torch.bfloat16 and not training and geglu_ff_supported(self.dim):
-            ln_w, ln_b, w1p, w2p = _kernels_ready(self)
-            out = geglu_ff(x.reshape(-1, self.dim).to(self.dtype), ln_w, ln_b, w1p, w2p)
+        kernel_ok = self.dtype == torch.bfloat16 and geglu_ff_supported(self.dim)
+        if kernel_ok and training and "ff" in train_kernel_fwd_ops():
+            flat = x.reshape(-1, self.dim).to(self.dtype).contiguous()
+            out = kernel_fwd_ref_bwd(
+                self._train_kernel, functools.partial(feed_forward_ref_math, dtype=self.dtype),
+                flat, *self._params())
             return out.view(x.shape)
-        h = (layer_norm(x) * self.norm_weight + self.norm_bias).to(self.dtype)
-        h = F.linear(h, self.proj_in.weight.to(self.dtype))
-        val, gate = h.chunk(2, dim=-1)
-        h = F.gelu(gate) * val
-        return F.linear(h.to(self.dtype), self.proj_out.weight.to(self.dtype))
+        if kernel_ok and not training:
+            weights = self.kernel_weights or self._cast(*self._params())
+            out = geglu_ff(x.reshape(-1, self.dim).to(self.dtype), *weights)
+            return out.view(x.shape)
+        return feed_forward_ref_math(x, *self._params(), dtype=self.dtype)

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the serving path and their plain versions.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
-plain PyTorch version for a CPU tensor. A wrapper counts its kernel
+plain PyTorch version for a CPU tensor. A kernel has no backward: on a CUDA
+tensor a wrapper (but vq_argmin, whose integer indices have no gradient)
+raises when grad mode is on and an input requires grad; training reaches
+the kernels through ops/kernel_grad.py. A wrapper counts its kernel
 launches in a `launches` attribute, so a run can show that the main path
 went through the kernels.
 """

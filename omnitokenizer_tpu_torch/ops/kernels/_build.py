@@ -132,3 +132,15 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel has no backward, and its output no `grad_fn`: under grad
+    mode, an input that requires grad would lose its gradient without a
+    word. Training reaches the kernels through ops/kernel_grad.py, whose
+    forward runs them with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the kernel has no backward; "
+            "call it under torch.no_grad(), or take the training route "
+            "(training=True, which runs ops/kernel_grad.py)")

@@ -74,6 +74,7 @@ def cosine_mha(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor,
     if q.device.type == "cpu":
         return cosine_mha_plain(q, kv, q_scale, k_scale, heads, dim_head, scale,
                                 use_rope)
+    _build.refuse_grad("cosine_mha", q, kv, q_scale, k_scale)
     B, N, HD = q.shape
     if not cosine_mha_supported(N, dim_head) or HD != heads * dim_head:
         raise ValueError(f"cosine_mha: unsupported N={N} dim_head={dim_head}")

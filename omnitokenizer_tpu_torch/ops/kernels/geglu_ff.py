@@ -75,6 +75,7 @@ def geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     bf16. Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return geglu_ff_plain(x, ln_w, ln_b, w1p, w2p)
+    _build.refuse_grad("geglu_ff", x, ln_w, ln_b, w1p, w2p)
     M, D = x.shape
     ip = w2p.shape[1]
     if not geglu_ff_supported(D) or ip % INNER_TILE:

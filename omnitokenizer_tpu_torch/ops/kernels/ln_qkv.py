@@ -53,6 +53,7 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
     Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, gamma, wq, wkv)
+    _build.refuse_grad("ln_qkv", x, gamma, wq, wkv)
     M, D = x.shape
     dq, dkv = wq.shape[0], wkv.shape[0]
     if not ln_qkv_supported(D, dq, dkv):

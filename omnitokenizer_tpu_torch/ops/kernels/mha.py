@@ -76,6 +76,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     layout). Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, scale, causal)
+    _build.refuse_grad("mha", q, k, v)
     B, H, N, D = q.shape
     if not mha_supported(N, D, q.dtype):
         raise ValueError(f"mha: unsupported N={N} dim_head={D} dtype={q.dtype}")

@@ -60,6 +60,7 @@ def small_n_attention(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor,
     if q.device.type == "cpu":
         return small_n_attention_plain(q, kv, q_scale, k_scale, heads, dim_head,
                                        scale, causal)
+    _build.refuse_grad("small_n_attention", q, kv, q_scale, k_scale)
     B, N, HD = q.shape
     if not small_n_supported(N, dim_head) or HD != heads * dim_head:
         raise ValueError(f"small_n_attention: unsupported n={N} dim_head={dim_head}")

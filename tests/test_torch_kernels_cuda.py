@@ -376,3 +376,76 @@ def test_wrappers_refuse_narrowed_widths(gen):
     z = randn(gen, 8, 16, dtype=torch.float32)
     with pytest.raises(ValueError, match="expected shape"):
         vq.vq_argmin(z, z[:, :8].contiguous())  # code dims that differ
+
+
+def test_wrappers_refuse_grad_requiring_inputs(gen):
+    """A kernel has no backward: each wrapper but vq_argmin (integer
+    indices) raises on an input that requires grad under grad mode, and
+    launches under no_grad; a bf16 module's inference call on its
+    grad-requiring parameters raises too."""
+    from omnitokenizer_tpu_torch.ops.attention import Attention, FeedForward
+
+    x, qs = randn(gen, 64, 128), torch.ones(64, device="cuda")
+    g32 = torch.ones(128, device="cuda")
+    wq, wkv = randn(gen, 128, 128, scale=0.1), randn(gen, 256, 128, scale=0.1)
+    w1p, w2p = gf.pad_geglu_weights(randn(gen, 680, 128, scale=0.1), randn(gen, 128, 340))
+    q3, kv3 = randn(gen, 4, 16, 128), randn(gen, 4, 16, 256)
+    q4 = randn(gen, 1, 2, 64, 64)
+    calls = {
+        "ln_qkv": lambda t: lq.ln_qkv(t, g32, wq, wkv),
+        "geglu_ff": lambda t: gf.geglu_ff(t, g32, g32, w1p, w2p),
+        "small_n_attention": lambda t: sa.small_n_attention(t[:, :8].contiguous(),
+                                                            kv3[:, :8].contiguous(),
+                                                            qs, qs, 2, 64, 8.0),
+        "cosine_mha": lambda t: cm.cosine_mha(t, kv3, qs, qs, 2, 64, 8.0),
+        "mha": lambda t: mh.mha(t, q4, q4, 8.0),
+    }
+    inputs = {"ln_qkv": x, "geglu_ff": x, "small_n_attention": q3, "cosine_mha": q3,
+              "mha": q4}
+    for name, call in calls.items():
+        t = inputs[name].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call(t)
+        with torch.no_grad():
+            call(t)
+    z = randn(gen, 8, 8, dtype=torch.float32).requires_grad_()
+    vq.vq_argmin(z, z.detach())
+    attn = Attention(128, 64, 2, spatial_pos="rope", dtype=torch.bfloat16).cuda()
+    ff = FeedForward(128, dtype=torch.bfloat16).cuda()
+    for module in (attn, ff):
+        with pytest.raises(RuntimeError, match="has no backward"):
+            module(q3)
+        with torch.no_grad():
+            module(q3)
+
+
+@pytest.mark.parametrize("route,n,spatial,causal", [
+    ("small", 5, False, True), ("small", 8, False, True), ("cosine", 64, True, False),
+    ("cosine", 1024, True, False)])
+def test_training_route_function(gen, route, n, spatial, causal):
+    """The training route on the card: the kernels as the primal (within
+    the kernels' bar of the plain math), the gradients of every input equal
+    to the plain math's (the backward is that math on the same inputs, on
+    the same card), and no kernel launched by the backward."""
+    import functools
+
+    from omnitokenizer_tpu_torch.ops import attention as tattn
+    from omnitokenizer_tpu_torch.ops.kernel_grad import kernel_fwd_ref_bwd
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    m = tattn.Attention(256, 64, 4, causal=causal, spatial_pos="rope", dtype=torch.bfloat16,
+                        spatial=spatial).cuda()
+    assert m.train_route(n, spatial) == route
+    x = randn(gen, 8, n, 256).requires_grad_()
+    args = (x, m.norm_gamma, m.to_q.weight, m.to_kv.weight, m.q_scale, m.k_scale)
+    ref = functools.partial(tattn.attention_ref_math, dtype=torch.bfloat16, heads=4,
+                            dim_head=64, scale=8.0, causal=causal, use_rope=spatial)
+    out = kernel_fwd_ref_bwd(functools.partial(m._train_kernel, route, spatial), ref, *args)
+    want = ref(*args)
+    assert rel_err(out.detach(), want.detach()) <= REL_TOL
+    g = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+    reset_launch_counts()
+    got = torch.autograd.grad(out, args, g)
+    assert not any(launch_counts().values())
+    for a, b in zip(got, torch.autograd.grad(want, args, g)):
+        assert torch.equal(a, b)

@@ -1,6 +1,7 @@
 """The port imports no JAX: with jax and flax made unimportable, the package
 imports and runs CPU round trips: VQ with RoPE and 'rel' positions in f32
-and bf16, and the VAE through the diffusion adapter."""
+and bf16, and the VAE through the diffusion adapter; and a bf16 GAN
+training step through the trainer."""
 
 import subprocess
 import sys
@@ -32,6 +33,14 @@ z = vae.encode(video, is_image=False)
 assert z.shape == (1, 8, 3, 4, 4)
 assert vae.decode(z, is_image=False).shape == video.shape
 assert mha.launches == 0
+from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+trainer = TokenizerTrainer(cfg.replace(dtype=torch.bfloat16),
+                           LossConfig(perceptual_weight=1.0, image_gan_weight=1.0, disc_layers=2,
+                                      disc_channels=16),
+                           TrainConfig(warmup_lr_init=1e-5), device="cpu")
+state, metrics = trainer.train_step(trainer.init_state(0), video.permute(0, 2, 3, 4, 1))
+assert state.step == 1 and all(bool(torch.isfinite(v)) for v in metrics.values())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "omnitokenizer_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
