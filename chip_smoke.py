@@ -53,7 +53,23 @@ Phases (any failure raises and exits non-zero):
      step of the kernel route against the plain route from the same state
      (losses, gradient norms, the reconstruction); and a step with a
      wiring fault (q and k projections swapped in one block of the kernel
-     route) that this comparison must fail.
+     route) that this comparison must fail;
+  9. the eval entry point, vqgan_eval.evaluate, at the released tokenizer's
+     eval flags (scripts/recons/eval_video.sh: f32, B=8 clips of 17x256^2,
+     4 batches from an in-memory dataset through the port's DataLoader):
+     (a) a Lightning-style checkpoint of the flagship in the reference's key
+     scheme, random values from seed 0, loaded on the card through
+     OmniTokenizerVQGAN.load_from_checkpoint, every tensor one the file
+     holds; (b) the f32 eval, its launches a batch (mha 6, vq_argmin 1),
+     clips/s, peak memory, where its time goes, and its round trip against
+     the plain route (indices, the decode of the same indices); (c) the same
+     with --bf16 (the flagship's launches and the bf16 slice bars against
+     the f32 model of the same checkpoint); (d) --use_vae in f32 (mha 6); (e)
+     the FVD and FID feature extractors with random weights, card against
+     CPU, timed; then mha's f32 flash branch and vq_argmin at the eval's
+     shapes against their plain versions.
+Phase 0 also prints which host data backends load (the native normalize,
+the libav decoder, PIL, imageio).
 The line before the last is a JSON object with a row per kernel and shape
 (and one per training route); the last line is {"ok": true, "device": {...}}.
 """
@@ -96,6 +112,14 @@ EXPECTED_LAUNCHES = {
     # backward recomputes plain math
     "train": {"geglu_ff": 24, "ln_qkv": 20, "cosine_mha": 8, "small_n_attention": 12,
               "vq_argmin": 2, "mha": 0},
+    # a batch of vqgan_eval at the released tokenizer's flags (B=8 clips):
+    # f32, the eval scripts' precision: mha in the 6 spatial 't' blocks and
+    # the codebook's search; --bf16: the flagship's round trip; --use_vae:
+    # the f32 VAE's
+    "eval_f32": {**{k: 0 for k in KERNELS}, "mha": 6, "vq_argmin": 1},
+    "eval_bf16": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
+                  "vq_argmin": 1, "mha": 0},
+    "eval_vae": {**{k: 0 for k in KERNELS}, "mha": 6},
 }
 # training-route calls a step (ops/kernel_grad.py): the flat temporal route
 # in the 8 temporal blocks, cosine attention in the 6 spatial 't' blocks,
@@ -248,6 +272,10 @@ def phase0_card() -> str:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     print(f"[0] device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; TF32 off")
+    from omnitokenizer_tpu_torch.native import build as native
+
+    print(f"[0] host data backends (native normalize and libav video decoder built here; "
+          f"PIL, imageio importable): {native.backends()}")
     return smi
 
 
@@ -551,14 +579,72 @@ def mha_f32_floor(mh, g) -> None:
                                  f"plain {plain:.3e}")
 
 
+def plain_vq_round_trip(model, xl: torch.Tensor) -> torch.Tensor:
+    """The plain route's VQ round trip of (B, T, H, W, C) clips: training=True
+    calls (in bf16 with the training route's kernels off, under
+    train_kernel_ops("0")) and vq_argmin_plain."""
+    from omnitokenizer_tpu_torch.ops.attention import l2norm
+    from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin_plain
+
+    cfg, net = model.cfg, model.net
+    h = net.encode_latent(xl, False, training=True)
+    i = vq_argmin_plain(l2norm(h).reshape(-1, cfg.codebook_dim), net.codebook.embeddings)
+    return net.decode_latent(net.codebook.lookup(i.view(h.shape[:-1])), False, training=True)
+
+
+def route_bars(tag: str, model, video: torch.Tensor, idx: torch.Tensor, lat_tol: float,
+               dec_tol: float, agree_min: float = 0.0, ref32=None) -> None:
+    """A VQ model's kernel route against its plain route on (B, C, T, H, W)
+    clips whose kernel-route indices are `idx`, on the same weights: pre-VQ
+    latents within lat_tol, indices at least agree_min equal, the decode of
+    the same indices within dec_tol (whole-tensor relative). A bf16 model's
+    kernel route must also be no farther from the f32 model (`ref32`, else
+    the same seed's f32 model) than its plain route."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
+    from omnitokenizer_tpu_torch.ops.attention import l2norm
+    from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin_plain
+
+    cfg, net, emb = model.cfg, model.net, model.net.codebook.embeddings
+    xl = video.permute(0, 2, 3, 4, 1)
+    floor = cfg.dtype != torch.float32
+    with torch.inference_mode(), train_kernel_ops("0"):
+        h_k = net.encode_latent(xl, False)
+        h_p = net.encode_latent(xl, False, training=True)
+        lat_err = rel_norm(h_k, h_p)
+        idx_p = vq_argmin_plain(l2norm(h_p).reshape(-1, cfg.codebook_dim), emb).view(idx.shape)
+        agree = float((idx_p == idx).float().mean())
+        del h_k, h_p
+        dec_k = net.decode(idx, False)
+        dec_p = net.decode_latent(net.codebook.lookup(idx), False, training=True)
+        dec_err = rel_norm(dec_k, dec_p)
+        if floor:  # the same weights before the bf16 cast, f32 throughout
+            ref = ref32 or OmniTokenizerVQGAN.from_config(cfg.replace(dtype=torch.float32),
+                                                          seed=0, device="cuda")
+            dec_32 = ref.net.decode(idx, False)
+            floor_k, floor_p = rel_norm(dec_k, dec_32), rel_norm(dec_p, dec_32)
+            del ref, dec_32
+    b = video.shape[0]
+    print(f"[{tag}] kernel vs plain route, B={b}: pre-VQ latents rel err {lat_err:.3e}; "
+          f"indices agree {agree:.5%}")
+    print(f"[{tag}] decode of the same indices, B={b}: kernel vs plain rel err {dec_err:.3e} "
+          f"(max-abs ratio {rel_err(dec_k, dec_p):.3e})"
+          + (f"; vs f32: kernel {floor_k:.3e}, plain {floor_p:.3e}" if floor else ""))
+    if not lat_err <= lat_tol:
+        raise AssertionError(f"pre-VQ latents rel err {lat_err:.3e} > {lat_tol}")
+    if not agree >= agree_min:
+        raise AssertionError(f"indices agree {agree:.5%} < {agree_min:.3%}")
+    if not dec_err <= dec_tol:
+        raise AssertionError(f"decode rel err {dec_err:.3e} > {dec_tol}")
+    if floor and not floor_k <= FLOOR_RATIO * floor_p:
+        raise AssertionError(f"kernel path is {floor_k:.3e} from f32, plain {floor_p:.3e}")
+
+
 def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
     """A bf16 VQ round trip at full width through OmniTokenizerVQGAN: launch
     counts, then the slice bars against the plain bf16 path on the same
     weights and against the f32 model, then frames/s of both paths."""
     from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
-    from omnitokenizer_tpu_torch.ops.attention import l2norm
     from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin_plain
 
     model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda").serving()
     g = torch.Generator().manual_seed(1)
@@ -580,46 +666,11 @@ def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
     if tuple(idx.shape) != (batch, t, hw, hw) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
         raise AssertionError("bad indices")
 
-    net, emb = model.net, model.net.codebook.embeddings
+    route_bars(tag, model, video, idx, LATENT_REL_TOL, DECODE_REL_TOL)
     xl = video.permute(0, 2, 3, 4, 1)
-
-    def plain_round_trip():
-        h = net.encode_latent(xl, False, training=True)
-        i = vq_argmin_plain(l2norm(h).reshape(-1, cfg.codebook_dim), emb)
-        return net.decode_latent(net.codebook.lookup(i.view(h.shape[:-1])), False,
-                                 training=True)
-
-    # the plain bf16 path: training=True calls with the training route's
-    # kernels off
     with torch.inference_mode(), train_kernel_ops("0"):
-        h_k = net.encode_latent(xl, False)
-        h_p = net.encode_latent(xl, False, training=True)
-        lat_err = rel_norm(h_k, h_p)
-        idx_p = vq_argmin_plain(l2norm(h_p).reshape(-1, cfg.codebook_dim), emb).view(idx.shape)
-        agree = float((idx_p == idx).float().mean())
-        dec_k = net.decode(idx, False)
-        dec_p = net.decode_latent(net.codebook.lookup(idx), False, training=True)
-        dec_err = rel_norm(dec_k, dec_p)
-        # the same weights before the bf16 cast, f32 throughout
-        ref32 = OmniTokenizerVQGAN.from_config(cfg.replace(dtype=torch.float32), seed=0,
-                                               device="cuda")
-        dec_32 = ref32.net.decode(idx, False)
-        floor_k, floor_p = rel_norm(dec_k, dec_32), rel_norm(dec_p, dec_32)
-        del ref32, dec_32
-        print(f"[{tag}] pre-VQ latents rel err {lat_err:.3e} (max-abs ratio "
-              f"{rel_err(h_k, h_p):.3e}); indices agree {agree:.4%}")
-        print(f"[{tag}] decode of the same indices: kernel vs plain rel err {dec_err:.3e} "
-              f"(max-abs ratio {rel_err(dec_k, dec_p):.3e}); vs f32: kernel {floor_k:.3e}, "
-              f"plain {floor_p:.3e}")
-        if not lat_err <= LATENT_REL_TOL:
-            raise AssertionError(f"pre-VQ latents rel err {lat_err:.3e} > {LATENT_REL_TOL}")
-        if not dec_err <= DECODE_REL_TOL:
-            raise AssertionError(f"decode rel err {dec_err:.3e} > {DECODE_REL_TOL}")
-        if not floor_k <= FLOOR_RATIO * floor_p:
-            raise AssertionError(f"kernel path is {floor_k:.3e} from f32, plain {floor_p:.3e}")
-
         fps_k, mem_k = fps_and_peak(lambda: model.reconstruct(video, is_image=False), batch * T)
-        fps_p, mem_p = fps_and_peak(plain_round_trip, batch * T)
+        fps_p, mem_p = fps_and_peak(lambda: plain_vq_round_trip(model, xl), batch * T)
     print(f"[{tag}] round trip B={batch} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
           f"(peak {mem_k:.2f} GiB), plain path {fps_p:.2f} frames/s (peak {mem_p:.2f} GiB)")
     return counts
@@ -1226,6 +1277,403 @@ def phase8_train(smi: str) -> dict:
     return per_step
 
 
+# -- phase 9: the eval entry point ----------------------------------------------------------
+# the released tokenizer's eval flags (scripts/recons/eval_video.sh), f32
+EVAL_FLAGS = (
+    "--inference_type video --patch_embed linear --patch_size 8 --temporal_patch_size 4 "
+    "--spatial_depth 4 --temporal_depth 4 --embedding_dim 512 --disc_layers 3 "
+    "--enc_block ttww --dec_block tttt --twod_window_size 8 --causal_in_temporal_transformer "
+    "--causal_in_peg --dim_head 64 --heads 8 --apply_noise --apply_blur --spatial_pos rope "
+    "--n_codes 8192 --codebook_dim 8 --l2_code --no_random_restart --batch_size 8 "
+    "--loader_type joint --resolution 256 --sequence_length 17 --norm_type batch "
+    "--replacewithgt 0").split()
+EVAL_B, EVAL_BATCHES = 8, 4
+EVAL_REL_TOL = 1e-4        # f32 kernel vs plain route, whole-tensor relative
+EVAL_INDEX_AGREE = 0.999   # f32 indices, kernel vs plain route
+FEATURES_REL_TOL = 1e-3    # I3D logits / Inception features, card vs CPU, f32
+
+
+def reference_tokenizer_state(cfg, seed: int = 0) -> dict:
+    """A state_dict in the reference's key scheme (Lightning's names for the
+    linear-patch-embed tokenizer, as tests/test_checkpoint.py writes them)
+    with random values from `seed` at a trained model's scales, plus keys of
+    the discriminators and LPIPS that the tokenizer's loader skips."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d, H, dh, ws = cfg.embedding_dim, cfg.heads, cfg.dim_head, cfg.twod_window_size
+    inner, ffi = H * dh, int(cfg.ff_mult * 2 / 3 * d)
+    p, pt, c = cfg.patch_size, cfg.temporal_patch_size, cfg.image_channels
+    sd = {}
+
+    def w(key, *shape, fan_in=None):
+        sd[key] = rng.standard_normal(shape) / np.sqrt(fan_in or np.prod(shape[1:]))
+
+    def ones(key, n):
+        sd[key] = 1 + 0.1 * rng.standard_normal(n)
+
+    def small(key, n):
+        sd[key] = 0.02 * rng.standard_normal(n)
+
+    def zeros(key, *shape):
+        sd[key] = np.zeros(shape)
+
+    def transformer(prefix, block, rel):
+        for i, blk in enumerate(block):
+            a = f"{prefix}.layers.{i}.1"
+            if blk == "t":
+                w(f"{prefix}.layers.{i}.0.dsconv.weight", d, 1, 3, 3, 3)
+                small(f"{prefix}.layers.{i}.0.dsconv.bias", d)
+                ones(f"{a}.norm.gamma", d)
+                zeros(f"{a}.norm.beta", d)
+                ones(f"{a}.context_norm.gamma", d)
+                zeros(f"{a}.context_norm.beta", d)
+                w(f"{a}.to_q.weight", inner, d)
+                w(f"{a}.to_kv.weight", 2 * inner, d)
+                w(f"{a}.to_out.weight", d, inner)
+                ones(f"{a}.q_scale", dh)
+                ones(f"{a}.k_scale", dh)
+                if rel:
+                    for j, (o, i_) in enumerate(((d, 2), (d, d))):
+                        w(f"{a}.spatial_rel_pos_bias.net.{j}.0.weight", o, i_)
+                        small(f"{a}.spatial_rel_pos_bias.net.{j}.0.bias", o)
+                    w(f"{a}.spatial_rel_pos_bias.net.2.weight", H, d)
+                    small(f"{a}.spatial_rel_pos_bias.net.2.bias", H)
+            else:  # 'w'
+                ones(f"{a}.norm.gamma", d)
+                zeros(f"{a}.norm.beta", d)
+                w(f"{a}.relative_position_bias_table", (2 * ws - 1) ** 2, H, fan_in=2500)
+                sd[f"{a}.relative_position_index"] = np.zeros((ws * ws, ws * ws), np.int64)
+                w(f"{a}.qkv.weight", 3 * d, d)
+                w(f"{a}.proj.weight", d, d)
+                small(f"{a}.proj.bias", d)
+            ones(f"{prefix}.layers.{i}.3.0.weight", d)
+            small(f"{prefix}.layers.{i}.3.0.bias", d)
+            w(f"{prefix}.layers.{i}.3.1.weight", 2 * ffi, d)
+            w(f"{prefix}.layers.{i}.3.4.weight", d, ffi)
+        ones(f"{prefix}.norm_out.gamma", d)
+        zeros(f"{prefix}.norm_out.beta", d)
+
+    for name, n_in in (("to_patch_emb_first_frame", c * p * p), ("to_patch_emb", c * pt * p * p)):
+        ones(f"encoder.{name}.1.weight", n_in)
+        small(f"encoder.{name}.1.bias", n_in)
+        w(f"encoder.{name}.2.weight", d, n_in)
+        small(f"encoder.{name}.2.bias", d)
+        ones(f"encoder.{name}.3.weight", d)
+        small(f"encoder.{name}.3.bias", d)
+    rel = cfg.spatial_pos == "rel"
+    transformer("encoder.enc_spatial_transformer", cfg.enc_block, rel)
+    transformer("encoder.enc_temporal_transformer", "t" * cfg.temporal_depth, False)
+    transformer("decoder.dec_temporal_transformer", "t" * cfg.temporal_depth, False)
+    transformer("decoder.dec_spatial_transformer", cfg.dec_block, rel)
+    for name, n_out in (("to_pixels_first_frame", c * p * p), ("to_pixels", c * pt * p * p)):
+        w(f"decoder.{name}.0.weight", n_out, d)
+        small(f"decoder.{name}.0.bias", n_out)
+    code_out = cfg.codebook_dim * (2 if cfg.use_vae else 1)
+    w("pre_vq_conv.1.weight", code_out, d)
+    small("pre_vq_conv.1.bias", code_out)
+    w("post_vq_conv.1.weight", d, cfg.codebook_dim)
+    small("post_vq_conv.1.bias", d)
+    if not cfg.use_vae:
+        sd["codebook.embeddings"] = rng.standard_normal((cfg.n_codes, cfg.codebook_dim))
+        sd["codebook.N"] = np.ones(cfg.n_codes)
+        sd["codebook.z_avg"] = sd["codebook.embeddings"].copy()
+        sd["codebook.codebook_usage"] = np.zeros(cfg.n_codes)
+    w("image_discriminator.model0.0.weight", 64, 3, 4, 4)
+    w("video_discriminator.model0.0.weight", 64, 3, 4, 4, 4)
+    w("perceptual_model.lin0.model.1.weight", 1, 64, 1, 1)
+    return {k: torch.from_numpy(v.astype(np.int64 if v.dtype == np.int64 else np.float32))
+            for k, v in sd.items()}
+
+
+def write_and_load(tag: str, path: str, flags: list):
+    """Write a Lightning-style checkpoint of the config the eval flags
+    describe (reference names, random values from seed 0, the run's
+    Namespace in its hparams), load it on the card through
+    OmniTokenizerVQGAN.load_from_checkpoint, and check that every tensor of
+    the port's net equals, bit for bit, the file tensor that the key map
+    (utils/checkpoint.py:port_key) sends to its key, and that no tensor was
+    left unfilled."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
+    from omnitokenizer_tpu_torch.cli import args as A
+    from omnitokenizer_tpu_torch.cli import vqgan_eval
+    from omnitokenizer_tpu_torch.utils.checkpoint import port_key
+
+    args = A.normalize_precision(vqgan_eval.build_parser().parse_args(
+        flags + ["--vqgan_ckpt", path]))
+    cfg = A.tokenizer_config_from(args)
+    sd = reference_tokenizer_state(cfg.replace(dtype=torch.float32), seed=0)
+    if not os.path.exists(path):
+        torch.save({"state_dict": sd, "hyper_parameters": {"args": args}}, path)
+    t0 = time.perf_counter()
+    model = OmniTokenizerVQGAN.load_from_checkpoint(path, cfg=cfg)  # the card: the default
+    load_s = time.perf_counter() - t0
+
+    sent = {}  # port key -> the file tensor in the port's layout
+    for key, val in sd.items():
+        k, v = port_key(key, val.numpy(), cfg)
+        if k is not None:
+            sent[k] = v
+    port = {k: v for k, v in model.net.state_dict().items()
+            if k not in ("codebook.initialized", "codebook.call_cnt")}
+    wrong = [k for k, v in port.items()
+             if k not in sent or not np.array_equal(v.detach().float().cpu().numpy(), sent[k])]
+    if model.unfilled or wrong or model.device.type != "cuda":
+        raise AssertionError(f"{path}: unfilled {model.unfilled[:5]}, tensors unequal to the "
+                             f"file tensor mapped to them {wrong[:5]}, device {model.device}")
+    print(f"[{tag}] loaded {os.path.basename(path)} on {model.device} in {load_s:.2f} s: all "
+          f"{len(port)} tensors ({model.num_params()} parameters) equal to the file tensors "
+          f"the key map sends to them; none left at init")
+    return model, args
+
+
+class SyntheticClips:
+    """An in-memory dataset of `n` clips of T frames of RES^2 made from a seed:
+    8x8-pixel blocks of random colour, uint8, normalized to [-0.5, 0.5] by the
+    port's native host kernel (numpy without a compiler). The card's host may
+    have no PIL, imageio or libav to read files with."""
+
+    def __init__(self, n: int, seed: int = 0):
+        self.n, self.seed = n, seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def clip_u8(self, i: int):
+        import numpy as np
+
+        rng = np.random.RandomState(self.seed + i)
+        small = rng.randint(0, 256, (T, RES // 8, RES // 8, 3), np.uint8)
+        return small.repeat(8, axis=1).repeat(8, axis=2)
+
+    def __getitem__(self, i: int) -> dict:
+        from omnitokenizer_tpu_torch.native import normalize_u8
+
+        return {"video": normalize_u8(self.clip_u8(i)), "label": 0}
+
+
+def eval_run(tag: str, model, args, expected: dict) -> dict:
+    """vqgan_eval.evaluate over EVAL_BATCHES batches of EVAL_B clips through
+    the port's DataLoader: launches per batch, the result, clips/s (host
+    clock around the whole call, data loading and host metrics included)
+    and the peak memory."""
+    from omnitokenizer_tpu_torch.cli import vqgan_eval
+    from omnitokenizer_tpu_torch.data.loader import DataLoader
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    loader = DataLoader(SyntheticClips(EVAL_B * EVAL_BATCHES), EVAL_B, shuffle=False,
+                        drop_last=False, epochs=1, num_workers=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = vqgan_eval.evaluate(model, iter(loader), args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    per_batch = {k: v / EVAL_BATCHES for k, v in counts.items()}
+    print(f"[{tag}] evaluate: {result}; launches a batch {per_batch}; "
+          f"{EVAL_B * EVAL_BATCHES / secs:.2f} clips/s ({secs:.2f} s for "
+          f"{EVAL_B * EVAL_BATCHES} clips of {T}x{RES}^2, data and host metrics included), "
+          f"peak {peak:.2f} GiB")
+    if result["batches"] != EVAL_BATCHES or per_batch != expected:
+        raise AssertionError(f"evaluate: {result['batches']} batches, launches a batch "
+                             f"{per_batch} != {expected}")
+    if not (result["psnr"] is not None and abs(result["psnr"]) < float("inf")):
+        raise AssertionError(f"evaluate: PSNR {result['psnr']}")
+    return {k: int(v) for k, v in per_batch.items()}
+
+
+def eval_breakdown(tag: str, model, args) -> None:
+    """Where one evaluate call's time goes: the loader alone (the clips made,
+    normalized and stacked, no model), and one profiled evaluate for the
+    device's busy time (its kernels' self time) against the call's wall
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from omnitokenizer_tpu_torch.cli import vqgan_eval
+    from omnitokenizer_tpu_torch.data.loader import DataLoader
+
+    def loader():
+        return DataLoader(SyntheticClips(EVAL_B * EVAL_BATCHES), EVAL_B, shuffle=False,
+                          drop_last=False, epochs=1, num_workers=2)
+
+    t0 = time.perf_counter()
+    n = sum(len(b["video"]) for b in loader())
+    load_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vqgan_eval.evaluate(model, iter(loader()), args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"[{tag}] the loader alone: {load_s * 1e3:.1f} ms for {n} clips; one profiled "
+          f"evaluate: {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+
+
+def first_batch() -> torch.Tensor:
+    """The eval's first batch as (B, C, T, H, W) on the card."""
+    import numpy as np
+
+    ds = SyntheticClips(EVAL_B * EVAL_BATCHES)
+    video = np.stack([ds[i]["video"] for i in range(EVAL_B)])
+    return torch.from_numpy(video).cuda().permute(0, 4, 1, 2, 3)
+
+
+def f32_vq_vs_plain(tag: str, model, video: torch.Tensor) -> torch.Tensor:
+    """The f32 VQ eval round trip against the plain route: route_bars at the
+    eval's bars, the whole round trip within EVAL_REL_TOL, and both routes'
+    frames/s and peak memory. Returns the kernel route's reconstruction."""
+    xl = video.permute(0, 2, 3, 4, 1)
+    with torch.inference_mode():
+        idx = model.encode(video, is_image=False)
+        rec = model.decode(idx, is_image=False)
+        full_err = rel_norm(rec.permute(0, 2, 3, 4, 1), plain_vq_round_trip(model, xl))
+    route_bars(tag, model, video, idx, EVAL_REL_TOL, EVAL_REL_TOL, EVAL_INDEX_AGREE)
+    print(f"[{tag}] f32 whole round trip, B={video.shape[0]}: kernel vs plain route rel err "
+          f"{full_err:.3e}")
+    if not full_err <= EVAL_REL_TOL:
+        raise AssertionError(f"f32 eval round trip kernel vs plain: {full_err:.3e}")
+    with torch.inference_mode():
+        fps_k, mem_k = fps_and_peak(lambda: model.decode(model.encode(video, False), False),
+                                    EVAL_B * T, iters=3)
+        fps_p, mem_p = fps_and_peak(lambda: plain_vq_round_trip(model, xl), EVAL_B * T, iters=3)
+    print(f"[{tag}] round trip B={EVAL_B} {T}x{RES}^2 f32: kernel route {fps_k:.2f} frames/s "
+          f"(peak {mem_k:.2f} GiB), plain route {fps_p:.2f} frames/s (peak {mem_p:.2f} GiB)")
+    return rec
+
+
+def f32_vae_vs_plain(tag: str, model, video: torch.Tensor) -> None:
+    """The f32 VAE against the plain route on the same noise (phase 5's bars)."""
+    from omnitokenizer_tpu_torch.ops.gaussian import DiagonalGaussian
+
+    net = model.net
+    xl = video.permute(0, 2, 3, 4, 1)
+    with torch.inference_mode():
+        post_k = DiagonalGaussian.from_params(net.encode_latent(xl, False))
+        post_p = DiagonalGaussian.from_params(net.encode_latent(xl, False, training=True))
+        z = post_p.sample(generator=torch.Generator(device="cuda").manual_seed(0))
+        errs = {"mean": rel_norm(post_k.mean, post_p.mean),
+                "logvar": rel_norm(post_k.logvar, post_p.logvar),
+                "decode": rel_norm(net.decode_latent(z, False),
+                                   net.decode_latent(z, False, training=True))}
+    print(f"[{tag}] f32 VAE kernel vs plain route, rel err: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= EVAL_REL_TOL}
+    if bad:
+        raise AssertionError(f"f32 VAE eval kernel vs plain: {bad}")
+
+
+def eval_features(tag: str, real_u8, fake_u8) -> None:
+    """FVD's I3D and FID's Inception with random weights (I3D the JAX
+    package's init): on the card against the CPU in f32 (2 clips, 4 frames),
+    then timed on the card, I3D per 16 clips and Inception per 32 frames;
+    the FVD between the eval's input and reconstructed clips, a pipeline
+    check with random features, not a metric."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.eval.frechet import frechet_distance
+    from omnitokenizer_tpu_torch.eval.i3d import compute_fvd_logits, load_i3d
+    from omnitokenizer_tpu_torch.eval.inception import compute_fid_features, load_inception
+
+    i3d_gpu, _ = load_i3d(None)
+    i3d_cpu, _ = load_i3d(None, device="cpu")
+    inc_gpu, _ = load_inception(None)
+    inc_cpu, _ = load_inception(None, device="cpu")
+    frames = np.concatenate([real_u8[:2, 0], fake_u8[:2, 0]]).astype(np.float32) / 255.0
+    errs = {"i3d": rel_err(torch.from_numpy(compute_fvd_logits(real_u8[:2], i3d_gpu)),
+                           torch.from_numpy(compute_fvd_logits(real_u8[:2], i3d_cpu))),
+            "inception": rel_err(torch.from_numpy(compute_fid_features(frames, inc_gpu)),
+                                 torch.from_numpy(compute_fid_features(frames, inc_cpu)))}
+    del i3d_cpu, inc_cpu
+    print(f"[{tag}] card vs CPU, f32, max-abs ratio: " + ", ".join(f"{k} {v:.3e}"
+                                                               for k, v in errs.items()))
+    if not max(errs.values()) <= FEATURES_REL_TOL:
+        raise AssertionError(f"feature extractors, card vs CPU: {errs}")
+    clips = np.concatenate([real_u8, fake_u8])[:16]
+    all_frames = clips[:2].reshape(-1, *clips.shape[2:])[:32].astype(np.float32) / 255.0
+    i3d_ms = cuda_ms(lambda: compute_fvd_logits(clips, i3d_gpu, batch=16), iters=3, warmup=1,
+                     queued=False)
+    inc_ms = cuda_ms(lambda: compute_fid_features(all_frames, inc_gpu, batch=32), iters=3,
+                     warmup=1, queued=False)
+    fvd = frechet_distance(compute_fvd_logits(real_u8, i3d_gpu),
+                           compute_fvd_logits(fake_u8, i3d_gpu))
+    print(f"[{tag}] I3D {i3d_ms:.2f} ms per 16 clips of {T}x{RES}^2 (resize to 224 included), "
+          f"Inception {inc_ms:.2f} ms per 32 frames (resize to 299 included); FVD of the "
+          f"{len(real_u8)} input vs reconstructed clips with random I3D features: {fvd:.4f} "
+          f"(a pipeline check, not a metric)")
+    if not abs(fvd) < float("inf"):
+        raise AssertionError(f"FVD {fvd}")
+
+
+def phase9_eval() -> dict:
+    """The eval entry point at the released tokenizer's flags; returns the
+    launches a batch of each eval path."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.cli import vqgan_eval
+    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        flags = EVAL_FLAGS + ["--save", root]
+        ckpt = os.path.join(root, "imagenet_k600.ckpt")
+        # (a) the checkpoint, (b) f32 VQ eval
+        f32, args = write_and_load("9a", ckpt, flags)
+        paths["eval_f32"] = eval_run("9b", f32, args, EXPECTED_LAUNCHES["eval_f32"])
+        eval_breakdown("9b", f32, args)
+        video = first_batch()
+        rec = f32_vq_vs_plain("9b", f32, video)
+        real_u8 = np.stack([SyntheticClips(EVAL_B).clip_u8(i) for i in range(EVAL_B)])
+        fake_u8 = vqgan_eval._to_u8(rec.float().permute(0, 2, 3, 4, 1).cpu().numpy())
+        del rec
+        # (c) the same checkpoint with --bf16
+        bf16, args16 = write_and_load("9c", ckpt, flags + ["--bf16"])
+        paths["eval_bf16"] = eval_run("9c", bf16.serving(), args16,
+                                      EXPECTED_LAUNCHES["eval_bf16"])
+        eval_breakdown("9c", bf16, args16)
+        with torch.inference_mode():
+            idx = bf16.encode(video, is_image=False)
+        route_bars("9c", bf16, video, idx, LATENT_REL_TOL, DECODE_REL_TOL, ref32=f32)
+        del idx
+        del bf16, f32
+        # (d) an f32 VAE checkpoint
+        vae, args_vae = write_and_load("9d", os.path.join(root, "imagenet_k600_vae.ckpt"),
+                                       flags + ["--use_vae"])
+        paths["eval_vae"] = eval_run("9d", vae, args_vae, EXPECTED_LAUNCHES["eval_vae"])
+        f32_vae_vs_plain("9d", vae, video)
+        del vae
+    torch.cuda.empty_cache()
+    # (e) the feature extractors of FVD and FID
+    eval_features("9e", real_u8, fake_u8)
+
+    # mha's f32 flash branch at the eval's shape: the 6 spatial blocks, B=8
+    g = torch.Generator().manual_seed(10)
+    shape = (EVAL_B * (1 + (T - 1) // 4), 8, (RES // 8) ** 2, 64)
+    q, k = (F.normalize(randn(g, *shape), dim=-1) for _ in range(2))
+    v = randn(g, *shape)
+    err = compare("mha f32 eval", mh.mha(q, k, v, 8.0, False), mh.mha_plain(q, k, v, 8.0, False),
+                  MHA_F32_REL_TOL)
+    bh, n = shape[0] * shape[1], shape[2]
+    record("9", "mha", "eval_f32", [err], lambda: mh.mha(q, k, v, 8.0, False),
+           lambda: mh.mha_plain(q, k, v, 8.0, False),
+           bound(3 * 4 * bh * n * n * 64, 4 * bh * n * 64 * 4, PEAK_TF32),
+           lambda: F.scaled_dot_product_attention(q, k, v, scale=8.0),
+           shape=list(shape), dtype="float32", causal=False)
+    del q, k, v
+    # and vq_argmin at the eval's rows: 8 clips x 5 x 32 x 32
+    check_vq("9", "eval_f32", F.normalize(randn(g, EVAL_B * 5 * 1024, 8), dim=-1).contiguous(),
+             randn(g, 8192, 8))
+    return paths
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1240,6 +1688,7 @@ def main() -> int:
     paths["rel"] = phase6_rel()
     paths["wide"] = phase7_wide()
     paths["train"] = phase8_train(smi)
+    paths.update(phase9_eval())
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -1252,7 +1701,7 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-8 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-9 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,59 @@
+"""Tokenizer training CLI (mirror of `omnitokenizer_tpu.cli.vqgan_train`, the
+reference's vqgan_train.py): the reference's flags, an optional pretrained
+load with weight inflation, auto-resume, the GAN step over the loader.
+
+    python -m omnitokenizer_tpu_torch.cli.vqgan_train --patch_size 8 ... \\
+        --data_path DIR --train_datalist LIST --default_root_dir RUNS [--device cpu]
+
+Checkpoints land in <default_root_dir>/checkpoints/step_*.pt; a run
+resumes from the newest, and `vqgan_eval --vqgan_ckpt` reads them. One
+process on one device (the card unless --device cpu); data parallelism is
+not ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from . import args as A
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("vqgan_train")
+    A.add_model_args(p)
+    A.add_loss_args(p)
+    A.add_train_args(p)
+    A.add_data_args(p)
+    A.add_device_arg(p)
+    return p
+
+
+def main(argv=None):
+    from ..data.loader import VideoData
+    from ..training.loop import train_tokenizer
+    from ..training.trainer import TokenizerTrainer
+    from ..utils.inflate import load_pretrained_into_state
+
+    args = A.normalize_precision(build_parser().parse_args(argv))
+    trainer = TokenizerTrainer(A.tokenizer_config_from(args), A.loss_config_from(args),
+                               A.train_config_from(args), device=args.device)
+    loader = VideoData(args, train=True)
+    try:
+        val_loader = VideoData(args, train=False)
+    except (ValueError, OSError) as e:
+        print(f"no validation loader ({e}); skipping val passes")
+        val_loader = None
+
+    state = None
+    if args.pretrained:
+        state = load_pretrained_into_state(
+            trainer, args.pretrained, init_vgen=args.init_vgen, init_vdis=args.init_vdis,
+            no_init_idis=args.no_init_idis, seed=args.seed)
+
+    return train_tokenizer(
+        trainer, iter(loader), args.default_root_dir, max_steps=args.max_steps, seed=args.seed,
+        initial_state=state, val_batches=iter(val_loader) if val_loader is not None else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,10 +22,9 @@ SD_LATENT_SCALE = 0.18215
 
 
 class DiffusionVAEAdapter:
-    """Wraps a VAE-mode OmniTokenizerVQGAN. Loading a released Lightning
-    checkpoint (the JAX adapter's `load_from_checkpoint`) waits for the
-    checkpoint bridge of the port (ROADMAP.md); until then a model comes
-    from `from_config` or from JAX weights through convert.py."""
+    """Wraps a VAE-mode OmniTokenizerVQGAN, from a checkpoint
+    (`load_from_checkpoint`), from `from_config` or from JAX weights through
+    convert.py."""
 
     def __init__(self, vae: OmniTokenizerVQGAN, scale: float = SD_LATENT_SCALE):
         if not vae.cfg.use_vae:
@@ -39,6 +38,13 @@ class DiffusionVAEAdapter:
         """Random weights made from `seed`, on the card unless the caller
         asks for the CPU."""
         return cls(OmniTokenizerVQGAN.from_config(cfg, seed=seed, device=device), scale)
+
+    @classmethod
+    def load_from_checkpoint(cls, ckpt_path: str, device: Any = "cuda",
+                             scale: float = SD_LATENT_SCALE) -> "DiffusionVAEAdapter":
+        """A VAE-mode tokenizer checkpoint (OmniTokenizerVQGAN.load_from_checkpoint),
+        on the card unless the caller asks for the CPU."""
+        return cls(OmniTokenizerVQGAN.load_from_checkpoint(ckpt_path, device=device), scale)
 
     # -- the DiT/Latte-facing contract ---------------------------------
     def encode(self, x, is_image: bool, seed: int = 0) -> torch.Tensor:

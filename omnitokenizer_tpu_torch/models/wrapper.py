@@ -1,6 +1,7 @@
 """User-facing tokenizer API (mirror of `omnitokenizer_tpu.models.wrapper`):
 
     vqgan = OmniTokenizerVQGAN.from_config(cfg, seed=0)   # on the card
+    vqgan = OmniTokenizerVQGAN.load_from_checkpoint(ckpt)  # a released .ckpt
     tokens = vqgan.encode(video, is_image=False)   # (B, C, T, H, W) in
     recons = vqgan.decode(tokens, is_image=False)  # (B, C, T, H, W) out
 
@@ -11,7 +12,7 @@ model (cfg.use_vae) encodes to continuous latents instead of indices.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -31,9 +32,16 @@ def _to_channels_first(x: torch.Tensor, is_image: bool) -> torch.Tensor:
     return x.permute(0, 4, 1, 2, 3)
 
 
+def check_device(device: Any) -> None:
+    """Raise for a CUDA device on a host without one (no silent CPU fallback)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+
+
 class OmniTokenizerVQGAN:
-    """Serving wrapper around OmniTokenizerNet (inference only). Weights from
-    the JAX package load into the net through convert.state_dict_from_jax.
+    """Serving wrapper around OmniTokenizerNet (inference only). Weights come
+    from a checkpoint (`load_from_checkpoint`) or from the JAX package
+    through convert.state_dict_from_jax.
 
     VAE mode samples its latents with a `torch.Generator` seeded from the
     caller's `seed`: the same seed does not give the JAX package's noise."""
@@ -42,6 +50,7 @@ class OmniTokenizerVQGAN:
         self.cfg = cfg
         self.net = net.eval()
         self._serving = False
+        self.unfilled: List[str] = []
 
     @property
     def device(self) -> torch.device:
@@ -54,11 +63,28 @@ class OmniTokenizerVQGAN:
         """Random weights made from `seed` (on the CPU, then moved to
         `device`: the card unless the caller asks for the CPU). With no card,
         a CUDA device raises rather than leaving the model on the CPU."""
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+        check_device(device)
         net = OmniTokenizerNet(cfg)
         init_weights(net, torch.Generator().manual_seed(seed))
         return cls(cfg, net.to(device))
+
+    @classmethod
+    def load_from_checkpoint(cls, ckpt_path: str, cfg: Optional[TokenizerConfig] = None,
+                             device: Any = "cuda", strict: bool = False
+                             ) -> "OmniTokenizerVQGAN":
+        """A reference Lightning .ckpt, a training checkpoint
+        (checkpoints/step_*.pt) or a save_tokenizer_checkpoint file, on the
+        card unless the caller asks for the CPU; see
+        utils.checkpoint.load_tokenizer_checkpoint. With strict=False a
+        tensor the file lacks keeps its init value (from seed 0), and
+        `unfilled` names them."""
+        from ..utils.checkpoint import load_tokenizer_checkpoint
+
+        check_device(device)
+        cfg, net, unfilled = load_tokenizer_checkpoint(ckpt_path, cfg=cfg, strict=strict)
+        model = cls(cfg, net.to(device))
+        model.unfilled = unfilled
+        return model
 
     def serving(self) -> "OmniTokenizerVQGAN":
         """Cast the f32 parameters to the compute dtype and build the fused
@@ -121,3 +147,13 @@ class OmniTokenizerVQGAN:
         gen = self._generator(seed) if self.cfg.use_vae else None
         recon, aux = self.net(xl, is_image, generator=gen)
         return _to_channels_first(recon, is_image), aux
+
+    # -- info ---------------------------------------------------------------
+    @property
+    def latent_shape(self) -> Tuple[int, int, int]:
+        cfg = self.cfg
+        return (cfg.latent_t, cfg.latent_hw, cfg.latent_hw)
+
+    def num_params(self) -> int:
+        """Parameters only; the codebook's buffers are not counted."""
+        return sum(p.numel() for p in self.net.parameters())

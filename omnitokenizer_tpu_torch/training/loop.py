@@ -124,15 +124,16 @@ def _log_schedule(every: int):
     return should_log
 
 
-def resize_bilinear(video: torch.Tensor, size: int) -> torch.Tensor:
-    """(B, T, H, W, C) -> (B, T, size, size, C), bilinear with an
-    antialiasing filter when it shrinks, as jax.image.resize(..., "bilinear")
-    does (F.interpolate's default does not filter)."""
+def resize_bilinear(video: torch.Tensor, size) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, T, h, w, C) for size = h = w or (h, w),
+    bilinear with an antialiasing filter when it shrinks, as
+    jax.image.resize(..., "bilinear") does (F.interpolate's default does not
+    filter)."""
+    h, w = (size, size) if isinstance(size, int) else size
     B, T, H, W, C = video.shape
     x = video.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
-                      antialias=True)
-    return x.permute(0, 2, 3, 1).reshape(B, T, size, size, C)
+    x = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).reshape(B, T, h, w, C)
 
 
 def _video(batch: Dict[str, Any], device: torch.device) -> torch.Tensor:

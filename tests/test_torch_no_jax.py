@@ -1,7 +1,10 @@
 """The port imports no JAX: with jax and flax made unimportable, the package
 imports and runs CPU round trips: VQ with RoPE and 'rel' positions in f32
 and bf16, and the VAE through the diffusion adapter; and a bf16 GAN
-training step through the trainer."""
+training step through the trainer. Its entry-point modules (checkpoints,
+CLIs, data, eval, native, inflation, media) import, `vqgan_eval.evaluate`
+runs over an in-memory batch, and `vqgan_train` takes one step on PNG
+files, with neither JAX nor the JAX package loaded."""
 
 import subprocess
 import sys
@@ -50,6 +53,64 @@ print("ok")
 
 def test_port_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+ENTRY_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import argparse, importlib, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+MODULES = ["utils.checkpoint", "utils.inflate", "utils.media", "cli.args", "cli.vqgan_eval",
+           "cli.vqgan_train", "data.loader", "data.image", "data.video", "native.build",
+           "eval.frechet", "eval.metrics", "eval.i3d", "eval.inception"]
+for m in MODULES:
+    importlib.import_module("omnitokenizer_tpu_torch." + m)
+from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, TokenizerConfig
+from omnitokenizer_tpu_torch.cli import vqgan_eval, vqgan_train
+from omnitokenizer_tpu_torch.training.loop import write_png
+cfg = TokenizerConfig(embedding_dim=64, n_codes=64, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="tw", dec_block="tt", spatial_depth=2,
+                      temporal_depth=2, twod_window_size=2, heads=2, dim_head=32)
+model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cpu")
+rng = np.random.RandomState(0)
+with tempfile.TemporaryDirectory() as root:
+    batches = [{"video": rng.uniform(-0.5, 0.5, (2, 5, 32, 32, 3)).astype(np.float32)}]
+    args = argparse.Namespace(inference_type="video", save=os.path.join(root, "eval"),
+                              max_batches=None, replacewithgt=0, infer_downsample=None,
+                              save_videos=False, i3d_path=None, inception_path=None)
+    res = vqgan_eval.evaluate(model, iter(batches), args)
+    assert res["batches"] == 1 and np.isfinite(res["psnr"]) and 0 < res["codebook_usage"] <= 1
+    for i in range(4):
+        write_png(os.path.join(root, f"im{i}.png"), rng.randint(0, 255, (16, 16, 3), np.uint8))
+    with open(os.path.join(root, "imagenet.txt"), "w") as f:
+        f.write("".join(f"im{i}.png\t0\n" for i in range(4)))
+    state = vqgan_train.main([
+        "--embedding_dim", "16", "--n_codes", "32", "--codebook_dim", "4", "--patch_size", "4",
+        "--temporal_patch_size", "2", "--enc_block", "t", "--dec_block", "t",
+        "--spatial_depth", "1", "--temporal_depth", "1", "--dim_head", "8", "--heads", "2",
+        "--spatial_pos", "rope", "--resolution", "16", "--sequence_length", "1",
+        "--image_gan_weight", "0.1", "--video_gan_weight", "0", "--disc_layers", "1",
+        "--batch_size", "2", "--num_workers", "0", "--norm_type", "batch", "--max_steps", "1",
+        "--data_path", root, "--train_datalist", os.path.join(root, "imagenet.txt"),
+        "--val_datalist", os.path.join(root, "imagenet.txt"),
+        "--default_root_dir", os.path.join(root, "run"), "--device", "cpu"])
+    assert state.step == 1
+    assert os.path.exists(os.path.join(root, "run", "checkpoints", "step_00000001.pt"))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_entry_points_run_without_jax():
+    res = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

@@ -34,3 +34,45 @@ def to_numpy_tree(variables) -> dict:
 
 def torch_f32(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def reference_state_dict(cfg, seed: int = 0) -> dict:
+    """A state_dict in the reference's key scheme for `cfg` (the keys and
+    shapes of tests/test_checkpoint.py's synthetic_torch_state_dict), with
+    random values at a trained model's scales: LeCun-normal weights, norms
+    and scales near 1, small biases, an N(0, 1) codebook."""
+    from test_checkpoint import synthetic_torch_state_dict
+
+    rng = np.random.RandomState(seed)
+    sd = synthetic_torch_state_dict(cfg)
+    if cfg.use_vae:  # the posterior's mean and log-variance
+        d = cfg.embedding_dim
+        sd["pre_vq_conv.1.weight"] = np.zeros((2 * cfg.codebook_dim, d), np.float32)
+        sd["pre_vq_conv.1.bias"] = np.zeros((2 * cfg.codebook_dim,), np.float32)
+    out = {}
+    for k, v in sd.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if v.dtype != np.float32 or leaf in ("beta", "N", "codebook_usage", "z_avg"):
+            out[k] = v
+        elif leaf == "embeddings":
+            out[k] = rng.standard_normal(v.shape)
+        elif v.ndim >= 2:  # Linear and depthwise conv weights, bias tables
+            fan_in = int(np.prod(v.shape[1:])) if "bias_table" not in k else 50
+            out[k] = rng.standard_normal(v.shape) / np.sqrt(fan_in)
+        elif leaf in ("weight", "gamma", "q_scale", "k_scale"):
+            out[k] = 1 + 0.1 * rng.standard_normal(v.shape)
+        else:
+            out[k] = 0.02 * rng.standard_normal(v.shape)
+        out[k] = np.asarray(out[k], v.dtype)
+    if "codebook.embeddings" in out:
+        out["codebook.z_avg"] = out["codebook.embeddings"].copy()
+    return out
+
+
+def write_lightning_ckpt(path, sd: dict, **hparams) -> None:
+    """A Lightning-style checkpoint: the state_dict and the argparse
+    Namespace of the run under hyper_parameters.args."""
+    import argparse
+
+    torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
+                "hyper_parameters": {"args": argparse.Namespace(**hparams)}}, str(path))
