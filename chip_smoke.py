@@ -120,6 +120,13 @@ EXPECTED_LAUNCHES = {
     "eval_bf16": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
                   "vq_argmin": 1, "mha": 0},
     "eval_vae": {**{k: 0 for k in KERNELS}, "mha": 6},
+    # LM generation (phase 10), through the bf16 flagship tokenizer: class-conditional
+    # images decode 8 images (the decoder's 4 spatial 't' blocks and 4 temporal blocks at
+    # n = 1); frame prediction encodes and decodes 2 clips (a round trip's launches)
+    "lm_class": {"geglu_ff": 8, "ln_qkv": 8, "cosine_mha": 4, "small_n_attention": 4,
+                 "vq_argmin": 0, "mha": 0},
+    "lm_frame": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
+                 "vq_argmin": 1, "mha": 0},
 }
 # training-route calls a step (ops/kernel_grad.py): the flat temporal route
 # in the 8 temporal blocks, cosine attention in the 6 spatial 't' blocks,
@@ -1674,6 +1681,307 @@ def phase9_eval() -> dict:
 
 
 
+# -- phase 10: LM synthesis serving ---------------------------------------------------------
+# the flagship LM of scripts/lm_gen/gen_imagenet_class_cfg.sh: 24 layers, 16 heads, width
+# 1536, vocab 8192 codes + 1000 classes + sos, block 1025; the frame-prediction LM of
+# gen_k600_frame_prediction.sh: unconditional, vocab 8192, block 5120
+LM_LAYERS, LM_HEADS, LM_WIDTH = 24, 16, 1536
+LM_B, LM_FRAME_B = 8, 2
+LM_CACHE_REL_TOL = 2e-2   # bf16 cached prefill + decode vs the full forward, whole-tensor
+LM_WINDOW_REL_TOL = 1e-4  # f32 teacher-forced logits, bucketed windows vs the whole block
+LM_INT8_MEAN_REL = 0.1    # int8 vs bf16 logits, mean |diff| / mean |bf16| (tests/test_int8.py)
+LM_GREEDY_STEPS = 128
+
+
+def lm_model(vocab: int, block: int, seed: int = 0):
+    """The LM at full width, f32 masters computing in bf16, minGPT's init
+    from `seed` on the card, and the position table N(0, 0.02) (minGPT
+    leaves it 0, which would hide a wrong position)."""
+    from omnitokenizer_tpu_torch.config import GPTConfig
+    from omnitokenizer_tpu_torch.models.gpt import GPT, init_weights
+
+    cfg = GPTConfig(vocab_size=vocab, block_size=block, n_layer=LM_LAYERS, n_head=LM_HEADS,
+                    n_embd=LM_WIDTH, dtype=BF)
+    with torch.device("cuda"):
+        gpt = GPT(cfg)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    init_weights(gpt, gen)
+    with torch.no_grad():
+        gpt.pos_emb.normal_(0.0, 0.02, generator=gen)
+    return gpt.eval()
+
+
+def lm_step_bytes(cfg, rows: int, window: int, int8: bool) -> float:
+    """Bytes a decode step must move: every block weight, bias and the head
+    read once (bf16; or int8 with f32 per-channel scales and f32 biases),
+    the rows' keys and values over the window read, their new ones written.
+    The embedding rows and LayerNorm vectors are left out (under 0.1%)."""
+    C, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    weights, biases = L * 12 * C * C + V * C, L * 9 * C
+    w = weights + (2 * biases + V) * 4 if int8 else (weights + biases) * 2
+    return w + rows * 2 * L * (window + 1) * C * 2
+
+
+def phase10a_lm(gpt) -> None:
+    """The flagship LM's forwards on the card: the cache against the full
+    forward, bucketed windows against the whole block in f32, the graph
+    greedy sampler against the eager loop, int8 against bf16."""
+    from omnitokenizer_tpu_torch.models.gpt import (_cast_params_once, _decode_segments,
+                                                     init_cache, make_sampler)
+    from omnitokenizer_tpu_torch.ops.int8 import quantize_gpt_decode_params
+
+    cfg = gpt.cfg
+    g = torch.Generator().manual_seed(20)
+    idx = torch.randint(0, cfg.vocab_size, (2, 300), generator=g).cuda()
+    with torch.no_grad():
+        served = _cast_params_once(gpt, cfg)
+        full, _ = served(idx[:, :64])
+        caches = init_cache(cfg, 2)
+        parts = [served(idx[:, :32], caches, 0)[0]]
+        for t in range(32, 64):
+            parts.append(served(idx[:, t:t + 1], caches, torch.tensor([t], device="cuda"))[0])
+        err = rel_norm(torch.cat(parts, 1), full)
+        print(f"[10a] bf16 cached prefill 32 + decode 32 vs the full forward on 64 tokens: "
+              f"rel err {err:.3e} (bar {LM_CACHE_REL_TOL})")
+        if not err <= LM_CACHE_REL_TOL:
+            raise AssertionError(f"cached logits rel err {err:.3e} > {LM_CACHE_REL_TOL}")
+
+        f32 = _cast_params_once(gpt, cfg.replace(dtype=torch.float32))
+        logits = {}
+        for bucket in (None, 128):
+            caches = init_cache(f32.cfg, 2)
+            out = [f32(idx[:, :2], caches, 0)[0][:, -1]]
+            for off, n, win in _decode_segments(2, 298, cfg.block_size, bucket):
+                for t in range(2 + off, 2 + off + n):
+                    out.append(f32(idx[:, t:t + 1], caches, torch.tensor([t], device="cuda"),
+                                   kv_window=win)[0][:, -1])
+            logits[bucket] = torch.stack(out, 1)
+        del caches, f32
+        err = rel_norm(logits[128], logits[None])
+        print(f"[10a] f32 teacher-forced logits over 300 tokens, windows 256/512 vs the whole "
+              f"block: rel err {err:.3e} (max-abs ratio {rel_err(logits[128], logits[None]):.3e};"
+              f" bar {LM_WINDOW_REL_TOL})")
+        if not err <= LM_WINDOW_REL_TOL:
+            raise AssertionError(f"windowed logits rel err {err:.3e} > {LM_WINDOW_REL_TOL}")
+
+        quant = quantize_gpt_decode_params(gpt)
+        l8, _ = _cast_params_once(gpt, cfg.replace(int8_decode=True))(idx[:, :64], quant=quant)
+        err = float((l8 - full).abs().mean() / full.abs().mean())
+        print(f"[10a] int8 full-forward logits vs bf16 on 64 tokens: mean rel {err:.3e} "
+              f"(bar {LM_INT8_MEAN_REL}); whole-tensor {rel_norm(l8, full):.3e}")
+        if not err <= LM_INT8_MEAN_REL:
+            raise AssertionError(f"int8 logits mean rel {err:.3e} > {LM_INT8_MEAN_REL}")
+        del served, quant, full, l8
+
+    cond = torch.randint(0, cfg.vocab_size, (LM_B, 2), generator=g).cuda()
+    toks = {}
+    for graphs in (True, False):
+        sample = make_sampler(cfg, LM_GREEDY_STEPS, greedy=True, bucket=64, cuda_graphs=graphs)
+        toks[graphs] = sample(gpt, cond)
+        ms = [f"{win}: {m:.4f}" for win, _, m in sample.segment_ms()]
+        print(f"[10a] greedy sampler B={LM_B}, {LM_GREEDY_STEPS} steps, "
+              f"{'CUDA graphs' if graphs else 'eager'}: ms/step by window {ms}")
+    same = float((toks[True] == toks[False]).float().mean())
+    print(f"[10a] graph vs eager greedy tokens: {same:.5%} equal "
+          f"({len(set(toks[True].flatten().tolist()))} distinct tokens)")
+    if not torch.equal(toks[True], toks[False]):
+        raise AssertionError("the graph greedy sampler's tokens differ from the eager loop's")
+
+
+def lm_report(tag: str, fn, rows: int, int8: bool, cfg, tokens: int, wall_s: float,
+              items: int, unit: str, eager_fn, peak: float) -> dict:
+    """Print and return a generation's numbers: decode ms/step by window
+    (CUDA events around the replays) beside its bound, tokens/s and items/s
+    end to end, peak memory, and the eager loop's ms/step."""
+    windows = []
+    for win, n, ms in fn.segment_ms():
+        w = cfg.block_size if win is None else win
+        bound_ms = lm_step_bytes(cfg, rows, w, int8) / HBM_BYTES_PER_S * 1e3
+        windows.append({"window": w, "steps": n, "ms_per_step": ms, "bound_ms": bound_ms})
+    eager = [m for _, _, m in eager_fn.segment_ms()]
+    row = {"path": tag, "int8": int8, "tokens_per_s": tokens / wall_s,
+           f"{unit}_per_s": items / wall_s, "wall_s": wall_s, "peak_gib": peak,
+           "eager_ms_per_step": eager[0], "windows": windows}
+    print(f"[{tag}] {'int8' if int8 else 'bf16'}: {tokens / wall_s:.1f} tokens/s, "
+          f"{items / wall_s:.3f} {unit}/s end to end ({wall_s:.3f} s), peak {peak:.2f} GiB; "
+          f"decode ms/step (bound) by window "
+          f"{[(w['window'], round(w['ms_per_step'], 4), round(w['bound_ms'], 4)) for w in windows]}; "
+          f"eager {eager[0]:.4f} ms/step over 64 steps")
+    return row
+
+
+def lm_breakdown(tag: str, run, steps: int) -> None:
+    """Where a decode step's device time goes: one eager sampler call of
+    `steps` decode steps under torch.profiler (the same kernels a replayed
+    graph runs), its kernels' self time a step, the largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=self_dev, reverse=True)
+    busy = sum(self_dev(e) for e in kernels)
+    print(f"[{tag}] eager decode under the profiler: device busy {busy / steps:.4f} ms a step "
+          f"(prefill included), {sum(e.count for e in kernels) / steps:.0f} kernels a step")
+    for e in kernels[:8]:
+        print(f"[{tag}]   {self_dev(e) / steps:8.4f} ms {e.count / steps:6.1f}x {e.key[:100]}")
+
+
+def phase10b_class(gpt, tok) -> tuple:
+    """Class-conditional CFG image generation at gen_imagenet_class_cfg.sh's
+    flags, in bf16 and int8; returns (launches of the lm path, rows)."""
+    from omnitokenizer_tpu_torch.config import Net2NetConfig
+    from omnitokenizer_tpu_torch.models.gpt import _cast_params_once, init_cache
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    n2n = Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, class_cond_dim=1000, starts_with_sos=True,
+                                           class_first=True, first_stage_vocab_size=8192),
+                             tok, gpt=gpt)
+    flags = dict(top_k=2048, top_p=1.0, cfg_ratio=1.5, use_cfg=True, scale_cfg=True, bucket=256)
+    classes = torch.arange(0, 1000, 125)
+    hw = tok.cfg.latent_hw
+    with torch.no_grad():  # the two prefills of a batch (cond on 2 tokens, uncond on sos)
+        served = _cast_params_once(gpt, gpt.cfg)
+        caches = init_cache(gpt.cfg, 2 * LM_B)
+        prefix = torch.stack([classes + 1, torch.zeros_like(classes)], 1).cuda()
+        prefill_ms = cuda_ms(lambda: (served(prefix, [(k[:LM_B], v[:LM_B]) for k, v in caches], 0),
+                                      served(prefix[:, 1:], [(k[LM_B:], v[LM_B:]) for k, v in caches],
+                                             0)), iters=5, queued=False)
+        del served, caches
+    print(f"[10b] prefill (cond 2 tokens + uncond 1, B={LM_B}): {prefill_ms:.4f} ms")
+    rows, counts = [], None
+    for int8 in (False, True):
+        sample = n2n.make_class_conditional_sampler(hw * hw, int8=int8, **flags)
+        eager = n2n.make_class_conditional_sampler(65, int8=int8, cuda_graphs=False, **flags)
+        gen = torch.Generator("cuda").manual_seed(7)
+        eager(classes, gen)
+        sample(classes, gen)  # warm: the shapes' first cuBLAS calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ids = sample(classes, gen)
+        pixels = n2n.decode_to_pixels(ids, is_image=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[10b] launches in one class-conditional batch ({'int8' if int8 else 'bf16'}): {got}")
+        if got != EXPECTED_LAUNCHES["lm_class"]:
+            raise AssertionError(f"launch counts {got} != {EXPECTED_LAUNCHES['lm_class']}")
+        counts = got
+        if (tuple(ids.shape) != (LM_B, hw * hw) or int(ids.min()) < 0 or int(ids.max()) >= 8192
+                or tuple(pixels.shape) != (LM_B, 3, RES, RES)
+                or not bool(torch.isfinite(pixels).all())):
+            raise AssertionError(f"bad generation {tuple(ids.shape)} {tuple(pixels.shape)}")
+        print(f"[10b] ids: {len(set(ids.flatten().tolist()))} distinct codes of 8192")
+        rows.append(lm_report("10b", sample.fn, 2 * LM_B, int8, gpt.cfg, LM_B * hw * hw, wall,
+                              LM_B, "images", eager.fn, peak))
+        with torch.inference_mode(), train_kernel_ops("0"):
+            grid = ids.view(LM_B, 1, hw, hw)
+            dec_k = tok.net.decode(grid, True)
+            dec_p = tok.net.decode_latent(tok.net.codebook.lookup(grid), True, training=True)
+        err = rel_norm(dec_k, dec_p)
+        print(f"[10b] decode of the generated ids: kernel vs plain route rel err {err:.3e} "
+              f"(bar {DECODE_REL_TOL})")
+        if not err <= DECODE_REL_TOL:
+            raise AssertionError(f"decode rel err {err:.3e} > {DECODE_REL_TOL}")
+        short = n2n.make_class_conditional_sampler(17, int8=int8, cuda_graphs=False, **flags)
+        lm_breakdown(f"10b {'int8' if int8 else 'bf16'}", lambda: short(classes, gen), 16)
+        del sample, eager, short, ids, pixels, dec_k, dec_p
+    return counts, rows
+
+
+def phase10c_frames(tok) -> tuple:
+    """Frame prediction at gen_k600_frame_prediction.sh's flags (int8, bf16);
+    returns (launches of the lm path, row)."""
+    from omnitokenizer_tpu_torch.config import Net2NetConfig
+    from omnitokenizer_tpu_torch.models.gpt import _cast_params_once, init_cache, make_sampler
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+    from omnitokenizer_tpu_torch.ops.int8 import quantize_gpt_decode_params
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    gpt = lm_model(8192, 5120, seed=1)
+    n2n = Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, unconditional=True,
+                                           first_stage_vocab_size=8192), tok, gpt=gpt)
+    lt, hw = tok.cfg.latent_t, tok.cfg.latent_hw
+    flags = dict(top_k=2048, top_p=0.9, bucket=512, int8=True)
+    g = torch.Generator().manual_seed(21)
+    clips = (torch.rand(LM_FRAME_B, 3, T, RES, RES, generator=g) - 0.5).cuda()
+    prefix = torch.randint(0, 8192, (LM_FRAME_B, 1 + 2 * hw * hw), generator=g).cuda()
+    cfg8 = gpt.cfg.replace(int8_decode=True)
+    with torch.no_grad():
+        quant = quantize_gpt_decode_params(gpt)
+        served = _cast_params_once(gpt, cfg8)
+        caches = init_cache(gpt.cfg, LM_FRAME_B)
+        prefill_ms = cuda_ms(lambda: served(prefix, caches, 0, quant=quant), iters=3,
+                             queued=False)
+        del served, caches
+    print(f"[10c] prefill ({prefix.shape[1]} tokens, B={LM_FRAME_B}, int8): {prefill_ms:.4f} ms")
+    # the eager loop over 64 steps after the same prefix length
+    eager = make_sampler(cfg8, 65, top_k=2048, top_p=0.9, bucket=512, cuda_graphs=False)
+    eager(gpt, prefix, torch.Generator("cuda").manual_seed(9), quant=quant)
+    del quant
+    sample = n2n.make_frame_prediction_sampler(lt, 2, **flags)
+    gen = torch.Generator("cuda").manual_seed(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = sample(clips, gen)
+    pixels = n2n.decode_to_pixels(grid.reshape(LM_FRAME_B, -1), is_image=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[10c] launches in one frame prediction of {LM_FRAME_B} clips: {counts}")
+    if counts != EXPECTED_LAUNCHES["lm_frame"]:
+        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES['lm_frame']}")
+    if (tuple(grid.shape) != (LM_FRAME_B, lt, hw, hw) or tuple(pixels.shape) != tuple(clips.shape)
+            or not bool(torch.isfinite(pixels).all())):
+        raise AssertionError(f"bad prediction {tuple(grid.shape)} {tuple(pixels.shape)}")
+    with torch.inference_mode():
+        enc = tok.encode(clips, is_image=False)
+    if not torch.equal(grid[:, :2].int(), enc[:, :2].int()):
+        raise AssertionError("the returned grid's first two latent frames are not the encode's")
+    print(f"[10c] the grid's first 2 latent frames equal the encode's ids; the 3 continued "
+          f"hold {len(set(grid[:, 2:].flatten().tolist()))} distinct codes")
+    row = lm_report("10c", sample.fn, LM_FRAME_B, True, gpt.cfg, LM_FRAME_B * (lt - 2) * hw * hw,
+                    wall, LM_FRAME_B, "clips", eager, peak)
+    return counts, row
+
+
+def phase10_lm() -> dict:
+    """LM synthesis serving: 10a the flagship LM, 10b class-conditional
+    CFG image generation, 10c frame prediction; returns the lm paths'
+    launches."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+
+    t0 = time.perf_counter()
+    gpt = lm_model(9193, 1025)
+    print(f"[10] LM: {sum(p.numel() for p in gpt.parameters())} parameters "
+          f"({LM_LAYERS} x {LM_WIDTH}, {LM_HEADS} heads, vocab 9193, block 1025)")
+    phase10a_lm(gpt)
+    tok = OmniTokenizerVQGAN.from_config(imagenet_k600_config().replace(dtype=BF), seed=0,
+                                         device="cuda").serving()
+    paths = {}
+    paths["lm_class"], rows = phase10b_class(gpt, tok)
+    del gpt
+    torch.cuda.empty_cache()
+    paths["lm_frame"], row = phase10c_frames(tok)
+    print(json.dumps({"lm": rows + [row]}))
+    print(f"[10] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1689,6 +1997,7 @@ def main() -> int:
     paths["wide"] = phase7_wide()
     paths["train"] = phase8_train(smi)
     paths.update(phase9_eval())
+    paths.update(phase10_lm())
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -1701,7 +2010,7 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-9 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-10 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

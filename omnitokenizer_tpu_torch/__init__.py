@@ -1,14 +1,19 @@
-"""PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE) and its
-GAN training (`training/`).
+"""PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE), its GAN
+training (`training/`) and the LM's serving path (`models/gpt.py`,
+`models/net2net.py`).
 
 The JAX package `omnitokenizer_tpu` is the reference; this package mirrors
 its module layout and imports no JAX.
 """
 
-from .config import TokenizerConfig, imagenet_k600_config, imagenet_only_config
+from .config import (GPTConfig, Net2NetConfig, TokenizerConfig, imagenet_k600_config,
+                     imagenet_only_config)
 from .models.diffusion_adapter import DiffusionVAEAdapter
+from .models.gpt import GPT
+from .models.net2net import Net2NetTransformer
 from .models.tokenizer import OmniTokenizerNet
 from .models.wrapper import OmniTokenizerVQGAN
 
-__all__ = ["TokenizerConfig", "imagenet_k600_config", "imagenet_only_config",
-           "DiffusionVAEAdapter", "OmniTokenizerNet", "OmniTokenizerVQGAN"]
+__all__ = ["GPTConfig", "Net2NetConfig", "TokenizerConfig", "imagenet_k600_config",
+           "imagenet_only_config", "DiffusionVAEAdapter", "GPT", "Net2NetTransformer",
+           "OmniTokenizerNet", "OmniTokenizerVQGAN"]

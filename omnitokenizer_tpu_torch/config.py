@@ -1,5 +1,5 @@
-"""Typed configuration of the tokenizer and its GAN trainer, mirroring
-`omnitokenizer_tpu.config`.
+"""Typed configuration of the tokenizer, its GAN trainer and the LM
+(`GPTConfig`, `Net2NetConfig`), mirroring `omnitokenizer_tpu.config`.
 
 Field names and defaults are the JAX package's (tests hold the
 dataclasses together); only `dtype` is a `torch.dtype` here.
@@ -13,7 +13,7 @@ memory as the token-flat rows.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
@@ -146,6 +146,53 @@ class TrainConfig:
     # advances the codebook EMA a second time, as the reference's
     # two-forward step does; 1: one codebook update a step
     ema_advances_per_step: int = 2
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    """The LM's minGPT backbone (the reference's gpt.py; the values of
+    scripts/lm_train/*.sh). `flash_attention` is kept so the mirror stays
+    exact; serving never reads it (the cached attention is plain math)."""
+
+    vocab_size: int = 9193  # 8192 codes + 1000 classes + 1 sos
+    block_size: int = 1025
+    n_layer: int = 24
+    n_head: int = 16
+    n_embd: int = 1536
+    embd_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
+    attn_pdrop: float = 0.0
+    n_unmasked: int = 0
+    vtokens_pos: bool = False
+    dtype: torch.dtype = torch.float32
+    # serving: the block Linears and the head read the W8A8 weights of
+    # ops/int8.quantize_gpt_decode_params when a call is given them
+    int8_decode: bool = False
+    flash_attention: bool = True
+
+    def replace(self, **kw) -> "GPTConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Net2NetConfig:
+    """How Net2NetTransformer wires the tokenizer's codes, the condition and
+    the GPT (the reference's lm_transformer.py)."""
+
+    gpt: GPTConfig = field(default_factory=GPTConfig)
+    class_cond_dim: int = 1000
+    unconditional: bool = False
+    starts_with_sos: bool = True
+    class_first: bool = False
+    p_drop_cond: Optional[float] = None
+    pkeep: float = 1.0
+    sos_token: int = 0
+    first_stage_vocab_size: int = 8192
+    cond_stage_key: str = "label"  # 'label' | 'text' | 'stft'
+    sample_every_n_latent_frames: int = 0
+
+    def replace(self, **kw) -> "Net2NetConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def imagenet_k600_config(use_vae: bool = False) -> TokenizerConfig:

@@ -20,6 +20,11 @@ step. The optimizer states are not mapped.
 
 It is strict: a JAX leaf that maps to no port tensor, a port tensor left
 unfilled, or a shape that disagrees raises.
+
+`gpt_state_dict_from_jax(params)` turns the JAX LM's params (block{i}/query/
+kernel, ...) into the state_dict of the port's GPT, whose modules carry the
+reference's torch names (blocks.{i}.attn.query.weight, ...); it is strict in
+the same way.
 """
 
 from __future__ import annotations
@@ -97,3 +102,48 @@ def load_train_state_from_jax(tree: Dict[str, Any], state) -> None:
              {"params": tree["params_d"][which], "batch_stats": tree["batch_stats_d"][which]})
     load(state.lpips, {"params": tree["lpips_params"]})
     state.step = int(tree["step"])
+
+
+# the JAX GPT's scopes -> the port's (the reference's torch) module names
+_GPT_SCOPES = {"query": "attn.query", "key": "attn.key", "value": "attn.value",
+               "proj": "attn.proj", "fc": "mlp.0", "proj_out": "mlp.2", "ln1": "ln1", "ln2": "ln2"}
+_GPT_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+
+
+def gpt_keys(n_layer: int) -> set:
+    """Every state_dict key of the port's GPT with `n_layer` blocks (without
+    the optional vtokens table)."""
+    keys = {"tok_emb.weight", "pos_emb", "ln_f.weight", "ln_f.bias", "head.weight"}
+    for i in range(n_layer):
+        for scope in _GPT_SCOPES.values():
+            keys |= {f"blocks.{i}.{scope}.weight", f"blocks.{i}.{scope}.bias"}
+    return keys
+
+
+def gpt_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX GPT's params (nested dicts of numpy arrays) -> the port GPT's
+    state_dict, Dense kernels transposed to nn.Linear's (out, in). A leaf
+    that maps to no port tensor, or a tensor of the blocks found left
+    unfilled, raises."""
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for path, value in _leaves(params):
+        arr = np.asarray(value, np.float32)
+        if path in (("pos_emb",), ("vtokens_pos_emb",)):
+            key = path[0]
+        elif len(path) == 2 and path[0] in ("tok_emb", "ln_f", "head") and path[1] in _GPT_LEAVES:
+            key = f"{path[0]}.{_GPT_LEAVES[path[1]]}"
+        elif (len(path) == 3 and path[0].startswith("block") and path[0][5:].isdigit()
+              and path[1] in _GPT_SCOPES and path[2] in _GPT_LEAVES):
+            key = f"blocks.{int(path[0][5:])}.{_GPT_SCOPES[path[1]]}.{_GPT_LEAVES[path[2]]}"
+        else:
+            unused.append("/".join(path))
+            continue
+        out[key] = torch.tensor(np.array(arr.T if path[-1] == "kernel" else arr))
+    if unused:
+        raise KeyError(f"JAX leaves with no port tensor: {unused}")
+    n_layer = len({k.split(".")[1] for k in out if k.startswith("blocks.")})
+    missing = sorted(gpt_keys(n_layer) - set(out))
+    if missing:
+        raise KeyError(f"port tensors left unfilled: {missing}")
+    return out

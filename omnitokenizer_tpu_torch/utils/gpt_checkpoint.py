@@ -1,0 +1,51 @@
+"""The reference's GPT checkpoints (mirror of
+`omnitokenizer_tpu.utils.gpt_checkpoint`).
+
+A Net2Net Lightning checkpoint holds the GPT under the prefix
+"transformer." beside the tokenizer; a bare minGPT state_dict has no
+prefix. The port's GPT carries the reference's torch names
+(tok_emb.weight, pos_emb, blocks.{i}.{ln1,ln2}.{weight,bias},
+blocks.{i}.attn.{key,query,value,proj}.{weight,bias},
+blocks.{i}.mlp.{0,2}.{weight,bias}, ln_f.{weight,bias}, head.weight), so a
+checkpoint loads with no key map and no transpose.
+
+The JAX package's own msgpack GPT checkpoints need flax to read and are not
+read here (ROADMAP.md); its weights reach the port through
+`convert.gpt_state_dict_from_jax`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import torch
+
+from ..convert import gpt_keys
+from .checkpoint import load_torch_state_dict
+
+PREFIX = "transformer."
+
+
+def gpt_state_dict_from_reference(sd: Dict) -> Dict[str, torch.Tensor]:
+    """A reference state_dict (numpy or torch values), with or without the
+    Net2Net prefix -> the port GPT's state_dict in f32. With the prefix,
+    only the prefixed keys are the GPT's; keys the GPT has no tensor for
+    (the tokenizer's, minGPT's causal-mask buffers) are left out. A GPT
+    tensor the file lacks raises."""
+    if any(k.startswith(PREFIX) for k in sd):
+        sd = {k[len(PREFIX):]: v for k, v in sd.items() if k.startswith(PREFIX)}
+    blocks = {int(m.group(1)) for k in sd for m in [re.match(r"blocks\.(\d+)\.", k)] if m}
+    want = gpt_keys(max(blocks) + 1 if blocks else 0)
+    missing = sorted(want - set(sd))
+    if missing:
+        raise KeyError(f"GPT tensors not in the checkpoint: {missing}")
+    keep = want | ({"vtokens_pos_emb"} & set(sd))
+    return {k: torch.as_tensor(sd[k]).float().clone() for k in sorted(keep)}
+
+
+def load_gpt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference Lightning GPT checkpoint (or a bare state_dict) -> the
+    port GPT's state_dict, for GPT.load_state_dict."""
+    sd, _ = load_torch_state_dict(path)
+    return gpt_state_dict_from_reference(sd)

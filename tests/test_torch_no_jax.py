@@ -4,7 +4,10 @@ and bf16, and the VAE through the diffusion adapter; and a bf16 GAN
 training step through the trainer. Its entry-point modules (checkpoints,
 CLIs, data, eval, native, inflation, media) import, `vqgan_eval.evaluate`
 runs over an in-memory batch, and `vqgan_train` takes one step on PNG
-files, with neither JAX nor the JAX package loaded."""
+files, with neither JAX nor the JAX package loaded. The LM's modules (the
+GPT and its samplers, int8, Net2Net, the GPT checkpoints, transformer_eval)
+import and generate on the CPU: class-conditional CFG ids with int8 and
+buckets, frame prediction, and the CLI writing PNGs."""
 
 import subprocess
 import sys
@@ -111,6 +114,62 @@ print("ok")
 
 def test_entry_points_run_without_jax():
     res = subprocess.run([sys.executable, "-c", ENTRY_SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+LM_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import glob, os, tempfile
+import torch
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch import (GPT, GPTConfig, Net2NetConfig, Net2NetTransformer,
+                                     OmniTokenizerVQGAN, TokenizerConfig)
+from omnitokenizer_tpu_torch.cli import transformer_eval
+from omnitokenizer_tpu_torch.models.gpt import init_weights
+from omnitokenizer_tpu_torch.ops import int8
+from omnitokenizer_tpu_torch.utils import gpt_checkpoint
+from omnitokenizer_tpu_torch.utils.checkpoint import save_tokenizer_checkpoint
+cfg = TokenizerConfig(embedding_dim=64, n_codes=64, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="tw", dec_block="tt", spatial_depth=2,
+                      temporal_depth=2, twod_window_size=2, heads=2, dim_head=32)
+tok = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cpu")
+gcfg = GPTConfig(vocab_size=75, block_size=24, n_layer=2, n_head=2, n_embd=32)
+n2n = Net2NetTransformer(Net2NetConfig(gpt=gcfg, class_cond_dim=10, first_stage_vocab_size=64,
+                                       class_first=True), tok)
+sample = n2n.make_class_conditional_sampler(16, top_k=8, bucket=4, int8=True)
+ids = sample(torch.tensor([1, 2]), torch.Generator().manual_seed(0))
+assert ids.shape == (2, 16) and 0 <= int(ids.min()) and int(ids.max()) < 64
+assert n2n.decode_to_pixels(ids, is_image=True).shape == (2, 3, 32, 32)
+un = Net2NetTransformer(Net2NetConfig(gpt=gcfg.replace(vocab_size=64, block_size=48),
+                                      unconditional=True, first_stage_vocab_size=64), tok)
+video = torch.rand(1, 3, 5, 32, 32, generator=torch.Generator().manual_seed(0)) - 0.5
+grid = un.make_frame_prediction_sampler(3, 2, top_k=4, top_p=0.9, bucket=8)(
+    video, torch.Generator().manual_seed(1))
+assert grid.shape == (1, 3, 4, 4)
+with tempfile.TemporaryDirectory() as root:
+    save_tokenizer_checkpoint(os.path.join(root, "tok.pt"), tok.net, cfg)
+    torch.save({"state_dict": {"transformer." + k: v for k, v in n2n.gpt.state_dict().items()}},
+               os.path.join(root, "gpt.ckpt"))
+    n = transformer_eval.main([
+        "--gpt_ckpt", os.path.join(root, "gpt.ckpt"), "--vqvae", os.path.join(root, "tok.pt"),
+        "--starts_with_sos", "--class_first", "--class_cond_dim", "10", "--block_size", "24",
+        "--n_layer", "2", "--n_head", "2", "--n_embd", "32", "--sequence_length", "1",
+        "--n_sample", "2", "--top_k", "8", "--decode_bucket", "4", "--int8",
+        "--save", os.path.join(root, "gen"), "--device", "cpu"])
+    assert n == 2 and len(glob.glob(os.path.join(root, "gen", "*.png"))) == 2
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_lm_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", LM_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

@@ -1,5 +1,6 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: a small config for both sides and the flax -> numpy tree."""
+package: a small config for both sides, the flax -> numpy tree, and a
+small GPT with random weights on both sides."""
 
 from __future__ import annotations
 
@@ -76,3 +77,61 @@ def write_lightning_ckpt(path, sd: dict, **hparams) -> None:
 
     torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
                 "hyper_parameters": {"args": argparse.Namespace(**hparams)}}, str(path))
+
+
+# tests/test_gpt.py's size: vocab 50, block 24, 2 layers, 2 heads, width 32
+GPT_SMALL = dict(vocab_size=50, block_size=24, n_layer=2, n_head=2, n_embd=32)
+
+
+def gpt_configs(**kw):
+    """The same small f32 GPT config for the JAX package and the port."""
+    from omnitokenizer_tpu.config import GPTConfig as JaxGPTConfig
+    from omnitokenizer_tpu_torch.config import GPTConfig as TorchGPTConfig
+
+    args = {**GPT_SMALL, **kw}
+    return JaxGPTConfig(**args), TorchGPTConfig(**args)
+
+
+def random_gpt_params(jcfg, seed: int = 0, **vtokens) -> dict:
+    """The JAX GPT's param tree (nested dicts of numpy arrays) with random
+    values from a numpy seed: kernels and embeddings LeCun-normal, LayerNorm
+    scales near 1, small biases, position tables N(0, 0.5) so that a wrong
+    position shows. `vtokens` are GPT's vtokens_* fields."""
+    from omnitokenizer_tpu.models.gpt import GPT as JaxGPT
+
+    idx = jax.numpy.zeros((1, 4), jax.numpy.int32)
+    cbox = jax.numpy.zeros((1, 4), jax.numpy.int32) if vtokens else None
+    shapes = to_numpy_tree(JaxGPT(jcfg, **vtokens).init(jax.random.PRNGKey(0), idx,
+                                                         cbox=cbox)["params"])
+    rng = np.random.RandomState(seed)
+
+    def fill(path, v):
+        if isinstance(v, dict):
+            return {k: fill(path + (k,), x) for k, x in v.items()}
+        leaf = path[-1]
+        if leaf in ("pos_emb", "vtokens_pos_emb"):
+            out = 0.5 * rng.standard_normal(v.shape)
+        elif leaf == "scale":
+            out = 1 + 0.1 * rng.standard_normal(v.shape)
+        elif leaf == "bias":
+            out = 0.05 * rng.standard_normal(v.shape)
+        elif leaf == "embedding":
+            out = rng.standard_normal(v.shape)
+        else:  # a Dense kernel (in, out)
+            out = rng.standard_normal(v.shape) / np.sqrt(v.shape[0])
+        return np.asarray(out, np.float32)
+
+    return fill((), shapes)
+
+
+def gpt_pair(seed: int = 0, vtokens: dict = None, **kw):
+    """(JAX config, JAX params as jnp arrays, port config, port GPT in f32 on
+    the CPU) holding the same random weights."""
+    from omnitokenizer_tpu_torch.convert import gpt_state_dict_from_jax
+    from omnitokenizer_tpu_torch.models.gpt import GPT
+
+    jcfg, tcfg = gpt_configs(**kw)
+    params = random_gpt_params(jcfg, seed, **(vtokens or {}))
+    gpt = GPT(tcfg, **(vtokens or {}))
+    gpt.load_state_dict(gpt_state_dict_from_jax(params))
+    return jcfg, jax.tree_util.tree_map(jax.numpy.asarray, params), tcfg, gpt.eval()
