@@ -67,7 +67,22 @@ Phases (any failure raises and exits non-zero):
      the f32 model of the same checkpoint); (d) --use_vae in f32 (mha 6); (e)
      the FVD and FID feature extractors with random weights, card against
      CPU, timed; then mha's f32 flash branch and vq_argmin at the eval's
-     shapes against their plain versions.
+     shapes against their plain versions;
+ 10. LM synthesis serving: the flagship LM at 24 x 1536, class-conditional
+     CFG images and K600 frame prediction at scripts/lm_gen/'s flags;
+ 11. diffusion synthesis behind the f32 VAE of phase 5 (DiffusionVAEAdapter),
+     random weights from seed 0 with every tensor filled: (a) DiT-XL/2 (B=2)
+     and Latte-XL/2-omnitokenizer (B=1) f32 forwards on the card against the
+     CPU, bf16 against f32, and 10 DDIM steps card against CPU; (b) DiT
+     class-conditional sampling at the sample CLI's defaults (250 respaced
+     DDPM steps, CFG 4.0 on 3 channels, B=8) in f32 and bf16, decoded; (c)
+     Latte (B=2 clips, CFG on 4 channels) in bf16 over 250 steps and f32 over
+     50, decoded; each with ms a step beside its FLOP bound, images or clips
+     per second, peak memory, device kernels a step, mha's launches in the
+     decode and the decode against the VAE's plain route; (d) the DiT (B=32
+     images) and Latte (B=4 clips) training steps through dit_train.train on
+     pixels the VAE encodes each step: a warm-up step and its checkpoint, a
+     resumed run of 6 steps (5 timed), every parameter moved, the EMA.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
 The line before the last is a JSON object with a row per kernel and shape
@@ -79,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1982,6 +1998,373 @@ def phase10_lm() -> dict:
     return paths
 
 
+# -- phase 11: diffusion synthesis ------------------------------------------------------------
+# DiT-XL/2 at the OmniTokenizer settings of the reference's DiT train.py (8 latent channels,
+# 32x32 latents of 256^2 images, 1000 classes, learned sigma) and Latte-XL/2-omnitokenizer
+# (17x256^2 clips: 5 latent frames, 101 classes, extras 2), both behind the f32 VAE of
+# imagenet_k600_config(use_vae=True). Random weights from seed 0 with every tensor filled
+# N(0, 0.02): the JAX init zeroes the adaLN modulations and the final linear, and a model that
+# outputs 0 would compare nothing.
+DIFF_STD = 0.02
+DIFF_F32_REL_TOL = 1e-4   # card f32 vs CPU f32, whole-tensor (summation order only)
+DIFF_BF16_REL_TOL = 5e-2  # bf16 vs f32 on the card, whole-tensor
+DIFF_DDIM_REL_TOL = 1e-3  # 10 DDIM steps (eta 0) from one noise, card f32 vs CPU f32
+DIT_B, LATTE_B = 8, 2             # images / clips a sampling batch (CFG doubles the rows)
+DIT_TRAIN_B, LATTE_TRAIN_B = 32, 4  # the reference's global 256 over 8 GPUs; 4 clips
+LATTE_F32_STEPS = 50      # f32 Latte sampling: enough steps to read its ms a step
+# the f32 VAE's mha launches: its decoder's 4 spatial 't' blocks in a decode, its encoder's 2
+# in an encode (the temporal blocks, N = 5, take the plain math)
+DIFF_LAUNCHES = {"decode": {**{k: 0 for k in KERNELS}, "mha": 4},
+                 "encode": {**{k: 0 for k in KERNELS}, "mha": 2}}
+SAMPLE_FLAGS = ["--ckpt", "random-weights"]
+
+
+def fill_random(model, seed: int = 0):
+    """Every parameter N(0, DIFF_STD^2), drawn on the card from `seed`."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * DIFF_STD)
+    return model
+
+
+def served_as(model, dtype):
+    """A copy of `model` for sampling, its parameters cast once to `dtype`."""
+    saved = model.cfg
+    model.cfg = saved.replace(dtype=dtype)
+    try:
+        return model.serving()
+    finally:
+        model.cfg = saved
+
+
+def diffusion_flops(cfg, rows: int, video: bool) -> float:
+    """FLOPs of one forward of `rows` samples, every product counted as the
+    code runs it (the temporal blocks' modulation runs once per patch)."""
+    D, p = cfg.hidden_size, cfg.patch_size
+    N = (cfg.input_size // p) ** 2
+    F_ = cfg.num_frames if video else 1
+    mlp = int(D * cfg.mlp_ratio)
+    lin = 2 * D * (3 * D + D) + 2 * 2 * D * mlp  # qkv, proj, fc1, fc2 a token
+    ada = 2 * D * 6 * D
+    flops = 2 * N * F_ * cfg.in_channels * p * p * D + 2 * (256 * D + D * D)
+    if video:
+        half = cfg.depth // 2
+        flops += half * (N * F_ * lin + F_ * 4 * N * N * D + F_ * ada)  # spatial blocks
+        flops += half * (N * F_ * lin + N * 4 * F_ * F_ * D + N * ada)  # temporal blocks
+    else:
+        flops += cfg.depth * (N * lin + 4 * N * N * D + ada)
+    flops += F_ * (2 * D * 2 * D + 2 * N * D * p * p * cfg.out_channels)  # final layer
+    return float(rows * flops)
+
+
+def kernel_stats(fn) -> tuple:
+    """(device kernels one call of fn() launches, their summed device time
+    in ms) under torch.profiler: on one stream the kernels do not overlap,
+    so the sum is the time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def parity(tag: str, model, args_fn, video: bool) -> None:
+    """11a: one f32 forward on the card against the same weights on the
+    CPU, and bf16 on the card against f32 on the card."""
+    with torch.no_grad():
+        inputs = args_fn("cuda")
+        f32 = model(*inputs)
+        bf = served_as(model, BF)
+        bf16 = bf(*inputs).float()
+        del bf
+        model.cpu()
+        t0 = time.perf_counter()
+        cpu = model(*args_fn("cpu"))
+        cpu_s = time.perf_counter() - t0
+        model.cuda()
+    err, err_bf = rel_norm(f32.cpu(), cpu), rel_norm(bf16, f32)
+    print(f"[11a] {tag}: f32 card vs CPU rel err {err:.3e} (bar {DIFF_F32_REL_TOL}; CPU forward "
+          f"{cpu_s:.1f} s), bf16 vs f32 on the card {err_bf:.3e} (bar {DIFF_BF16_REL_TOL}); "
+          f"output {tuple(f32.shape)}, rms {float(f32.pow(2).mean().sqrt()):.4f}")
+    if not (err <= DIFF_F32_REL_TOL and err_bf <= DIFF_BF16_REL_TOL
+            and bool(torch.isfinite(f32).all())):
+        raise AssertionError(f"{tag}: parity {err:.3e} / {err_bf:.3e} off its bars")
+
+
+def ddim_parity(model, diffusion_args) -> None:
+    """11a: DDIM (eta 0) over 10 steps from one initial noise, card against
+    CPU, f32, B=1 without guidance."""
+    from omnitokenizer_tpu_torch.cli import dit_sample
+
+    args = dit_sample.build_parser().parse_args(SAMPLE_FLAGS + diffusion_args)
+    diffusion = dit_sample.make_diffusion(args, False)
+    cfg = model.cfg
+    shape = (1, cfg.in_channels, cfg.input_size, cfg.input_size)
+    noise = torch.randn(shape, generator=torch.Generator().manual_seed(30))
+    y = torch.tensor([207])
+    out = {}
+    with torch.inference_mode():
+        for device in ("cuda", "cpu"):
+            model.to(device)
+            t0 = time.perf_counter()
+            out[device] = diffusion.ddim_sample_loop(
+                lambda x, t: model(x, t, y.to(device)), shape, noise=noise,
+                clip_denoised=False, device=device).cpu()
+            out[device + "_s"] = time.perf_counter() - t0
+    model.cuda()
+    err = rel_norm(out["cuda"], out["cpu"])
+    print(f"[11a] DiT DDIM eta 0, 10 steps, B=1: card vs CPU rel err {err:.3e} "
+          f"(bar {DIFF_DDIM_REL_TOL}; card {out['cuda_s']:.2f} s, CPU {out['cpu_s']:.1f} s)")
+    if not err <= DIFF_DDIM_REL_TOL:
+        raise AssertionError(f"DDIM card vs CPU rel err {err:.3e} > {DIFF_DDIM_REL_TOL}")
+
+
+def decode_vs_plain(tag: str, ad, z: torch.Tensor, video: bool, got: torch.Tensor) -> float:
+    """The adapter's decode (mha's kernel) against the VAE's plain route
+    (training=True) on the same latents, whole-tensor."""
+    net = ad.vae.net
+    with torch.inference_mode():
+        zl = z / ad.scale
+        if video:  # (B, F, C, h, w) -> (B, F, h, w, C)
+            plain = net.decode_latent(zl.permute(0, 1, 3, 4, 2), False, training=True)
+            got = got.permute(0, 2, 3, 4, 1)
+        else:  # (B, C, h, w) -> (B, 1, h, w, C)
+            plain = net.decode_latent(zl.permute(0, 2, 3, 1)[:, None], True, training=True)[:, 0]
+            got = got.permute(0, 2, 3, 1)
+    err = rel_norm(got, plain)
+    print(f"[{tag}] decode: kernel vs plain route rel err {err:.3e} (bar {VAE_REL_TOL})")
+    if not err <= VAE_REL_TOL:
+        raise AssertionError(f"{tag} decode rel err {err:.3e} > {VAE_REL_TOL}")
+    return err
+
+
+def sample_run(tag: str, model, ad, argv: list, video: bool, n: int, unit: str) -> dict:
+    """One sampling batch through the CLI's own functions (dit_sample.
+    sample_batch, then the seam's decode): ms a step of the CFG forward with
+    the step's math (CUDA events) beside its FLOP bound, the loop's ms a
+    step and items/s end to end (host clock, decode included), peak memory,
+    device kernels a step, mha's launches in the decode."""
+    from omnitokenizer_tpu_torch.cli import diffusion_common, dit_sample
+    from omnitokenizer_tpu_torch.models import dit, latte
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    parser = dit_sample.build_parser(video)
+    args = parser.parse_args(SAMPLE_FLAGS + argv)
+    cfg = model.cfg
+    diffusion = dit_sample.make_diffusion(args, video)
+    decode = diffusion_common.decode_batch_fn(ad, video)
+    classes = torch.arange(n, device="cuda") * (cfg.num_classes // n)
+    gen = torch.Generator("cuda").manual_seed(40)
+
+    # one step of the loop at its shapes: the CFG forward over 2n rows and the step's math
+    latent = ((cfg.num_frames,) if video else ()) + (cfg.in_channels,) + (cfg.input_size,) * 2
+    x = torch.randn((2 * n,) + latent, generator=gen, device="cuda")
+    y = torch.cat([classes, torch.full_like(classes, cfg.num_classes)])
+    t = torch.full((2 * n,), diffusion.num_timesteps - 1, device="cuda")
+    fwd = latte.forward_with_cfg if video else dit.forward_with_cfg
+    ch = 4 if video else 3
+
+    def one_step():
+        return diffusion.p_sample(lambda xx, tt: fwd(model, xx, tt, y, args.cfg_scale, ch), x, t,
+                                  gen, clip_denoised=False)
+
+    with torch.inference_mode():
+        step_ms = cuda_ms(one_step, iters=5, warmup=2, queued=False)
+        kernels, busy_ms = kernel_stats(one_step)
+    flops = diffusion_flops(cfg, 2 * n, video)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters()) + 3 * x.numel() * 4
+    b = bound(flops, nbytes, PEAK_BF16 if cfg.dtype == BF else PEAK_F32)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    z = dit_sample.sample_batch(args, model, diffusion, classes, gen, video)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if any(launch_counts().values()):  # the transformer runs no hand-written kernel
+        raise AssertionError(f"kernels launched while sampling: {launch_counts()}")
+    reset_launch_counts()
+    with torch.inference_mode():
+        pixels = decode(z)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = diffusion.num_timesteps
+    print(f"[{tag}] launches in the decode of {n} {unit}: {counts}")
+    if counts != DIFF_LAUNCHES["decode"]:
+        raise AssertionError(f"launch counts {counts} != {DIFF_LAUNCHES['decode']}")
+    shape = (n, 3) + ((T,) if video else ()) + (RES, RES)
+    if (tuple(z.shape) != (n,) + latent or tuple(pixels.shape) != shape
+            or not bool(torch.isfinite(z).all() and torch.isfinite(pixels).all())
+            or float(pixels.abs().max()) > 0.5):
+        raise AssertionError(f"bad samples {tuple(z.shape)} {tuple(pixels.shape)}")
+    with torch.inference_mode():
+        raw = ad.decode(z.permute(0, 2, 1, 3, 4) if video else z, is_image=not video)
+    err = decode_vs_plain(tag, ad, z, video, raw)
+    row = {"path": tag, "dtype": "bf16" if cfg.dtype == BF else "f32", "batch": n,
+           "rows_a_step": 2 * n, "steps": steps, "ms_per_step": step_ms,
+           "loop_ms_per_step": loop_s * 1e3 / steps, "gflop_per_step": flops / 1e9, **b,
+           f"{unit}_per_s": n / wall, "wall_s": wall, "peak_gib": peak,
+           "kernels_per_step": kernels, "device_busy_ms_per_step": busy_ms,
+           "mha_decode_launches": counts["mha"],
+           "decode_rel_err": err}
+    print(f"[{tag}] {row['dtype']} B={n} ({2 * n} rows), {steps} steps: {step_ms:.4f} ms a step "
+          f"(bound {b['bound_ms']:.4f} ms by {b['bound_by']}, {flops / 1e9:.1f} GFLOP; "
+          f"{b['bound_ms'] / step_ms:.1%} of it), loop {row['loop_ms_per_step']:.4f} ms a step, "
+          f"{row[unit + '_per_s']:.4f} {unit}/s end to end ({wall:.2f} s, decode included), "
+          f"peak {peak:.2f} GiB, {kernels} device kernels a step, busy {busy_ms:.4f} ms of "
+          f"a profiled step")
+    return row
+
+
+class TimedBatches:
+    """`steps` pixel batches made on the card from a seed (channels-last, in
+    [-0.5, 0.5], with labels), the host time of each request kept: the gap
+    between two requests is one training step (its encode included)."""
+
+    def __init__(self, shape: tuple, classes: int, steps: int, seed: int):
+        self.shape, self.classes, self.steps, self.seed = shape, classes, steps, seed
+        self.times: list = []
+
+    def __iter__(self):
+        g = torch.Generator("cuda").manual_seed(self.seed)
+        for _ in range(self.steps):
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+            yield {"video": torch.rand(self.shape, generator=g, device="cuda") - 0.5,
+                   "label": torch.randint(0, self.classes, (self.shape[0],), generator=g,
+                                          device="cuda")}
+
+
+def train_run(tag: str, ad, video: bool, batch: int, unit: str) -> dict:
+    """11d: the train CLI's loop (dit_train.train) on pixels encoded by the
+    VAE each step: one warm-up step that writes a checkpoint, then a run
+    that resumes from it for 6 steps, 5 timed."""
+    from omnitokenizer_tpu_torch.cli import diffusion_common, dit_train
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    shape = (batch,) + ((T,) if video else ()) + (RES, RES, 3)
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--results_dir", root, "--global_batch_size", str(batch), "--log_every", "1",
+                "--device", "cuda"]
+        args = dit_train.build_parser(video).parse_args(argv + ["--max_steps", "1",
+                                                                 "--ckpt_every", "1"])
+        model, cfg = diffusion_common.build_model(args, video, init=False)
+        fill_random(model, 0)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = dit_train.train(args, model, ad, TimedBatches(shape, cfg.num_classes, 1, 50), video)
+        # the EMA started as a copy of the parameters: one step gives 0.9999 p0 + 0.0001 p1
+        name = "blocks.0.attn.qkv.weight"
+        want = 0.9999 * p0[name] + 0.0001 * dict(state.model.named_parameters())[name].detach()
+        ema_err = max_abs(dict(state.ema.named_parameters())[name], want)
+        ckpt = os.path.join(root, "state_000000001.pt")
+        ckpt_gb = os.path.getsize(ckpt) / 1e9
+        del state, model
+        torch.cuda.empty_cache()
+
+        args = dit_train.build_parser(video).parse_args(argv + ["--max_steps", "7",
+                                                                 "--ckpt_every", "1000"])
+        model, _ = diffusion_common.build_model(args, video, init=False)  # the resume loads it
+        batches = TimedBatches(shape, cfg.num_classes, 6, 51)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = dit_train.train(args, model, ad, batches, video)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+    step_ms = [(b - a) * 1e3 for a, b in zip(batches.times, batches.times[1:])]
+    ms = sum(step_ms) / len(step_ms)
+    moved = [n for n, p in state.model.named_parameters() if not torch.equal(p.detach(), p0[n])]
+    per_step = {k: v / 6 for k, v in counts.items()}
+    print(f"[{tag}] launches a step (6 resumed steps): {per_step}")
+    if per_step != DIFF_LAUNCHES["encode"]:
+        raise AssertionError(f"launches a step {per_step} != {DIFF_LAUNCHES['encode']}")
+    if (state.step != 7 or len(moved) != len(p0) or not ema_err <= 1e-6
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"{tag}: step {state.step}, {len(moved)}/{len(p0)} parameters "
+                             f"moved, EMA err {ema_err:.3e}, losses {losses}")
+    flops = 3 * diffusion_flops(cfg, batch, video)  # forward + backward, the model alone
+    row = {"path": tag, "dtype": "f32", "batch": batch, "step_ms": ms, "step_ms_each": step_ms,
+           f"{unit}_per_s": batch / (ms / 1e3), "peak_gib": peak, "checkpoint_gb": ckpt_gb,
+           "resumed_run_s": run_s, "mha_launches_per_step": per_step["mha"],
+           "model_gflop_per_step": flops / 1e9, **bound(flops, 0, PEAK_F32), "ema_err": ema_err,
+           "losses": losses}
+    print(f"[{tag}] f32 B={batch}: {ms:.2f} ms a step ({[round(s, 1) for s in step_ms]}), "
+          f"{row[unit + '_per_s']:.3f} {unit}/s, peak {peak:.2f} GiB; the model's fwd+bwd "
+          f"{flops / 1e12:.2f} TFLOP, bound {row['bound_ms']:.1f} ms at the f32 peak; resumed "
+          f"at step 1 from a {ckpt_gb:.2f} GB checkpoint, all {len(p0)} parameters moved, "
+          f"EMA after step 1 within {ema_err:.1e} of 0.9999 ema + 0.0001 params")
+    return row
+
+
+def phase11_diffusion() -> dict:
+    """Diffusion synthesis: 11a parity on the card, 11b DiT class-conditional
+    sampling, 11c Latte, 11d the two training steps; returns their launches."""
+    from omnitokenizer_tpu_torch import DiffusionVAEAdapter, imagenet_k600_config
+    from omnitokenizer_tpu_torch.cli import diffusion_common, dit_sample
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    ad = DiffusionVAEAdapter.from_config(imagenet_k600_config(use_vae=True), seed=0)
+    rows, paths = [], {}
+
+    dit_args = dit_sample.build_parser().parse_args(SAMPLE_FLAGS + ["--device", "cuda"])
+    dit, cfg = diffusion_common.build_model(dit_args, False, init=False)
+    fill_random(dit, 0)
+    print(f"[11] DiT-XL/2: {sum(p.numel() for p in dit.parameters())} parameters, "
+          f"{cfg.depth} x {cfg.hidden_size}, latents {cfg.in_channels} x {cfg.input_size}^2")
+    g = torch.Generator().manual_seed(31)
+    x = torch.randn(2, cfg.in_channels, cfg.input_size, cfg.input_size, generator=g)
+    t, y = torch.tensor([17, 640]), torch.tensor([3, 981])
+    parity("DiT-XL/2 B=2", dit, lambda d: (x.to(d), t.to(d), y.to(d)), False)
+    ddim_parity(dit, ["--ddim", "--num_sampling_steps", "10"])
+    rows.append(sample_run("11b", dit, ad, [], False, DIT_B, "images"))
+    bf = served_as(dit, BF)
+    del dit
+    rows.append(sample_run("11b", bf, ad, ["--bf16"], False, DIT_B, "images"))
+    del bf
+    torch.cuda.empty_cache()
+
+    latte_args = dit_sample.build_parser(True).parse_args(SAMPLE_FLAGS + ["--device", "cuda"])
+    latte, lcfg = diffusion_common.build_model(latte_args, True, init=False)
+    fill_random(latte, 0)
+    print(f"[11] Latte-XL/2-omnitokenizer: {sum(p.numel() for p in latte.parameters())} "
+          f"parameters, {lcfg.num_frames} latent frames, {lcfg.num_classes} classes")
+    xv = torch.randn(1, lcfg.num_frames, lcfg.in_channels, lcfg.input_size, lcfg.input_size,
+                     generator=g)
+    tv, yv = torch.tensor([333]), torch.tensor([42])
+    parity("Latte-XL/2-omnitokenizer B=1", latte, lambda d: (xv.to(d), tv.to(d), yv.to(d)), True)
+    rows.append(sample_run("11c", latte, ad, ["--num_sampling_steps", str(LATTE_F32_STEPS)],
+                           True, LATTE_B, "clips"))
+    bf = served_as(latte, BF)
+    del latte
+    rows.append(sample_run("11c", bf, ad, ["--bf16"], True, LATTE_B, "clips"))
+    del bf
+    torch.cuda.empty_cache()
+    paths["dit_sample"] = paths["latte_sample"] = DIFF_LAUNCHES["decode"]
+
+    rows.append(train_run("11d DiT", ad, False, DIT_TRAIN_B, "images"))
+    torch.cuda.empty_cache()
+    rows.append(train_run("11d Latte", ad, True, LATTE_TRAIN_B, "clips"))
+    paths["dit_train"] = paths["latte_train"] = DIFF_LAUNCHES["encode"]
+    print(json.dumps({"diffusion": rows}))
+    print(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1998,6 +2381,7 @@ def main() -> int:
     paths["train"] = phase8_train(smi)
     paths.update(phase9_eval())
     paths.update(phase10_lm())
+    paths.update(phase11_diffusion())
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -2010,7 +2394,7 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-10 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-11 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

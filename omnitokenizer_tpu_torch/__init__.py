@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE), its GAN
-training (`training/`) and the LM's serving path (`models/gpt.py`,
-`models/net2net.py`).
+training (`training/`), the LM's serving path (`models/gpt.py`,
+`models/net2net.py`) and diffusion synthesis (`diffusion/`, `models/dit.py`,
+`models/latte.py`, `training/diffusion_loop.py`).
 
 The JAX package `omnitokenizer_tpu` is the reference; this package mirrors
 its module layout and imports no JAX.

@@ -147,3 +147,73 @@ def gpt_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port tensors left unfilled: {missing}")
     return out
+
+
+# the JAX DiT/Latte scopes -> the port's (the reference's torch) module names
+_DIT_SCOPES = {("t_embed", "fc1"): "t_embedder.mlp.0", ("t_embed", "fc2"): "t_embedder.mlp.2",
+               ("final", "adaLN"): "final_layer.adaLN_modulation.1",
+               ("final", "linear"): "final_layer.linear", ("text_proj",): "text_embedding_projection.1"}
+_DIT_BLOCK = {"adaLN": "adaLN_modulation.1", "qkv": "attn.qkv", "proj": "attn.proj",
+              "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def dit_state_dict_from_jax(params: Dict[str, Any], patch_size: int) -> Dict[str, torch.Tensor]:
+    """The JAX DiT's (or Latte's) params, nested dicts of numpy arrays ->
+    the port model's state_dict: Dense kernels transposed to nn.Linear's
+    (out, in), the patch embedding's (p*p*C, D) kernel to the conv's (D, C,
+    p, p). A leaf that maps to no port tensor raises; load the result
+    strictly to find a tensor left unfilled."""
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for path, value in _leaves(params):
+        arr, scope, leaf = np.asarray(value, np.float32), path[:-1], path[-1]
+        if scope == ("x_embed",):
+            key = "x_embedder.proj"
+            if leaf == "kernel":
+                p = patch_size
+                arr = arr.reshape(p, p, -1, arr.shape[-1]).transpose(3, 2, 0, 1)
+        elif scope == ("y_embed", "table") and leaf == "embedding":
+            out["y_embedder.embedding_table.weight"] = torch.tensor(arr)
+            continue
+        elif scope in _DIT_SCOPES:
+            key = _DIT_SCOPES[scope]
+        elif (len(scope) == 2 and scope[0].startswith("block_") and scope[0][6:].isdigit()
+              and scope[1] in _DIT_BLOCK):
+            key = f"blocks.{int(scope[0][6:])}.{_DIT_BLOCK[scope[1]]}"
+        else:
+            unused.append("/".join(path))
+            continue
+        if leaf not in ("kernel", "bias"):
+            unused.append("/".join(path))
+            continue
+        if leaf == "kernel" and scope != ("x_embed",):
+            arr = arr.T
+        out[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = torch.tensor(np.array(arr))
+    if unused:
+        raise KeyError(f"JAX leaves with no port tensor: {unused}")
+    return out
+
+
+latte_state_dict_from_jax = dit_state_dict_from_jax
+
+
+def load_torch_diffusion_state_dict(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """A reference DiT/Latte checkpoint as its state_dict, read as the
+    reference's find_model reads it: a raw state_dict, or the train
+    scripts' dict with 'ema' and 'model' entries (the EMA unless use_ema is
+    False). Loads with weights_only=False: the train scripts pickle their
+    argparse Namespace beside the weights."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
+        ckpt = ckpt["ema" if (use_ema and "ema" in ckpt) else "model"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in ckpt.items()}
+
+
+def load_diffusion_state_dict(model: nn.Module, sd: Dict[str, Any]) -> None:
+    """Load a reference-named DiT/Latte state_dict into the port's model,
+    strictly, but for the fixed sin-cos tables (pos_embed, temp_embed),
+    which the model recomputes."""
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
+                           if k not in ("pos_embed", "temp_embed")})

@@ -106,7 +106,7 @@ class MetricsLogger:
         self._f.flush()
         if step % self.log_every == 0:
             keys = ("recon_loss", "perceptual_loss", "discloss", "perplexity", "avg_usage",
-                    "g_total")
+                    "g_total", "loss", "grad_norm")  # the tokenizer's, then the diffusion's
             short = {k: round(v, 4) for k, v in rec.items() if k in keys}
             print(f"[step {step}] {short}", flush=True)
 

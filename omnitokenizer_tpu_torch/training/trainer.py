@@ -110,17 +110,24 @@ class OptState:
                 setattr(self, f.name, new)
 
 
-class OptaxAdam:
-    """optax.chain(clip_by_global_norm(clip), scale_by_adam(0.5, 0.9, 1e-8),
-    scale_by_learning_rate(schedule)), in optax.MultiSteps(k) when k > 1:
-    the gradients' running mean over k mini-steps, the chain run on the
-    k-th, whose updates are emitted; zero updates before it."""
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay**count in f32, as optax computes it (0.999 rounds to f32)."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
-    b1, b2, eps = 0.5, 0.9, 1e-8  # the reference's Adam(betas=(0.5, 0.9))
+
+class OptaxAdam:
+    """optax.chain(clip_by_global_norm(clip), scale_by_adam(b1, b2, eps),
+    add_decayed_weights(weight_decay), scale_by_learning_rate(schedule)), in
+    optax.MultiSteps(k) when k > 1: the gradients' running mean over k
+    mini-steps, the chain run on the k-th, whose updates are emitted; zero
+    updates before it. The defaults are the tokenizer's Adam(betas=(0.5,
+    0.9)); with weight_decay it is optax.adamw (the diffusion trainer's)."""
 
     def __init__(self, schedule: Callable[[int], float], clip: Optional[float],
-                 accumulates: int = 1):
+                 accumulates: int = 1, b1: float = 0.5, b2: float = 0.9, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
         self.schedule, self.clip, self.k = schedule, clip, accumulates
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
 
     def init(self, params: List[torch.Tensor]) -> OptState:
         def zeros():
@@ -131,7 +138,8 @@ class OptaxAdam:
     def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
         return torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
 
-    def _chain(self, grads: List[torch.Tensor], st: OptState) -> List[torch.Tensor]:
+    def _chain(self, grads: List[torch.Tensor], st: OptState,
+               params: Optional[List[torch.Tensor]]) -> List[torch.Tensor]:
         if self.clip is not None:
             norm = self.global_norm(grads)
             factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
@@ -141,20 +149,25 @@ class OptaxAdam:
         torch._foreach_mul_(st.nu, self.b2)
         torch._foreach_addcmul_(st.nu, grads, grads, value=1 - self.b2)
         st.count += 1
-        denom = torch._foreach_div(st.nu, 1 - self.b2 ** st.count)
+        denom = torch._foreach_div(st.nu, _bias_correction(self.b2, st.count))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(st.mu, 1 - self.b1 ** st.count)
+        updates = torch._foreach_div(st.mu, _bias_correction(self.b1, st.count))
         torch._foreach_div_(updates, denom)
+        if self.weight_decay:
+            torch._foreach_add_(updates, params, alpha=self.weight_decay)
         torch._foreach_mul_(updates, -self.schedule(st.lr_count))
         st.lr_count += 1
         return updates
 
-    def update(self, grads: List[torch.Tensor], st: OptState) -> Optional[List[torch.Tensor]]:
+    def update(self, grads: List[torch.Tensor], st: OptState,
+               params: Optional[List[torch.Tensor]] = None) -> Optional[List[torch.Tensor]]:
         """The updates of this step (None: MultiSteps emits none), advancing
-        `st` in place."""
+        `st` in place; `params` are needed for a weight decay."""
+        if self.weight_decay and params is None:
+            raise ValueError("a weight decay needs the parameters")
         if self.k == 1:
-            return self._chain(grads, st)
+            return self._chain(grads, st, params)
         # the running mean: acc += (g - acc) / (mini_step + 1)
         diff = torch._foreach_sub(grads, st.acc)
         torch._foreach_div_(diff, st.mini_step + 1)
@@ -164,7 +177,7 @@ class OptaxAdam:
         if not emit:
             return None
         st.gradient_step += 1
-        updates = self._chain(st.acc, st)
+        updates = self._chain(st.acc, st, params)
         torch._foreach_zero_(st.acc)
         return updates
 

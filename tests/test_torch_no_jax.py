@@ -7,7 +7,9 @@ runs over an in-memory batch, and `vqgan_train` takes one step on PNG
 files, with neither JAX nor the JAX package loaded. The LM's modules (the
 GPT and its samplers, int8, Net2Net, the GPT checkpoints, transformer_eval)
 import and generate on the CPU: class-conditional CFG ids with int8 and
-buckets, frame prediction, and the CLI writing PNGs."""
+buckets, frame prediction, and the CLI writing PNGs. The diffusion modules (the Gaussian process, the
+timestep samplers, DiT, Latte, the training loop, the five CLIs) import
+with JAX, flax and optax unimportable, and train, resume and sample."""
 
 import subprocess
 import sys
@@ -170,6 +172,58 @@ print("ok")
 
 def test_lm_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", LM_SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+DIFFUSION_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["optax"] = None
+import glob, importlib, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+MODULES = ["diffusion", "diffusion.gaussian", "diffusion.timestep_sampler", "models.dit",
+           "models.latte", "training.diffusion_loop", "convert", "cli.diffusion_common",
+           "cli.dit_sample", "cli.latte_sample", "cli.dit_train", "cli.latte_train"]
+for m in MODULES:
+    importlib.import_module("omnitokenizer_tpu_torch." + m)
+from omnitokenizer_tpu_torch.cli import dit_sample, dit_train, latte_train
+from omnitokenizer_tpu_torch.models.dit import DiT, DiTConfig
+flags = ["--model", "DiT-S/2", "--image_size", "32", "--in_channels", "4", "--num_classes", "5",
+         "--diffusion_steps", "8", "--noise_schedule", "squaredcos_cap_v2", "--device", "cpu"]
+with tempfile.TemporaryDirectory() as root:
+    run = os.path.join(root, "run")
+    train = ["--synthetic_data", "--global_batch_size", "2", "--results_dir", run, "--log_every", "1"]
+    assert dit_train.main(flags + train + ["--max_steps", "1"]).step == 1
+    assert dit_train.main(flags + train + ["--max_steps", "2"]).step == 2
+    n = dit_sample.main(flags + ["--ckpt", os.path.join(run, "state_000000002.pt"), "--num_samples",
+                                 "2", "--num_sampling_steps", "3", "--sample_dir",
+                                 os.path.join(root, "s")])
+    assert n == 2 and len(glob.glob(os.path.join(root, "s", "*.npy"))) == 1
+    state = latte_train.main(["--model", "Latte-S/2", "--image_size", "32", "--in_channels", "4",
+                              "--num_classes", "5", "--num_frames", "5", "--diffusion_steps", "8",
+                              "--noise_schedule", "squaredcos_cap_v2", "--device", "cpu", "--synthetic_data", "--global_batch_size", "1",
+                              "--use_image_num", "1", "--results_dir", os.path.join(root, "l"),
+                              "--max_steps", "1"])
+    assert state.step == 1
+m = DiT(DiTConfig(input_size=8, hidden_size=32, depth=2, num_heads=2, num_classes=10,
+                  dtype=torch.bfloat16)).serving()
+out = m(torch.randn(2, 4, 8, 8), torch.tensor([1, 2]), torch.tensor([3, 4]))
+assert out.dtype == torch.bfloat16 and out.shape == (2, 8, 8, 8)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax",
+                                                              "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_diffusion_runs_without_jax():
+    res = subprocess.run([sys.executable, "-c", DIFFUSION_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

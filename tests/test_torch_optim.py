@@ -1,8 +1,9 @@
 """The trainer's optimizer chain and schedules against optax, given the
 same gradients: the warmup-cosine schedules with the JAX trainer's clamps,
 then clip_by_global_norm -> scale_by_adam(0.5, 0.9) -> the learning rate,
-with and without optax.MultiSteps(k=2), over several steps. Updates within
-1e-6 relative (of each tensor's largest update). The gates and
+with and without optax.MultiSteps(k=2), over several steps, and the
+diffusion trainer's optax.adamw (with and without a weight decay and
+clipping). Updates within 1e-6 relative (of each tensor's largest update). The gates and
 freeze_trans act on the port's whole step: a G-gated step advances Adam's
 moments and leaves the parameters; the D gate is the D gate alone; frozen
 transformer parameters stay while the others move."""
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+import optax
 import torch
 
 from omnitokenizer_tpu.config import TrainConfig as JaxTrainConfig
@@ -69,6 +71,37 @@ def test_chain_matches_optax(clip, accum):
             b = np.asarray(b)
             assert np.abs(a.numpy() - b).max() <= 1e-6 * np.abs(b).max(), step
     assert tstate.count == (10 // accum)
+
+
+@pytest.mark.parametrize("wd,clip", [(0.0, None), (1e-4, None), (0.05, 0.5)],
+                         ids=["wd0", "wd-default", "wd-clip"])
+def test_adamw_matches_optax(wd, clip):
+    """The diffusion trainer's chain: [clip_by_global_norm ->] optax.adamw(lr,
+    b1 0.9, b2 0.999, eps 1e-8, weight_decay), over several steps with the
+    parameters moving."""
+    parts = ([optax.clip_by_global_norm(clip)] if clip else []) + [optax.adamw(1e-3, weight_decay=wd)]
+    tx = optax.chain(*parts)
+    ours = ttrainer.OptaxAdam(lambda _: 1e-3, clip, b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd)
+    rng = np.random.RandomState(1)
+    params = [rng.randn(*s).astype(np.float32) for s in SHAPES]
+    jparams = [jnp.asarray(p) for p in params]
+    jstate = tx.init(jparams)
+    tparams = [torch.from_numpy(p.copy()) for p in params]
+    tstate = ours.init(tparams)
+    for step in range(8):
+        grads = [(rng.randn(*s) * (0.1 + step)).astype(np.float32) for s in SHAPES]
+        jup, jstate = tx.update([jnp.asarray(g) for g in grads], jstate, jparams)
+        jparams = optax.apply_updates(jparams, jup)
+        tup = ours.update([torch.from_numpy(g) for g in grads], tstate, tparams)
+        torch._foreach_add_(tparams, tup)
+        for a, b in zip(tup, jup):
+            b = np.asarray(b)
+            assert np.abs(a.numpy() - b).max() <= 1e-6 * np.abs(b).max(), step
+    for a, b in zip(tparams, jparams):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="weight decay"):
+        ttrainer.OptaxAdam(lambda _: 1e-3, None, weight_decay=0.1).update(
+            [torch.zeros(2)], ours.init([torch.zeros(2)]))
 
 
 def _small_trainer(**tc):

@@ -135,3 +135,74 @@ def gpt_pair(seed: int = 0, vtokens: dict = None, **kw):
     gpt = GPT(tcfg, **(vtokens or {}))
     gpt.load_state_dict(gpt_state_dict_from_jax(params))
     return jcfg, jax.tree_util.tree_map(jax.numpy.asarray, params), tcfg, gpt.eval()
+
+
+# tests/test_dit_latte.py's sizes: DiT at width 32, 2 blocks of 2 heads, an 8x8
+# latent in 4 channels, 10 classes; Latte the same with 4 blocks over 3 frames
+DIT_SMALL = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32, depth=2,
+                 num_heads=2, num_classes=10)
+LATTE_SMALL = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32, depth=4,
+                   num_heads=2, num_frames=3, num_classes=10, extras=2)
+
+
+def random_diffusion_params(jax_model, example_args: tuple, seed: int = 0, **init_kw) -> dict:
+    """A JAX DiT's or Latte's param tree (nested dicts of numpy arrays) with
+    every tensor random from a numpy seed, the adaLN-Zero ones included (the
+    JAX init zeroes them, and a model that outputs 0 compares nothing):
+    kernels N(0, 1/fan_in), biases N(0, 0.05^2), embedding tables N(0, 1)."""
+    shapes = to_numpy_tree(jax_model.init(jax.random.PRNGKey(0), *example_args,
+                                          **init_kw)["params"])
+    rng = np.random.RandomState(seed)
+
+    def fill(path, v):
+        if isinstance(v, dict):
+            return {k: fill(path + (k,), x) for k, x in v.items()}
+        if path[-1] == "bias":
+            out = 0.05 * rng.standard_normal(v.shape)
+        elif path[-1] == "embedding":
+            out = rng.standard_normal(v.shape)
+        else:  # a Dense kernel (in, out)
+            out = rng.standard_normal(v.shape) / np.sqrt(v.shape[0])
+        return np.asarray(out, np.float32)
+
+    return fill((), shapes)
+
+
+def reference_diffusion_state_dict(cfg, latte: bool = False, seed: int = 0) -> dict:
+    """A state_dict in the reference torch DiT's (or Latte's) key scheme,
+    pos_embed (and temp_embed) included, random numpy values."""
+    rng = np.random.RandomState(seed)
+    D, p, C = cfg.hidden_size, cfg.patch_size, cfg.in_channels
+    out_c = 2 * C if cfg.learn_sigma else C
+    shapes = {"x_embedder.proj.weight": (D, C, p, p), "x_embedder.proj.bias": (D,),
+              "t_embedder.mlp.0.weight": (D, 256), "t_embedder.mlp.0.bias": (D,),
+              "t_embedder.mlp.2.weight": (D, D), "t_embedder.mlp.2.bias": (D,),
+              "final_layer.linear.weight": (p * p * out_c, D),
+              "final_layer.linear.bias": (p * p * out_c,),
+              "final_layer.adaLN_modulation.1.weight": (2 * D, D),
+              "final_layer.adaLN_modulation.1.bias": (2 * D,),
+              "pos_embed": (1, (cfg.input_size // p) ** 2, D)}
+    if latte:
+        shapes["temp_embed"] = (1, cfg.num_frames, D)
+    if (cfg.extras == 2) if latte else cfg.num_classes:
+        shapes["y_embedder.embedding_table.weight"] = (cfg.num_classes + 1, D)
+    if latte and cfg.extras == 78:
+        shapes["text_embedding_projection.1.weight"] = (D, 77 * 768)
+        shapes["text_embedding_projection.1.bias"] = (D,)
+    hidden = int(D * cfg.mlp_ratio)
+    for i in range(cfg.depth):
+        for name, shape in (("attn.qkv", (3 * D, D)), ("attn.proj", (D, D)),
+                            ("mlp.fc1", (hidden, D)), ("mlp.fc2", (D, hidden)),
+                            ("adaLN_modulation.1", (6 * D, D))):
+            shapes[f"blocks.{i}.{name}.weight"] = shape
+            shapes[f"blocks.{i}.{name}.bias"] = shape[:1]
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith(".bias"):
+            v = 0.05 * rng.standard_normal(shape)
+        elif k in ("y_embedder.embedding_table.weight", "pos_embed", "temp_embed"):
+            v = rng.standard_normal(shape)  # the sin-cos tables are dropped on load
+        else:  # Linear and conv weights (out, in, ...)
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        sd[k] = np.asarray(v, np.float32)
+    return sd
