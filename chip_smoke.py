@@ -19,7 +19,9 @@ Phases (any failure raises and exits non-zero):
      module's own plain bf16 route: layer_norm and cuBLAS bf16 F.linear
      for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
      cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
-     for vq_argmin;
+     for vq_argmin; and the LM's causal flash forward and backward at the
+     training shape (8, 16, 1025, 96) on the (B, T, H, D) projections'
+     views, beside SDPA (is_causal) forward and forward + backward;
   3. the bf16 VQ round trip of imagenet_k600_config() at full width through
      OmniTokenizerVQGAN.reconstruct, with the launch count of every kernel,
      checked against the plain bf16 path on the same weights, and frames/s
@@ -82,7 +84,19 @@ Phases (any failure raises and exits non-zero):
      decode and the decode against the VAE's plain route; (d) the DiT (B=32
      images) and Latte (B=4 clips) training steps through dit_train.train on
      pixels the VAE encodes each step: a warm-up step and its checkpoint, a
-     resumed run of 6 steps (5 timed), every parameter moved, the EMA.
+     resumed run of 6 steps (5 timed), every parameter moved, the EMA;
+ 12. LM training: the flagship LM at scripts/lm_train/train_imagenet_class.sh's
+     flags (24 x 1536, B=8, bf16 on f32 masters, random weights from seed 0)
+     on 256^2 images encoded by the bf16 flagship tokenizer each step: one
+     step of the kernel route (the flash kernels) against the plain route
+     (the materialized scores) on the same batch and weights (loss,
+     gradient norms), the flash forward (1e-2) and backward (2e-2) against
+     their plain versions on that step's first-layer q, k, v and output
+     gradient, 2 warm-up and 5 timed steps of each route (ms a
+     step, tokens/s, peak memory, the share of the FLOP bound, launches a
+     step), every parameter moved, a profiled step by kernel group; then
+     train_lm at full width and 2 layers: 2 steps and a resume to 3 against
+     an unbroken 3-step run.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
 The line before the last is a JSON object with a row per kernel and shape
@@ -105,21 +119,24 @@ import torch
 import torch.nn.functional as F
 
 B, T, RES = 4, 17, 256  # the flagship serve shape
-KERNELS = ("vq_argmin", "ln_qkv", "geglu_ff", "small_n_attention", "cosine_mha", "mha")
+KERNELS = ("vq_argmin", "ln_qkv", "geglu_ff", "small_n_attention", "cosine_mha", "mha",
+           "flash_attn_fwd", "flash_attn_bwd")
+# the LM's causal flash attention runs on no tokenizer path
+NO_FLASH = {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
 # launches in one video round trip of each path
 EXPECTED_LAUNCHES = {
     "vq": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
-           "vq_argmin": 1, "mha": 0},
+           "vq_argmin": 1, "mha": 0, **NO_FLASH},
     # f32: every spatial 't' block's attention (encoder 'ttww' 2, decoder 'tttt' 4);
     # the temporal blocks (N=5) are below mha's N >= 8 and take the plain math
     "vae": {**{k: 0 for k in KERNELS}, "mha": 6},
     # bf16, 9 latent frames: too many for small_n_attention (n <= 8) and causal,
     # which cosine_mha refuses, so the 8 temporal blocks take mha
     "rel": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 0,
-            "vq_argmin": 1, "mha": 8},
+            "vq_argmin": 1, "mha": 8, **NO_FLASH},
     # the flagship at width 768, heads of 128: the flagship's routes
     "wide": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
-             "vq_argmin": 1, "mha": 0},
+             "vq_argmin": 1, "mha": 0, **NO_FLASH},
     # a flagship training step: the generator's training forward (every 't'
     # block and feed-forward on the training route: ln_qkv 14, geglu_ff 16,
     # cosine_mha 6, small_n 8, the codebook's search 1), then the second
@@ -127,22 +144,28 @@ EXPECTED_LAUNCHES = {
     # 8, cosine_mha 2, small_n 4, vq_argmin 1); training sdpa is plain, the
     # backward recomputes plain math
     "train": {"geglu_ff": 24, "ln_qkv": 20, "cosine_mha": 8, "small_n_attention": 12,
-              "vq_argmin": 2, "mha": 0},
+              "vq_argmin": 2, "mha": 0, **NO_FLASH},
     # a batch of vqgan_eval at the released tokenizer's flags (B=8 clips):
     # f32, the eval scripts' precision: mha in the 6 spatial 't' blocks and
     # the codebook's search; --bf16: the flagship's round trip; --use_vae:
     # the f32 VAE's
     "eval_f32": {**{k: 0 for k in KERNELS}, "mha": 6, "vq_argmin": 1},
     "eval_bf16": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
-                  "vq_argmin": 1, "mha": 0},
+                  "vq_argmin": 1, "mha": 0, **NO_FLASH},
     "eval_vae": {**{k: 0 for k in KERNELS}, "mha": 6},
     # LM generation (phase 10), through the bf16 flagship tokenizer: class-conditional
     # images decode 8 images (the decoder's 4 spatial 't' blocks and 4 temporal blocks at
     # n = 1); frame prediction encodes and decodes 2 clips (a round trip's launches)
     "lm_class": {"geglu_ff": 8, "ln_qkv": 8, "cosine_mha": 4, "small_n_attention": 4,
-                 "vq_argmin": 0, "mha": 0},
+                 "vq_argmin": 0, "mha": 0, **NO_FLASH},
     "lm_frame": {"geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "small_n_attention": 8,
-                 "vq_argmin": 1, "mha": 0},
+                 "vq_argmin": 1, "mha": 0, **NO_FLASH},
+    # a flagship LM training step (phase 12): the encode of 8 images (the
+    # encoder's 2 spatial 't' blocks, its 4 temporal blocks at n = 1, the
+    # codebook's search), then the GPT's 24 layers, each one flash forward and
+    # one flash backward
+    "lm_train": {"geglu_ff": 8, "ln_qkv": 6, "cosine_mha": 2, "small_n_attention": 4,
+                 "vq_argmin": 1, "mha": 0, "flash_attn_fwd": 24, "flash_attn_bwd": 24},
 }
 # training-route calls a step (ops/kernel_grad.py): the flat temporal route
 # in the 8 temporal blocks, cosine attention in the 6 spatial 't' blocks,
@@ -161,6 +184,14 @@ SOURCES = {
     "cosine_mha": ("omnitokenizer_tpu_torch/csrc/cosine_mha.cu",
                    "omnitokenizer_tpu/ops/pallas/cosine_mha.py:111"),
     "mha": ("omnitokenizer_tpu_torch/csrc/mha.cu", "omnitokenizer_tpu/ops/pallas/mha.py:52"),
+    # JAX's stock TPU kernel, which the JAX LM calls at models/gpt.py:103-131
+    "flash_attn_fwd": ("omnitokenizer_tpu_torch/csrc/flash_attn.cu",
+                       "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "
+                       "(_flash_attention_impl), called at omnitokenizer_tpu/models/gpt.py:115"),
+    "flash_attn_bwd": ("omnitokenizer_tpu_torch/csrc/flash_attn.cu",
+                       "jax/experimental/pallas/ops/tpu/flash_attention.py:1121, :1456 "
+                       "(_flash_attention_bwd_dkv, _flash_attention_bwd_dq), the backward of "
+                       "omnitokenizer_tpu/models/gpt.py:115"),
 }
 KERNEL_REL_TOL = 2e-2   # bf16 output rounding + another summation order
 MHA_F32_REL_TOL = 1e-5  # f32 with another summation order
@@ -557,6 +588,73 @@ def phase2_kernels() -> None:
                else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
                library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
     mha_f32_floor(mh, g)
+    # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D) projections
+    check_flash("2", "lm_train", LM_TRAIN_B, LM_HEADS, LM_BLOCK, LM_WIDTH // LM_HEADS)
+
+
+FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-2, 2e-2  # bf16 outputs vs f32 math on the same bf16 inputs
+
+
+def flash_cost(B: int, H: int, T: int, D: int) -> tuple:
+    """(forward, backward) FLOPs and bytes of causal attention: 4 D flops a
+    (query, key) pair at or below the diagonal forward, 10 D backward (the
+    scores again, dV, dP, dQ, dK); bytes of q, k, v read and o written (bf16)
+    and lse written (f32) forward; q, k, v, o, dO and lse read and dq, dk,
+    dv written backward."""
+    pairs, elems = B * H * T * (T + 1) // 2, B * H * T * D
+    return ((4 * pairs * D, 4 * elems * 2 + B * H * T * 4),
+            (10 * pairs * D, 8 * elems * 2 + B * H * T * 4))
+
+
+def check_flash(tag, path, B_, H_, T_, D_) -> None:
+    """The causal flash forward and backward against their plain versions on
+    the same bf16 inputs, each timed beside its bound and PyTorch's SDPA
+    (is_causal) on the same views: its forward for the forward row, its
+    forward + backward for the backward row (no single library call computes
+    the backward alone), where the kernels' own forward + backward is timed
+    too."""
+    from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
+
+    g = torch.Generator().manual_seed(12)
+    q, k, v, do = (randn(g, B_, T_, H_, D_, dtype=BF).transpose(1, 2) for _ in range(4))
+    scale = D_ ** -0.5
+    o, lse = fa.flash_attn_fwd(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, scale)
+    err_o = compare("flash_attn_fwd", o, o_ref, FLASH_FWD_TOL)
+    lse_err = max_abs(lse, lse_ref)
+    grads = fa.flash_attn_bwd(q, k, v, o, do, lse, scale)
+    want = fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, scale)
+    errs = [compare(f"flash_attn_bwd {n}", a, b, FLASH_BWD_TOL)
+            for n, a, b in zip(("dq", "dk", "dv"), grads, want)]
+    del grads, want
+    print(f"[{tag}] flash_attn ({path}) lse max_abs {lse_err:.3e}; dq, dk, dv max_rel "
+          f"{[f'{e[1]:.3e}' for e in errs]}")
+    (f_flops, f_bytes), (b_flops, b_bytes) = flash_cost(B_, H_, T_, D_)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale)
+        return torch.autograd.grad(out, (qg, kg, vg), do)
+
+    def kernel_fwd_bwd():
+        o2, lse2 = fa.flash_attn_fwd(q, k, v, scale)
+        return fa.flash_attn_bwd(q, k, v, o2, do, lse2, scale)
+
+    shape = dict(shape=[B_, H_, T_, D_], dtype="bfloat16", causal=True)
+    record(tag, "flash_attn_fwd", path, [err_o], lambda: fa.flash_attn_fwd(q, k, v, scale),
+           lambda: fa.flash_attn_fwd_plain(q, k, v, scale), bound(f_flops, f_bytes, PEAK_BF16),
+           lib_fwd, **shape, lse_max_abs_err=lse_err, library_kernels=device_kernels(lib_fwd))
+    record(tag, "flash_attn_bwd", path, errs,
+           lambda: fa.flash_attn_bwd(q, k, v, o, do, lse, scale),
+           lambda: fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, scale),
+           bound(b_flops, b_bytes, PEAK_BF16), lib_fwd_bwd, **shape,
+           library_covers="forward + backward", fwd_bwd_ms=cuda_ms(kernel_fwd_bwd),
+           fwd_bwd_bound_ms=bound(f_flops + b_flops, f_bytes + b_bytes, PEAK_BF16)["bound_ms"])
+    del q, k, v, do, qg, kg, vg, o, o_ref, lse, lse_ref
+    torch.cuda.empty_cache()
 
 
 def vq_gap(tag: str, name: str, z: torch.Tensor, emb: torch.Tensor) -> float:
@@ -1701,7 +1799,7 @@ def phase9_eval() -> dict:
 # the flagship LM of scripts/lm_gen/gen_imagenet_class_cfg.sh: 24 layers, 16 heads, width
 # 1536, vocab 8192 codes + 1000 classes + sos, block 1025; the frame-prediction LM of
 # gen_k600_frame_prediction.sh: unconditional, vocab 8192, block 5120
-LM_LAYERS, LM_HEADS, LM_WIDTH = 24, 16, 1536
+LM_LAYERS, LM_HEADS, LM_WIDTH, LM_BLOCK = 24, 16, 1536, 1025
 LM_B, LM_FRAME_B = 8, 2
 LM_CACHE_REL_TOL = 2e-2   # bf16 cached prefill + decode vs the full forward, whole-tensor
 LM_WINDOW_REL_TOL = 1e-4  # f32 teacher-forced logits, bucketed windows vs the whole block
@@ -1709,14 +1807,14 @@ LM_INT8_MEAN_REL = 0.1    # int8 vs bf16 logits, mean |diff| / mean |bf16| (test
 LM_GREEDY_STEPS = 128
 
 
-def lm_model(vocab: int, block: int, seed: int = 0):
+def lm_model(vocab: int, block: int, seed: int = 0, layers: int = LM_LAYERS):
     """The LM at full width, f32 masters computing in bf16, minGPT's init
     from `seed` on the card, and the position table N(0, 0.02) (minGPT
     leaves it 0, which would hide a wrong position)."""
     from omnitokenizer_tpu_torch.config import GPTConfig
     from omnitokenizer_tpu_torch.models.gpt import GPT, init_weights
 
-    cfg = GPTConfig(vocab_size=vocab, block_size=block, n_layer=LM_LAYERS, n_head=LM_HEADS,
+    cfg = GPTConfig(vocab_size=vocab, block_size=block, n_layer=layers, n_head=LM_HEADS,
                     n_embd=LM_WIDTH, dtype=BF)
     with torch.device("cuda"):
         gpt = GPT(cfg)
@@ -2365,6 +2463,285 @@ def phase11_diffusion() -> dict:
     return paths
 
 
+# -- phase 12: LM training ------------------------------------------------------------------
+# the flagship LM at scripts/lm_train/train_imagenet_class.sh's flags: 24 x 1536, 16 heads of
+# 96, vocab 8192 codes + 1000 classes + sos, block 1025, B=8, --bf16 (bf16 compute on f32
+# masters), --starts_with_sos --class_first, lr 1e-3 held (lr_min 1e-3), weight decay 0.01,
+# clip 1; images 256^2 encoded by the bf16 flagship tokenizer each step. Random weights from
+# seed 0 (pixels from seed 60).
+LM_TRAIN_B = 8
+LM_TRAIN_WARMUP, LM_TRAIN_TIMED = 2, 5
+LM_TRAIN_LOSS_REL_TOL = 5e-3       # kernel vs plain route, same batch and weights
+LM_TRAIN_GRAD_NORM_REL_TOL = 5e-2  # global and per-layer gradient norms, likewise
+LM_RESUME_LAYERS = 2               # the resume check: full width, 2 layers
+
+
+def lm_train_flops(cfg, batch: int, T: int) -> float:
+    """A step's FLOPs: 6 x the matmul parameters (12 C^2 a layer and the
+    head) x the tokens, plus the causal attention (flash_cost: forward and
+    backward) in every layer. The tokenizer's encode is not counted."""
+    C, L, H = cfg.n_embd, cfg.n_layer, cfg.n_head
+    (f_flops, _), (b_flops, _) = flash_cost(batch, H, T, C // H)
+    return 6 * (L * 12 * C * C + cfg.vocab_size * C) * batch * T + L * (f_flops + b_flops)
+
+
+def lm_n2n(gpt, tok):
+    from omnitokenizer_tpu_torch.config import Net2NetConfig
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+
+    return Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, class_cond_dim=1000, starts_with_sos=True,
+                                            class_first=True, first_stage_vocab_size=8192),
+                              tok, gpt=gpt)
+
+
+def lm_optimizer(gpt):
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    return lm_loop.make_lm_optimizer(gpt, lr=1e-3, max_steps=4_000_000, warmup_steps=1,
+                                     lr_min=1e-3, grad_clip_val=1.0, weight_decay=0.01)
+
+
+def lm_route(gpt, flash: bool) -> None:
+    """The kernel route (the flash gate open: cfg.flash_attention) or the
+    plain route (the materialized (B, H, T, T) scores) of the same GPT."""
+    cfg = gpt.cfg.replace(flash_attention=flash)
+    gpt.cfg = cfg
+    for block in gpt.blocks:
+        block.cfg = cfg
+
+
+def lm_grad_norms(gpt, grads) -> dict:
+    """The global gradient norm and each layer's (the blocks, the rest)."""
+    groups: dict = {}
+    for (name, _), g in zip(gpt.named_parameters(), grads):
+        key = ".".join(name.split(".")[:2]) if name.startswith("blocks.") else "rest"
+        groups[key] = groups.get(key, 0.0) + float(g.float().square().sum())
+    norms = {k: math.sqrt(v) for k, v in groups.items()}
+    norms["global"] = math.sqrt(sum(groups.values()))
+    return norms
+
+
+def lm_timed_steps(n2n, opt, state, batches) -> tuple:
+    """encode + lm_train_step over the batches, CUDA events around each step
+    and its encode; returns (step ms, encode ms, losses) of the steps after
+    the warm-up."""
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    marks, losses = [], []
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        z, labels = lm_loop.encode_batch(n2n, batch)
+        ev[1].record()
+        metrics = lm_loop.lm_train_step(n2n, opt, state, z, labels)
+        ev[2].record()
+        marks.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    timed = marks[LM_TRAIN_WARMUP:]
+    return ([a.elapsed_time(c) for a, _, c in timed], [a.elapsed_time(b) for a, b, _ in timed],
+            [float(x) for x in losses])
+
+
+def lm_profile(n2n, opt, state, batch) -> dict:
+    """One kernel-route step (encode included) under torch.profiler: the
+    device's busy ms and the ms of each group of kernels (the flash kernels,
+    the GEMMs, the optimizer's foreach passes, the tokenizer's kernels, the
+    rest), and the ten longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm_loop.lm_train_step(n2n, opt, state, *lm_loop.encode_batch(n2n, batch))
+        torch.cuda.synchronize()
+
+    def self_dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), key=self_dev,
+                     reverse=True)
+    def group(key: str) -> str:
+        if "flash_fwd_kernel" in key or "flash_bwd_" in key:
+            return "flash"
+        if ("otk::" in key or "anonymous namespace)::" in key) and "at::" not in key:
+            return "tokenizer"  # the repo's other kernels, all in the encode
+        if any(k in key for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            return "gemm"
+        if "multi_tensor" in key or "foreach" in key:
+            return "optimizer"
+        return "other"
+
+    ms = dict.fromkeys(("flash", "tokenizer", "gemm", "optimizer", "other"), 0.0)
+    for e in kernels:
+        ms[group(e.key)] += self_dev(e)
+    ms["busy"] = sum(self_dev(e) for e in kernels)
+    print("[12] profiled kernel-route step, device ms by group: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    for e in kernels[:10]:
+        print(f"[12]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+    return ms
+
+
+def phase12_lm_train() -> dict:
+    """The flagship LM's training step on the card: (a) one step's loss and
+    gradient norms, kernel route against plain route on the same batch and
+    weights, and the flash kernels against their plain versions on the
+    first layer's own q, k, v and output gradient from that step; (b) 2 warm-up and 5 timed steps of each route (ms a step,
+    tokens/s, peak memory, the share of the FLOP bound, launches a step),
+    every parameter moved; (c) train_lm at full width and 2 layers: 2 steps
+    and a resume to 3 against an unbroken 3-step run."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+    from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tok = OmniTokenizerVQGAN.from_config(imagenet_k600_config().replace(dtype=BF), seed=0,
+                                         device="cuda").serving()
+    gpt = lm_model(9193, LM_BLOCK)
+    n2n = lm_n2n(gpt, tok)
+    shape = (LM_TRAIN_B, RES, RES, 3)
+    steps = LM_TRAIN_WARMUP + LM_TRAIN_TIMED
+    tokens = LM_TRAIN_B * LM_BLOCK
+    flops = lm_train_flops(gpt.cfg, LM_TRAIN_B, LM_BLOCK)
+    print(f"[12] LM {sum(p.numel() for p in gpt.parameters())} parameters, B={LM_TRAIN_B}, "
+          f"{tokens} tokens a step, {flops / 1e12:.2f} TFLOP a step "
+          f"(bound {flops / PEAK_BF16 * 1e3:.2f} ms at {PEAK_BF16 / 1e12:.0f} TFLOP/s)")
+
+    # (a) one step from the same state: the kernel route against the plain route
+    z, labels = lm_loop.encode_batch(n2n, next(iter(TimedBatches(shape, 1000, 1, 60))))
+    if tuple(z.shape) != (LM_TRAIN_B, LM_BLOCK - 1) or int(z.max()) >= 8192:
+        raise AssertionError(f"encode: ids {tuple(z.shape)} max {int(z.max())}")
+    one, layer0 = {}, {}
+    real_flash = fa.flash_attention
+
+    def keep_layer0(q, k, v, scale):  # the first layer's q, k, v and output gradient
+        out = real_flash(q, k, v, scale)
+        if not layer0:
+            layer0.update(q=q.detach(), k=k.detach(), v=v.detach(), scale=scale)
+            out.register_hook(lambda g: layer0.setdefault("do", g.detach()))
+        return out
+
+    for name, flash in (("kernel", True), ("plain", False)):
+        lm_route(gpt, flash)
+        reset_launch_counts()
+        fa.flash_attention = keep_layer0
+        try:
+            loss, metrics = n2n.loss_fn(z, labels)
+            grads = torch.autograd.grad(loss, list(gpt.parameters()))
+        finally:
+            fa.flash_attention = real_flash
+        one[name] = (float(loss.detach()), lm_grad_norms(gpt, grads), launch_counts(),
+                     float(metrics["acc5"]))
+        del loss, grads
+    # the flash kernels against their plain versions on the main path's own tensors:
+    # the first layer's (B, T, H, D) projections and the gradient of its output
+    q, k, v, do, sc = (layer0[n] for n in ("q", "k", "v", "do", "scale"))
+    o, lse = fa.flash_attn_fwd(q, k, v, sc)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, sc)
+    fwd_err = compare("[12] flash_attn_fwd on layer 0", o, o_ref, FLASH_FWD_TOL)
+    bwd_err = [compare(f"[12] flash_attn_bwd {n} on layer 0", a, b, FLASH_BWD_TOL)
+               for n, a, b in zip(("dq", "dk", "dv"), fa.flash_attn_bwd(q, k, v, o, do, lse, sc),
+                                  fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, sc))]
+    print(f"[12] flash kernels on layer 0's own q, k, v {tuple(q.shape)} (strides {q.stride()}) "
+          f"and output gradient: forward max_rel {fwd_err[1]:.3e} (bar {FLASH_FWD_TOL}), "
+          f"dq, dk, dv {[f'{e[1]:.3e}' for e in bwd_err]} (bar {FLASH_BWD_TOL})")
+    del q, k, v, do, o, lse, o_ref, lse_ref, layer0
+    counts = {n: one[n][2] for n in one}
+    if (counts["kernel"]["flash_attn_fwd"], counts["kernel"]["flash_attn_bwd"]) != (24, 24) \
+            or any(counts["plain"].values()):
+        raise AssertionError(f"one step's launches: {counts}")
+    loss_err = abs(one["kernel"][0] - one["plain"][0]) / abs(one["plain"][0])
+    norm_err = {k: abs(v - one["plain"][1][k]) / one["plain"][1][k]
+                for k, v in one["kernel"][1].items()}
+    worst = max(norm_err, key=norm_err.get)
+    print(f"[12] one step, kernel vs plain route: loss {one['kernel'][0]:.6f} vs "
+          f"{one['plain'][0]:.6f} (rel {loss_err:.3e}, bar {LM_TRAIN_LOSS_REL_TOL}); gradient "
+          f"norms rel: global {norm_err['global']:.3e}, worst {worst} {norm_err[worst]:.3e} "
+          f"(bar {LM_TRAIN_GRAD_NORM_REL_TOL}); acc5 {one['kernel'][3]:.3f} / {one['plain'][3]:.3f}")
+    if not (loss_err <= LM_TRAIN_LOSS_REL_TOL
+            and max(norm_err.values()) <= LM_TRAIN_GRAD_NORM_REL_TOL):
+        raise AssertionError(f"kernel vs plain route: loss {loss_err:.3e}, norms {norm_err}")
+
+    # (b) timed steps of each route
+    runs = {}
+    p0 = {n: p.detach().clone() for n, p in gpt.named_parameters()}
+    opt = lm_optimizer(gpt)
+    state = lm_loop.init_lm_state(n2n, opt)
+    for name, flash in (("kernel", True), ("plain", False)):
+        lm_route(gpt, flash)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms, enc_ms, losses = lm_timed_steps(n2n, opt, state,
+                                                 TimedBatches(shape, 1000, steps, 61))
+        got = {k: v // steps if v % steps == 0 else v / steps
+               for k, v in launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = sum(step_ms) / len(step_ms)
+        runs[name] = {"route": name, "step_ms": ms, "step_ms_each": step_ms,
+                      "encode_ms": sum(enc_ms) / len(enc_ms), "tokens_per_s": tokens / ms * 1e3,
+                      "images_per_s": LM_TRAIN_B / ms * 1e3, "peak_gib": peak,
+                      "flop_bound_share": flops / PEAK_BF16 * 1e3 / ms,
+                      "launches_per_step": got, "losses": losses}
+        print(f"[12] {name} route: {ms:.2f} ms a step ({[round(s, 2) for s in step_ms]}; "
+              f"encode {runs[name]['encode_ms']:.2f}), {runs[name]['tokens_per_s']:.0f} tokens/s, "
+              f"{runs[name]['images_per_s']:.2f} images/s, peak {peak:.2f} GiB, "
+              f"{100 * runs[name]['flop_bound_share']:.1f}% of the FLOP bound; launches a step "
+              f"{got}")
+        want = EXPECTED_LAUNCHES["lm_train"] if flash else {
+            **EXPECTED_LAUNCHES["lm_train"], **NO_FLASH}
+        if got != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name} route: launches {got} != {want}, losses {losses}")
+        if flash:
+            moved = [n for n, p in gpt.named_parameters() if not torch.equal(p.detach(), p0[n])]
+            if len(moved) != len(p0):
+                raise AssertionError(f"{len(moved)}/{len(p0)} parameters moved")
+        if flash:
+            runs[name]["profile_ms"] = lm_profile(n2n, opt, state,
+                                                  next(iter(TimedBatches(shape, 1000, 1, 63))))
+    print(f"[12] every one of {len(p0)} parameters moved in the kernel route's steps; plain "
+          f"route {runs['plain']['step_ms'] / runs['kernel']['step_ms']:.3f}x its ms a step "
+          f"in {runs['plain']['peak_gib'] / runs['kernel']['peak_gib']:.3f}x its peak memory")
+    del p0, opt, state, n2n, gpt
+    torch.cuda.empty_cache()
+
+    # (c) train_lm, the loop: 2 steps and a resume to 3 against 3 unbroken steps
+    batches = TimedBatches(shape, 1000, 3, 62)
+    with tempfile.TemporaryDirectory() as root:
+        finals = []
+        for run, stops in (("broken", (2, 3)), ("unbroken", (3,))):
+            gpt = lm_model(9193, LM_BLOCK, seed=3, layers=LM_RESUME_LAYERS)
+            n2n = lm_n2n(gpt, tok)
+            for stop in stops:
+                state = lm_loop.train_lm(n2n, lm_optimizer(gpt), batches,
+                                         os.path.join(root, run), max_steps=stop, log_every=1)
+            finals.append(({n: p.detach().clone() for n, p in gpt.named_parameters()},
+                           [t.clone() for t in state.opt.mu + state.opt.nu], state.step))
+            ckpt_gb = os.path.getsize(os.path.join(root, run, "checkpoints",
+                                                   "step_00000003.pt")) / 1e9
+            del gpt, n2n, state
+        (pa, ma, sa), (pb, mb, sb) = finals
+        diff = max(max_abs(pa[n], pb[n]) for n in pb)
+        opt_diff = max(max_abs(a, b) for a, b in zip(ma, mb))
+        exact = all(torch.equal(pa[n], pb[n]) for n in pb)
+    print(f"[12] train_lm at {LM_RESUME_LAYERS} layers: resumed at step 2 from a "
+          f"{ckpt_gb:.2f} GB checkpoint to step {sa}, against {sb} unbroken steps: parameters "
+          f"{'bit-equal' if exact else f'max abs diff {diff:.3e}'}, optimizer moments max abs "
+          f"diff {opt_diff:.3e}")
+    if not (sa == sb == 3 and diff <= 1e-6 and opt_diff <= 1e-9):
+        raise AssertionError(f"resume vs unbroken: steps {sa}/{sb}, diff {diff}, {opt_diff}")
+    row = {"kernel": runs["kernel"], "plain": runs["plain"], "flops_per_step": flops,
+           "bound_ms": flops / PEAK_BF16 * 1e3, "tokens_per_step": tokens,
+           "one_step": {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err},
+           "resume_max_abs_diff": diff, "resume_bit_equal": exact, "checkpoint_gb": ckpt_gb}
+    print(json.dumps({"lm_train": row}))
+    print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return {"lm_train": runs["kernel"]["launches_per_step"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2382,6 +2759,7 @@ def main() -> int:
     paths.update(phase9_eval())
     paths.update(phase10_lm())
     paths.update(phase11_diffusion())
+    paths.update(phase12_lm_train())
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -2394,7 +2772,7 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-11 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-12 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,10 @@ change, parent). Rows, at chip_smoke.py phase 2's shapes:
   vq_argmin at the flagship's 20480 and the stage-1 tokenizer's 36864 rows
     of 8 against an 8192 x 8 codebook, called as the checkout's codebook
     calls it; where that passes squared code norms made ahead, also with
-    the norms left to the wrapper.
+    the norms left to the wrapper;
+  where the checkout has it, the LM's causal flash attention at the flagship
+    LM's training shape (8, 16, 1025, 96), on (B, H, T, D) views of (B, T, H,
+    D) memory: the forward, and the backward from the forward's o and lse.
 Each row is timed `--repeats` times a method and held against its plain
 version (vq_argmin: indices equal but at near-ties). Prints one JSON line
 {"root": ..., "rows": [...]}.
@@ -105,12 +108,30 @@ def main() -> int:
          lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, True)),
         vq_case(20480, norms), vq_case(36864, norms),
     ] + ([vq_case(20480, ()), vq_case(36864, ())] if norms else [])
+    try:
+        from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
+    except ImportError:  # a checkout from before the LM's training slice
+        fa = None
+    if fa is not None:
+        fq, fk, fv, fdo = (randn(8, 1025, 16, 96).transpose(1, 2) for _ in range(4))
+        sc = 96 ** -0.5
+        fo, flse = fa.flash_attn_fwd(fq, fk, fv, sc)
+        fo_ref, flse_ref = fa.flash_attn_fwd_plain(fq, fk, fv, sc)
+        cases += [
+            ("flash_attn_fwd", lambda: fa.flash_attn_fwd(fq, fk, fv, sc)[0],
+             lambda: fo_ref),
+            ("flash_attn_bwd", lambda: fa.flash_attn_bwd(fq, fk, fv, fo, fdo, flse, sc),
+             lambda: fa.flash_attn_bwd_plain(fq, fk, fv, fo_ref, fdo, flse_ref, sc))]
     rows = []
     for name, fn, plain in cases:
         if name.startswith("vq_argmin"):  # the share of indices that differ
             err = float((fn() != plain()).float().mean())
             if not err <= 1e-3:
                 raise AssertionError(f"{name}: {err:.3e} of the indices differ")
+        elif name == "flash_attn_bwd":  # dq, dk, dv: the worst
+            err = max(chip_smoke.rel_err(a, b) for a, b in zip(fn(), plain()))
+            if not err <= chip_smoke.KERNEL_REL_TOL:
+                raise AssertionError(f"{name}: relative error {err:.3e}")
         else:
             err = chip_smoke.rel_err(fn(), plain())
             if not err <= chip_smoke.KERNEL_REL_TOL:

@@ -1,7 +1,9 @@
 """PyTorch + CUDA port of the OmniTokenizer tokenizer (VQ and VAE), its GAN
 training (`training/`), the LM's serving path (`models/gpt.py`,
-`models/net2net.py`) and diffusion synthesis (`diffusion/`, `models/dit.py`,
-`models/latte.py`, `training/diffusion_loop.py`).
+`models/net2net.py`) and its training (`training/lm_loop.py`, with the causal
+flash attention kernels of `ops/kernels/flash_attn.py`), and diffusion
+synthesis (`diffusion/`, `models/dit.py`, `models/latte.py`,
+`training/diffusion_loop.py`).
 
 The JAX package `omnitokenizer_tpu` is the reference; this package mirrors
 its module layout and imports no JAX.

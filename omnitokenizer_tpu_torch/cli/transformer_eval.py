@@ -16,7 +16,7 @@ The tokenizer and the GPT load from the reference's checkpoints
 (utils/checkpoint.py, utils/gpt_checkpoint.py); the decode runs as CUDA
 graphs on the card unless --device cpu. Classes run in one process: the
 JAX CLI's tensor-parallel decode (--model_parallel) and its multi-process
-class split are not ported (ROADMAP.md, queue 1 item 11).
+class split are not ported (ROADMAP.md, "Parallelism").
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def main(argv=None) -> int:
     args = A.normalize_precision(build_parser().parse_args(argv))
     if args.model_parallel > 1:
         raise NotImplementedError("--model_parallel > 1 (tensor-parallel decode) is not ported: "
-                                  "ROADMAP.md queue 1 item 11 (parallelism)")
+                                  "ROADMAP.md, \"Parallelism\"")
     if args.class_cond:
         args.inference_type = "class"
     if args.data_dir:

@@ -1,0 +1,130 @@
+"""LM training CLI (mirror of `omnitokenizer_tpu.cli.transformer_train`, the
+reference's transformer_train.py): the GPT over a frozen tokenizer's codes,
+AdamW with the decay/no-decay split and a warmup-cosine schedule,
+checkpoints with auto-resume.
+
+    python -m omnitokenizer_tpu_torch.cli.transformer_train --vqvae TOKENIZER.ckpt \\
+        --data_path DIR --train_datalist LIST --default_root_dir RUNS \\
+        --starts_with_sos --class_first --sequence_length 1 --bf16 [--device cpu]
+
+Checkpoints land in <default_root_dir>/checkpoints/step_*.pt (the GPT's
+state_dict, the optimizer state, the step) every 3000 steps and at the end;
+a run resumes from the newest. One process on one device (the card unless
+--device cpu). Not ported, and refused: --pipeline_stages and
+--model_parallel above 1 (ROADMAP.md, "Parallelism"), text and stft
+conditioning (ROADMAP.md, "The remaining host pieces"), and the JAX
+package's msgpack tokenizer checkpoints (ROADMAP.md, "The JAX package's
+msgpack checkpoints, read without flax").
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from . import args as A
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("transformer_train")
+    A.add_model_args(p)
+    A.add_train_args(p)
+    A.add_data_args(p)
+    A.add_device_arg(p)
+    p.add_argument("--vqvae", type=str, required=True, help="tokenizer ckpt")
+    p.add_argument("--unconditional", action="store_true")
+    p.add_argument("--starts_with_sos", action="store_true")
+    p.add_argument("--class_first", action="store_true")
+    p.add_argument("--p_drop_cond", type=float, default=None)
+    p.add_argument("--block_size", type=int, default=1025)
+    p.add_argument("--n_layer", type=int, default=24)
+    p.add_argument("--n_head", type=int, default=16)
+    p.add_argument("--n_embd", type=int, default=1536)
+    p.add_argument("--n_unmasked", type=int, default=0)
+    p.add_argument("--transformer_dropout", type=float, default=0.0)
+    p.add_argument("--class_cond_dim", type=int, default=1000)
+    p.add_argument("--pkeep", type=float, default=1.0)
+    p.add_argument("--first_stage_key", type=str, default="video")
+    p.add_argument("--stft_vqvae", type=str, default=None,
+                   help="second tokenizer ckpt for 'stft' conditioning; not ported")
+    p.add_argument("--vocab_size", type=int, default=None,
+                   help="override the GPT vocab (default: the tokenizer's codes + the "
+                        "conditioning)")
+    p.add_argument("--first_stage_vocab_size", type=int, default=None,
+                   help="override the first-stage code vocab")
+    p.add_argument("--cond_stage_key", type=str, default="label")
+    p.add_argument("--sample_every_n_latent_frames", type=int, default=0)
+    p.add_argument("--base_lr", type=float, default=4.5e-6)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--pipeline_stages", type=int, default=1,
+                   help="GPipe pipeline stages; not ported (only 1)")
+    p.add_argument("--microbatches", type=int, default=2,
+                   help="GPipe microbatches a step; read only with --pipeline_stages")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel size; not ported (only 1)")
+    return p
+
+
+def build_model(args):
+    """The Net2NetTransformer of the flags: the tokenizer from its
+    checkpoint, a GPT at minGPT's init from --seed, the vocabulary as the
+    JAX CLI computes it."""
+    from ..config import GPTConfig, Net2NetConfig
+    from ..models.net2net import Net2NetTransformer
+    from ..models.wrapper import OmniTokenizerVQGAN
+
+    if args.vqvae.endswith(".msgpack"):
+        raise NotImplementedError(
+            "the JAX package's msgpack tokenizer checkpoints need flax and are not read "
+            "(ROADMAP.md, \"The JAX package's msgpack checkpoints, read without flax\"); "
+            "pass the reference's .ckpt")
+    tok = OmniTokenizerVQGAN.load_from_checkpoint(args.vqvae, device=args.device)
+    first_stage_vocab = args.first_stage_vocab_size or tok.cfg.n_codes
+    vocab = first_stage_vocab + (0 if args.unconditional else args.class_cond_dim)
+    if args.starts_with_sos and not args.unconditional:
+        vocab += 1
+    if args.vocab_size:
+        if args.vocab_size < vocab:
+            raise ValueError(f"--vocab_size {args.vocab_size} < required {vocab}")
+        vocab = args.vocab_size
+    gpt_cfg = GPTConfig(
+        vocab_size=vocab, block_size=args.block_size, n_layer=args.n_layer,
+        n_head=args.n_head, n_embd=args.n_embd, embd_pdrop=args.transformer_dropout,
+        resid_pdrop=args.transformer_dropout, attn_pdrop=args.transformer_dropout,
+        n_unmasked=args.n_unmasked, dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    n2n_cfg = Net2NetConfig(
+        gpt=gpt_cfg, class_cond_dim=args.class_cond_dim, unconditional=args.unconditional,
+        starts_with_sos=args.starts_with_sos, class_first=args.class_first,
+        p_drop_cond=args.p_drop_cond, pkeep=args.pkeep,
+        first_stage_vocab_size=first_stage_vocab, cond_stage_key=args.cond_stage_key,
+        sample_every_n_latent_frames=args.sample_every_n_latent_frames)
+    return Net2NetTransformer(n2n_cfg, tok, seed=args.seed)
+
+
+def main(argv=None):
+    from ..data.loader import VideoData
+    from ..training.lm_loop import make_lm_optimizer, train_lm
+
+    args = A.normalize_precision(build_parser().parse_args(argv))
+    if args.pipeline_stages > 1 or args.model_parallel > 1:
+        raise NotImplementedError(
+            "--pipeline_stages / --model_parallel > 1 are not ported (ROADMAP.md, "
+            "\"Parallelism\"); the port trains in one process on one device")
+    if args.cond_stage_key in ("text", "stft"):
+        raise NotImplementedError(
+            f"--cond_stage_key {args.cond_stage_key} needs the text/stft datasets, not ported "
+            "(ROADMAP.md, \"The remaining host pieces\")")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n2n = build_model(args)
+    opt = make_lm_optimizer(n2n.gpt, lr=args.lr, max_steps=args.max_steps,
+                            warmup_steps=args.warmup_steps, warmup_lr_init=args.warmup_lr_init,
+                            lr_min=args.lr_min, grad_clip_val=args.grad_clip_val,
+                            weight_decay=args.weight_decay, accumulates=args.grad_accumulates)
+    loader = VideoData(args, train=True)
+    return train_lm(n2n, opt, iter(loader), args.default_root_dir, args.max_steps,
+                    seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

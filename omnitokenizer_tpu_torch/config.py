@@ -151,8 +151,9 @@ class TrainConfig:
 @dataclass(frozen=True)
 class GPTConfig:
     """The LM's minGPT backbone (the reference's gpt.py; the values of
-    scripts/lm_train/*.sh). `flash_attention` is kept so the mirror stays
-    exact; serving never reads it (the cached attention is plain math)."""
+    scripts/lm_train/*.sh). `flash_attention` opens the causal flash kernel
+    of the full (training) forward, in bf16 on the card from 256 tokens
+    (models/gpt.py:_flash_ok); serving's cached attention is plain math."""
 
     vocab_size: int = 9193  # 8192 codes + 1000 classes + 1 sos
     block_size: int = 1025

@@ -283,9 +283,9 @@ def VideoData(args, train: bool = True, process_index: int = 0,
     family = _special_family(args)
     if family is not None:
         raise NotImplementedError(
-            f"the {family!r} dataset family is not ported (ROADMAP.md queue 1, item 4): the "
-            "HDF5, coinrun, frame-folder and stft datasets need h5py and are off the "
-            "tokenizer's main path; the port reads image and video lists")
+            f"the {family!r} dataset family is not ported (ROADMAP.md, \"The remaining host "
+            "pieces\"): the HDF5, coinrun, frame-folder and stft datasets need h5py and are "
+            "off the tokenizer's main path; the port reads image and video lists")
 
     def _is_image_list(dlist: str) -> bool:
         # the first entry's extension is authoritative — a list NAME

@@ -25,6 +25,12 @@ eagerly. Positions live on the device as a tensor, so the masks, the
 position embedding and the in-place cache write (index_copy_) of one
 captured step serve every step of its segment.
 
+The full forward (no cache) is the training forward. In bf16 on the card,
+from 256 tokens, its attention is the causal flash kernel with its backward
+kernels (ops/kernels/flash_attn.py), as the JAX package's is the stock TPU
+flash kernel behind the same gate (`_flash_ok`); elsewhere it materializes
+the (B, H, T, T) f32 scores. Serving's cached calls keep the plain math.
+
 Sampling is Gumbel-max, as jax.random.categorical is, with the noise drawn
 from the caller's torch.Generator outside the graphs, in chunks: the same
 distribution as the JAX samplers, not the same draws. The eager loop and
@@ -42,6 +48,7 @@ from torch import nn
 
 from ..config import GPTConfig
 from ..ops.int8 import int8_matmul
+from ..ops.kernels import flash_attn
 
 NEG_INF = -1e9
 NOISE_CHUNK = 64  # decode steps of Gumbel noise drawn at a time
@@ -56,6 +63,15 @@ def _positions(start, T: int, device) -> torch.Tensor:
         start = start.reshape(1)
         return start if T == 1 else start + torch.arange(T, device=device)
     return torch.arange(start, start + T, device=device)
+
+
+def _flash_ok(cfg: GPTConfig, seq_len: int, t: torch.Tensor) -> bool:
+    """The gate of the causal flash kernel in the full forward, the JAX
+    package's (`models/gpt.py:_flash_ok`) with the card in place of the TPU:
+    cfg.flash_attention, bf16 compute, a sequence long enough to tile, a
+    CUDA tensor, and a head width the kernel takes (`flash_attn.narrowed`)."""
+    return (cfg.flash_attention and t.dtype == torch.bfloat16 and seq_len >= flash_attn.MIN_T
+            and t.is_cuda and not flash_attn.narrowed(seq_len, t.shape[-1]))
 
 
 class CausalSelfAttention(nn.Module):
@@ -117,10 +133,16 @@ class TransformerBlock(nn.Module):
             v_cache.index_copy_(2, slots, v)
             k = k_cache if kv_window is None else k_cache[:, :, :kv_window]
             v = v_cache if kv_window is None else v_cache[:, :, :kv_window]
-        # scores in f32 (a bf16 product rounds them once, as it leaves cuBLAS)
-        sim = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(hd))
-        attn = torch.softmax(sim.masked_fill(hidden, NEG_INF), dim=-1).to(cfg.dtype)
-        y = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, C)
+        scale = 1.0 / math.sqrt(hd)
+        if cache is None and _flash_ok(cfg, T, q):
+            # the (B, T, H, D) projections as they are; the output in that layout too
+            y = flash_attn.flash_attention(q, k, v, scale)
+        else:
+            # scores in f32 (a bf16 product rounds them once, as it leaves cuBLAS)
+            sim = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+            attn = torch.softmax(sim.masked_fill(hidden, NEG_INF), dim=-1).to(cfg.dtype)
+            y = torch.matmul(attn, v)
+        y = y.transpose(1, 2).reshape(B, T, C)
         x = x + self._dense("attn.proj", a.proj, y, quant)
         h = self._dense("mlp.0", self.mlp[0], self._norm(self.ln2, x), quant)
         return x + self._dense("mlp.2", self.mlp[2], F.gelu(h), quant)

@@ -1,5 +1,5 @@
-"""Net2NetTransformer's serving half: tokenizer codes -> token ids -> GPT,
-the conditioning encoders, and the generation entry points (mirror of
+"""Net2NetTransformer: tokenizer codes -> token ids -> GPT, the conditioning
+encoders, the training loss and the generation entry points (mirror of
 `omnitokenizer_tpu.models.net2net`; the reference's lm_transformer.py and
 modules/encoders.py).
 
@@ -7,16 +7,18 @@ modules/encoders.py).
     sample = n2n.make_class_conditional_sampler(1024, top_k=2048, bucket=256)
     ids = sample(classes, torch.Generator("cuda").manual_seed(0))
     pixels = n2n.decode_to_pixels(ids, is_image=True)
+    loss, metrics = n2n.loss_fn(n2n.encode_to_z(pixels, True), classes)
 
 Vocabulary layout: [sos?][condition vocab][codebook], so the code ids are
-offset by `z_offset`. The training loss is not ported yet (ROADMAP.md).
+offset by `z_offset`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import Net2NetConfig
 from ..ops.int8 import quantize_gpt_decode_params
@@ -112,6 +114,43 @@ class Net2NetTransformer:
             cz = torch.cat([c, sos, z] if cfg.class_first else [sos, c, z], dim=1)
             return cz, z_ids, c.shape[1]
         return torch.cat([c, z], dim=1), z_ids, c.shape[1] - 1
+
+    # -- training loss ------------------------------------------------------
+    def draw_pkeep(self, shape, generator: Optional[torch.Generator] = None,
+                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The draws of the pkeep corruption: a keep mask (True with
+        probability cfg.pkeep) and random ids in [0, vocab_size), each of
+        `shape`, from `generator` (the JAX loss draws them from its key)."""
+        device = device if device is not None else self.device
+        keep = torch.rand(shape, generator=generator, device=device) < self.cfg.pkeep
+        rand = torch.randint(0, self.cfg.gpt.vocab_size, shape, generator=generator,
+                             device=device)
+        return keep, rand
+
+    def loss_fn(self, z_ids: torch.Tensor, labels, keep: Optional[torch.Tensor] = None,
+                rand_ids: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {loss, acc1, acc5}) of the GPT on a batch of codebook ids
+        z_ids (B, N) and its condition (class ids (B,) or columns (B, L)):
+        cross-entropy of the logits past the prefix against the targets, the
+        top-1 and top-5 accuracies in percent. With cfg.pkeep < 1 and the
+        draws given (`draw_pkeep`), each offset id whose `keep` is False is
+        replaced by its `rand_ids` entry; as in the JAX loss, the corrupted
+        ids are the targets too."""
+        off = self.z_offset
+        z_in = z_ids
+        if keep is not None and self.cfg.pkeep < 1.0:
+            z_in = torch.where(keep, z_ids.long() + off, rand_ids.long()) - off
+        cz, target, prefix = self.build_sequence(z_in, labels)
+        logits, _ = self.gpt(cz[:, :-1])
+        logits = logits[:, prefix:]
+        target = target.long() + off
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), target.reshape(-1))
+        with torch.no_grad():
+            acc1 = (logits.argmax(-1) == target).float().mean() * 100
+            top5 = logits.topk(5, dim=-1).indices
+            acc5 = (top5 == target[..., None]).any(-1).float().mean() * 100
+        return loss, {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
 
     # -- generation ---------------------------------------------------------
     def _serving(self, int8: bool):

@@ -12,7 +12,7 @@ the backward launches no kernel.
 
 `OMNITOK_TRAIN_KERNEL_FWD` picks the op groups (a comma list of attn, ff
 and flat; "1" for all, "0" or "" for none), read at each call as the JAX
-package reads it at trace time.
+package reads it at trace time; another token raises.
 """
 
 from __future__ import annotations
@@ -25,14 +25,22 @@ import torch
 _DEFAULT = "attn,ff,flat"
 
 
+_GROUPS = frozenset({"attn", "ff", "flat"})
+
+
 def train_kernel_fwd_ops() -> frozenset:
-    """The op groups whose training forward runs the kernels."""
+    """The op groups whose training forward runs the kernels; a token
+    outside attn, ff and flat raises (the JAX package ignores it)."""
     raw = os.environ.get("OMNITOK_TRAIN_KERNEL_FWD", _DEFAULT).strip()
     if raw in ("", "0"):
         return frozenset()
     if raw == "1":
-        return frozenset({"attn", "ff", "flat"})
-    return frozenset(p.strip() for p in raw.split(",") if p.strip())
+        return _GROUPS
+    ops = frozenset(p.strip() for p in raw.split(",") if p.strip())
+    if ops - _GROUPS:
+        raise ValueError(f"OMNITOK_TRAIN_KERNEL_FWD={raw!r}: unknown op groups "
+                         f"{sorted(ops - _GROUPS)}; use 0, 1 or a list of attn, ff, flat")
+    return ops
 
 
 class _KernelFwdRefBwd(torch.autograd.Function):

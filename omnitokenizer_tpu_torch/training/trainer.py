@@ -121,13 +121,17 @@ class OptaxAdam:
     optax.MultiSteps(k) when k > 1: the gradients' running mean over k
     mini-steps, the chain run on the k-th, whose updates are emitted; zero
     updates before it. The defaults are the tokenizer's Adam(betas=(0.5,
-    0.9)); with weight_decay it is optax.adamw (the diffusion trainer's)."""
+    0.9)); with weight_decay it is optax.adamw (the diffusion trainer's), and
+    `decay_mask` (a bool a parameter, in the order `update` gets them) is
+    adamw's mask: the weight decay reaches only the parameters marked True
+    (the LM trainer's)."""
 
     def __init__(self, schedule: Callable[[int], float], clip: Optional[float],
                  accumulates: int = 1, b1: float = 0.5, b2: float = 0.9, eps: float = 1e-8,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, decay_mask: Optional[List[bool]] = None):
         self.schedule, self.clip, self.k = schedule, clip, accumulates
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.decay_mask = None if decay_mask is None else list(decay_mask)
 
     def init(self, params: List[torch.Tensor]) -> OptState:
         def zeros():
@@ -155,7 +159,16 @@ class OptaxAdam:
         updates = torch._foreach_div(st.mu, _bias_correction(self.b1, st.count))
         torch._foreach_div_(updates, denom)
         if self.weight_decay:
-            torch._foreach_add_(updates, params, alpha=self.weight_decay)
+            if self.decay_mask is not None:
+                if len(self.decay_mask) != len(params):
+                    raise ValueError(f"decay_mask has {len(self.decay_mask)} entries for "
+                                     f"{len(params)} parameters")
+                decayed = [(u, p) for u, p, m in zip(updates, params, self.decay_mask) if m]
+                if decayed:
+                    torch._foreach_add_([u for u, _ in decayed], [p for _, p in decayed],
+                                        alpha=self.weight_decay)
+            else:
+                torch._foreach_add_(updates, params, alpha=self.weight_decay)
         torch._foreach_mul_(updates, -self.schedule(st.lr_count))
         st.lr_count += 1
         return updates

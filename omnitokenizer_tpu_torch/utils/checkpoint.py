@@ -30,8 +30,8 @@ import torch
 from ..config import TokenizerConfig
 from ..convert import _port_key
 
-CNN_NOT_PORTED = ("patch_embed='cnn' is not ported (ROADMAP.md queue 1, item 2): the port's "
-                  "tokenizer has only the linear patch embed")
+CNN_NOT_PORTED = ("patch_embed='cnn' is not ported (ROADMAP.md, \"The rest of tokenizer "
+                  "inference\"): the port's tokenizer has only the linear patch embed")
 
 
 # -- reading ------------------------------------------------------------------

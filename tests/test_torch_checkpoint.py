@@ -156,9 +156,9 @@ def test_cnn_checkpoint_raises(tmp_path):
     sd = reference_state_dict(JaxConfig(**SMALL))
     sd["encoder.to_patch_emb_first_frame.0.weight"] = np.zeros((32, 3, 1, 4, 4), np.float32)
     write_lightning_ckpt(path, sd, **_hparams(patch_embed="cnn"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="The rest of tokenizer inference"):
         OmniTokenizerVQGAN.load_from_checkpoint(str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="The rest of tokenizer inference"):
         ck.map_tokenizer_key("encoder.to_patch_emb.0.weight",
                              TorchConfig(**SMALL, patch_embed="cnn"))
 

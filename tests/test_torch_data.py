@@ -179,7 +179,7 @@ def test_special_dataset_families_raise(files, tmp_path, kw):
         (tmp_path / "coinrun_dir").mkdir()
         kw = dict(data_path=[str(tmp_path / "coinrun_dir")])
     args = _args(files, ["k600_list.txt"], **kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="The remaining host pieces"):
         port_loader.VideoData(args)
 
 

@@ -124,7 +124,9 @@ def vae_ckpt(tmp_path_factory):
 
 def test_dit_through_the_vae(tmp_path, vae_ckpt):
     """dit_train's step on pixel batches encoded through the adapter, then
-    dit_sample decoding its samples into PNGs."""
+    dit_sample decoding its samples into PNGs: byte for byte utils/media's
+    to_uint8 of the adapter's decode of the same latents (the run without a
+    VAE writes them), each inside the grid's 1-pixel black border."""
     from omnitokenizer_tpu_torch.models.diffusion_adapter import DiffusionVAEAdapter
 
     flags = ["--model", "DiT-S/2", "--image_size", "32", "--in_channels", "8",
@@ -152,8 +154,23 @@ def test_dit_through_the_vae(tmp_path, vae_ckpt):
     assert [os.path.basename(p) for p in pngs] == ["00_00000_c4.png", "00_00001_c4.png"]
     from PIL import Image
 
-    img = np.asarray(Image.open(pngs[0]))
-    assert img.shape[2] == 3 and img.shape[0] >= 32 and img.std() > 0
+    from omnitokenizer_tpu_torch.utils.media import to_uint8
+
+    latents = str(tmp_path / "latents")
+    dit_sample.main(flags[:-6] + ["--ckpt", os.path.join(results, "state_000000002.pt"),
+                                  "--num_samples", "2", "--per_proc_batch_size", "2",
+                                  "--classes", "4", "--sample_dir", latents] + SAMPLE)
+    z = torch.from_numpy(np.load(os.path.join(latents, "latents_00_00000.npy")))
+    with torch.inference_mode():
+        pixels = diffusion_common.decode_batch_fn(adapter, False)(z).float().numpy()
+    want = to_uint8(np.moveaxis(pixels, 1, -1))  # (2, 32, 32, 3)
+    for i, png in enumerate(pngs):
+        img = np.asarray(Image.open(png))
+        assert img.shape == (34, 34, 3) and img.dtype == np.uint8 and img.std() > 0
+        assert np.array_equal(img[1:33, 1:33], want[i])
+        border = np.ones((34, 34), bool)
+        border[1:33, 1:33] = False
+        assert not img[border].any()
 
 
 def test_encode_decode_layouts(vae_ckpt):

@@ -3,7 +3,8 @@ kernels as the primal, the plain math recomputed as the backward
 (ops/kernel_grad.py), on the CPU, where each kernel wrapper runs its plain
 version.
 
-- `train_kernel_fwd_ops()` parses OMNITOK_TRAIN_KERNEL_FWD as the JAX one.
+- `train_kernel_fwd_ops()` parses OMNITOK_TRAIN_KERNEL_FWD as the JAX one,
+  and raises on a token the JAX one would drop.
 - The route a bf16 training call takes (flat small-group, spatial
   small-group or cosine attention, geglu feed-forward, or the plain math)
   is the one the JAX modules take, found with spies on the JAX side (its
@@ -47,6 +48,14 @@ def test_ops_parse_like_jax(monkeypatch, raw):
     else:
         monkeypatch.setenv("OMNITOK_TRAIN_KERNEL_FWD", raw)
     assert tkg.train_kernel_fwd_ops() == jkg.train_kernel_fwd_ops()
+
+
+@pytest.mark.parametrize("raw", ["atn", "attn,gelu", "ff, flat, 2"])
+def test_ops_refuse_unknown_tokens(monkeypatch, raw):
+    """A misspelt group raises, where the JAX package drops it silently."""
+    monkeypatch.setenv("OMNITOK_TRAIN_KERNEL_FWD", raw)
+    with pytest.raises(ValueError, match="unknown op groups"):
+        tkg.train_kernel_fwd_ops()
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,8 +3,9 @@ at the shapes chip_smoke.py does not reach: the other widths and head
 widths the gates take (model widths up to 2048, cosine_mha at head widths
 16 to 128, the small-group core at every multiple of 16, mha's flash
 branches on zero-padded widths, vq_argmin at any code dim with duplicate
-codes), ragged row counts and small groups, and the wrappers refusing what
-the kernels do not take. Skips without a GPU. This file imports
+codes), ragged row counts and small groups, the LM's causal flash attention
+forward and backward over head widths 16-128 and ragged sequence lengths,
+and the wrappers refusing what the kernels do not take. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from omnitokenizer_tpu_torch.ops.kernels import _build
 from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
+from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
 from omnitokenizer_tpu_torch.ops.kernels import geglu_ff as gf
 from omnitokenizer_tpu_torch.ops.kernels import ln_qkv as lq
 from omnitokenizer_tpu_torch.ops.kernels import mha as mh
@@ -449,3 +451,112 @@ def test_training_route_function(gen, route, n, spatial, causal):
     assert not any(launch_counts().values())
     for a, b in zip(got, torch.autograd.grad(want, args, g)):
         assert torch.equal(a, b)
+
+
+# -- causal flash attention (the LM's training forward) ---------------------------------
+FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-2, 2e-2  # bf16 outputs against f32 math on bf16 inputs
+
+
+def flash_inputs(gen, B, H, T, D, scale=1.0):
+    """q, k, v, do as the LM hands them over: (B, H, T, D) views of (B, T, H, D)
+    memory."""
+    return [randn(gen, B, T, H, D, scale=scale).transpose(1, 2) for _ in range(4)]
+
+
+def check_flash(q, k, v, do, scale):
+    o, lse = fa.flash_attn_fwd(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, scale)
+    assert rel_err(o, o_ref) <= FLASH_FWD_TOL
+    assert float((lse - lse_ref).abs().max()) <= 1e-3 * max(1.0, float(lse_ref.abs().max()))
+    grads = fa.flash_attn_bwd(q, k, v, o, do, lse, scale)
+    want = fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, scale)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert bool(torch.isfinite(got).all())
+        if q.shape[2] == 1 and name != "dv":
+            # a softmax over one key: dq and dk are 0 in exact arithmetic, and
+            # both sides hold only the rounding of do.v - o.do
+            assert max(float(got.abs().max()), float(w.abs().max())) <= 1e-4
+        else:
+            assert rel_err(got, w) <= FLASH_BWD_TOL
+    return o, grads
+
+
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("T", [1, 63, 256, 257, 1025, 2048])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+def test_flash_attn(gen, D, T, B, H):
+    check_flash(*flash_inputs(gen, B, H, T, D), D ** -0.5)
+
+
+@pytest.mark.parametrize("D,T", [(24, 300), (80, 129), (112, 64)])
+def test_flash_attn_padded_widths(gen, D, T):
+    """Widths between the instances go to the next one, zero-padded."""
+    o, grads = check_flash(*flash_inputs(gen, 2, 2, T, D), D ** -0.5)
+    assert o.shape[-1] == D and all(g.shape[-1] == D for g in grads)
+
+
+def test_flash_attn_contiguous_and_expanded(gen):
+    """Contiguous (B, H, T, D) tensors, and a gradient with a zero stride (a
+    copy), give what the views give."""
+    q, k, v, do = (t.contiguous() for t in flash_inputs(gen, 2, 4, 300, 64))
+    check_flash(q, k, v, do, 0.125)
+    ones = torch.ones(1, 1, 1, 64, dtype=torch.bfloat16, device="cuda").expand(2, 4, 300, 64)
+    o, lse = fa.flash_attn_fwd(q, k, v, 0.125)
+    got = fa.flash_attn_bwd(q, k, v, o, ones, lse, 0.125)
+    want = fa.flash_attn_bwd(q, k, v, o, ones.contiguous(), lse, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_flash_attn_large_logits(gen, D):
+    """Logits in the thousands (near where exp overflows f32 without the
+    running max): no NaN, and the plain math's answer."""
+    q, k, v, do = flash_inputs(gen, 1, 2, 1025, D)
+    q, k = q * 30, k * 30
+    check_flash(q, k, v, do, D ** -0.5)
+
+
+def test_flash_attention_function(gen):
+    """The autograd Function: one forward and one backward launch, the
+    backward's gradients those of flash_attn_bwd, and the result
+    deterministic."""
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    q, k, v, do = (t.detach().requires_grad_() for t in flash_inputs(gen, 2, 4, 1025, 96))
+    reset_launch_counts()
+    o = fa.flash_attention(q, k, v, 96 ** -0.5)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    counts = launch_counts()
+    assert counts["flash_attn_fwd"] == 1 and counts["flash_attn_bwd"] == 1
+    with torch.no_grad():
+        o2, lse = fa.flash_attn_fwd(q, k, v, 96 ** -0.5)
+        want = fa.flash_attn_bwd(q, k, v, o2, do, lse, 96 ** -0.5)
+    assert torch.equal(o.detach(), o2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_attn_refuses(gen, monkeypatch):
+    """The wrappers refuse the narrowed widths, other dtypes and unaligned
+    rows' shapes they cannot read; a CUDA input with no kernel library raises
+    and never takes the plain route."""
+    q = randn(gen, 1, 2, 256, 256)
+    assert fa.narrowed(256, 256) and not fa.narrowed(256, 96) and not fa.narrowed(255, 256)
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attn_fwd(q, q, q, 0.0625)
+    f = randn(gen, 1, 2, 256, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fa.flash_attn_fwd(f, f, f, 0.125)
+    b = randn(gen, 1, 2, 256, 64)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attn_fwd(b.requires_grad_(), b, b, 0.125)
+
+    def no_library():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    fa.flash_attn_fwd.launches = 0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        fa.flash_attn_fwd(b.detach(), b.detach(), b.detach(), 0.125)
+    assert fa.flash_attn_fwd.launches == 0

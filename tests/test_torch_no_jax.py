@@ -5,9 +5,12 @@ training step through the trainer. Its entry-point modules (checkpoints,
 CLIs, data, eval, native, inflation, media) import, `vqgan_eval.evaluate`
 runs over an in-memory batch, and `vqgan_train` takes one step on PNG
 files, with neither JAX nor the JAX package loaded. The LM's modules (the
-GPT and its samplers, int8, Net2Net, the GPT checkpoints, transformer_eval)
-import and generate on the CPU: class-conditional CFG ids with int8 and
-buckets, frame prediction, and the CLI writing PNGs. The diffusion modules (the Gaussian process, the
+GPT and its samplers, int8, Net2Net, the GPT checkpoints, transformer_eval,
+the flash attention wrapper, the training loop and transformer_train)
+import with JAX, flax and optax unimportable, and generate on the CPU:
+class-conditional CFG ids with int8 and buckets, frame prediction, and the
+CLI writing PNGs; the flash Function's gradients; transformer_train takes
+a step on PNG files. The diffusion modules (the Gaussian process, the
 timestep samplers, DiT, Latte, the training loop, the five CLIs) import
 with JAX, flax and optax unimportable, and train, resume and sample."""
 
@@ -125,13 +128,18 @@ LM_SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import glob, os, tempfile
+import numpy as np
 import torch
 torch.set_num_threads(1)
 from omnitokenizer_tpu_torch import (GPT, GPTConfig, Net2NetConfig, Net2NetTransformer,
                                      OmniTokenizerVQGAN, TokenizerConfig)
-from omnitokenizer_tpu_torch.cli import transformer_eval
+from omnitokenizer_tpu_torch.cli import transformer_eval, transformer_train
 from omnitokenizer_tpu_torch.models.gpt import init_weights
+from omnitokenizer_tpu_torch.ops.kernels.flash_attn import flash_attention
+from omnitokenizer_tpu_torch.training import lm_loop
+from omnitokenizer_tpu_torch.training.loop import write_png
 from omnitokenizer_tpu_torch.ops import int8
 from omnitokenizer_tpu_torch.utils import gpt_checkpoint
 from omnitokenizer_tpu_torch.utils.checkpoint import save_tokenizer_checkpoint
@@ -163,7 +171,25 @@ with tempfile.TemporaryDirectory() as root:
         "--n_sample", "2", "--top_k", "8", "--decode_bucket", "4", "--int8",
         "--save", os.path.join(root, "gen"), "--device", "cpu"])
     assert n == 2 and len(glob.glob(os.path.join(root, "gen", "*.png"))) == 2
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "omnitokenizer_tpu")
+    rng = np.random.RandomState(0)
+    for i in range(4):
+        write_png(os.path.join(root, f"im{i}.png"), rng.randint(0, 255, (32, 32, 3), np.uint8))
+    with open(os.path.join(root, "images.txt"), "w") as f:
+        f.write("".join(f"im{i}.png\t{i}\n" for i in range(4)))
+    state = transformer_train.main([
+        "--vqvae", os.path.join(root, "tok.pt"), "--data_path", root,
+        "--train_datalist", os.path.join(root, "images.txt"),
+        "--default_root_dir", os.path.join(root, "lm"), "--resolution", "32",
+        "--sequence_length", "1", "--batch_size", "2", "--num_workers", "0", "--block_size", "24",
+        "--n_layer", "2", "--n_head", "2", "--n_embd", "32", "--class_cond_dim", "10",
+        "--starts_with_sos", "--class_first", "--pkeep", "0.9", "--max_steps", "1",
+        "--device", "cpu"])
+    assert state.step == 1
+    assert os.path.exists(os.path.join(root, "lm", "checkpoints", "step_00000001.pt"))
+q = torch.randn(1, 2, 8, 16, requires_grad=True)
+assert torch.autograd.grad(flash_attention(q, q, q, 0.25).sum(), q)[0].shape == q.shape
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax",
+                                                              "omnitokenizer_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print("ok")
