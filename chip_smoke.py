@@ -20,8 +20,11 @@ Phases (any failure raises and exits non-zero):
      for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
      cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
      for vq_argmin; and the LM's causal flash forward and backward at the
-     training shape (8, 16, 1025, 96) on the (B, T, H, D) projections'
-     views, beside SDPA (is_causal) forward and forward + backward;
+     training shape (8, 16, 1025, 96) and at the long-sequence recipes'
+     (4, 16, 5121, 96), where they are compute-bound, on the (B, T, H, D)
+     projections' views, beside SDPA (is_causal) forward and forward +
+     backward, two backward runs bitwise equal (where the plain twins' f32
+     scores do not fit, they are held and timed on batch 0);
   3. the bf16 VQ round trip of imagenet_k600_config() at full width through
      OmniTokenizerVQGAN.reconstruct, with the launch count of every kernel,
      checked against the plain bf16 path on the same weights, and frames/s
@@ -588,8 +591,12 @@ def phase2_kernels() -> None:
                else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
                library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
     mha_f32_floor(mh, g)
-    # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D) projections
+    # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D)
+    # projections; then the long-sequence recipes' shape, where the kernels are
+    # compute-bound (scripts/lm_train/train_ucf.sh: block 5121, B = 4, 16 heads
+    # of 96; no phase drives it, so its launches are null)
     check_flash("2", "lm_train", LM_TRAIN_B, LM_HEADS, LM_BLOCK, LM_WIDTH // LM_HEADS)
+    check_flash("2", "lm_train_ucf", 4, LM_HEADS, 5121, LM_WIDTH // LM_HEADS)
 
 
 FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-2, 2e-2  # bf16 outputs vs f32 math on the same bf16 inputs
@@ -619,16 +626,25 @@ def check_flash(tag, path, B_, H_, T_, D_) -> None:
     q, k, v, do = (randn(g, B_, T_, H_, D_, dtype=BF).transpose(1, 2) for _ in range(4))
     scale = D_ ** -0.5
     o, lse = fa.flash_attn_fwd(q, k, v, scale)
-    o_ref, lse_ref = fa.flash_attn_fwd_plain(q, k, v, scale)
-    err_o = compare("flash_attn_fwd", o, o_ref, FLASH_FWD_TOL)
-    lse_err = max_abs(lse, lse_ref)
     grads = fa.flash_attn_bwd(q, k, v, o, do, lse, scale)
-    want = fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, scale)
-    errs = [compare(f"flash_attn_bwd {n}", a, b, FLASH_BWD_TOL)
+    # the plain twins hold a few (B, H, T, T) f32 tensors at once: where ~8
+    # of them do not fit beside what is allocated, they run on batch 0 alone
+    # and are timed there
+    pb = B_ if 8 * B_ * H_ * T_ * T_ * 4 < torch.cuda.mem_get_info()[0] else 1
+    pq, pk, pv, pdo = (t[:pb] for t in (q, k, v, do))
+    o_ref, lse_ref = fa.flash_attn_fwd_plain(pq, pk, pv, scale)
+    err_o = compare("flash_attn_fwd", o[:pb], o_ref, FLASH_FWD_TOL)
+    lse_err = max_abs(lse[:pb], lse_ref)
+    want = fa.flash_attn_bwd_plain(pq, pk, pv, o_ref, pdo, lse_ref, scale)
+    errs = [compare(f"flash_attn_bwd {n}", a[:pb], b, FLASH_BWD_TOL)
             for n, a, b in zip(("dq", "dk", "dv"), grads, want)]
-    del grads, want
+    again = fa.flash_attn_bwd(q, k, v, o, do, lse, scale)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("flash_attn_bwd: two runs on the same inputs differ")
+    del grads, want, again
+    sliced = "" if pb == B_ else f"; plain twins on batch 0 of {B_} (memory), timed there"
     print(f"[{tag}] flash_attn ({path}) lse max_abs {lse_err:.3e}; dq, dk, dv max_rel "
-          f"{[f'{e[1]:.3e}' for e in errs]}")
+          f"{[f'{e[1]:.3e}' for e in errs]}; backward bitwise equal over two runs{sliced}")
     (f_flops, f_bytes), (b_flops, b_bytes) = flash_cost(B_, H_, T_, D_)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
@@ -643,17 +659,18 @@ def check_flash(tag, path, B_, H_, T_, D_) -> None:
         o2, lse2 = fa.flash_attn_fwd(q, k, v, scale)
         return fa.flash_attn_bwd(q, k, v, o2, do, lse2, scale)
 
-    shape = dict(shape=[B_, H_, T_, D_], dtype="bfloat16", causal=True)
+    shape = dict(shape=[B_, H_, T_, D_], dtype="bfloat16", causal=True, plain_batch=pb)
     record(tag, "flash_attn_fwd", path, [err_o], lambda: fa.flash_attn_fwd(q, k, v, scale),
-           lambda: fa.flash_attn_fwd_plain(q, k, v, scale), bound(f_flops, f_bytes, PEAK_BF16),
-           lib_fwd, **shape, lse_max_abs_err=lse_err, library_kernels=device_kernels(lib_fwd))
+           lambda: fa.flash_attn_fwd_plain(pq, pk, pv, scale),
+           bound(f_flops, f_bytes, PEAK_BF16), lib_fwd, **shape, lse_max_abs_err=lse_err,
+           library_kernels=device_kernels(lib_fwd))
     record(tag, "flash_attn_bwd", path, errs,
            lambda: fa.flash_attn_bwd(q, k, v, o, do, lse, scale),
-           lambda: fa.flash_attn_bwd_plain(q, k, v, o_ref, do, lse_ref, scale),
+           lambda: fa.flash_attn_bwd_plain(pq, pk, pv, o_ref, pdo, lse_ref, scale),
            bound(b_flops, b_bytes, PEAK_BF16), lib_fwd_bwd, **shape,
            library_covers="forward + backward", fwd_bwd_ms=cuda_ms(kernel_fwd_bwd),
            fwd_bwd_bound_ms=bound(f_flops + b_flops, f_bytes + b_bytes, PEAK_BF16)["bound_ms"])
-    del q, k, v, do, qg, kg, vg, o, o_ref, lse, lse_ref
+    del q, k, v, do, qg, kg, vg, o, o_ref, lse, lse_ref, pq, pk, pv, pdo
     torch.cuda.empty_cache()
 
 

@@ -3,7 +3,7 @@
 port by both of chip_smoke.py's timing methods, so that two checkouts (a
 commit and its parent) are compared with one yardstick on one GPU.
 
-    python3 kernel_ab.py --root DIR
+    python3 kernel_ab.py --root DIR [--only NAME]
 
 DIR is the root of a checkout: its omnitokenizer_tpu_torch is imported and
 builds its own kernels; the timing is this checkout's `chip_smoke.cuda_ms`,
@@ -22,8 +22,10 @@ change, parent). Rows, at chip_smoke.py phase 2's shapes:
     calls it; where that passes squared code norms made ahead, also with
     the norms left to the wrapper;
   where the checkout has it, the LM's causal flash attention at the flagship
-    LM's training shape (8, 16, 1025, 96), on (B, H, T, D) views of (B, T, H,
-    D) memory: the forward, and the backward from the forward's o and lse.
+    LM's training shape (8, 16, 1025, 96) and at the long-sequence recipes'
+    (4, 16, 5121, 96), on (B, H, T, D) views of (B, T, H, D) memory: the
+    forward, and the backward from the forward's o and lse (held against
+    the plain twins; at T = 5121 on batch 0).
 Each row is timed `--repeats` times a method and held against its plain
 version (vq_argmin: indices equal but at near-ties). Prints one JSON line
 {"root": ..., "rows": [...]}.
@@ -45,6 +47,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="root of the checkout to time")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--only", default="", help="time only the rows whose name contains this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -113,27 +116,37 @@ def main() -> int:
     except ImportError:  # a checkout from before the LM's training slice
         fa = None
     if fa is not None:
-        fq, fk, fv, fdo = (randn(8, 1025, 16, 96).transpose(1, 2) for _ in range(4))
         sc = 96 ** -0.5
-        fo, flse = fa.flash_attn_fwd(fq, fk, fv, sc)
-        fo_ref, flse_ref = fa.flash_attn_fwd_plain(fq, fk, fv, sc)
-        cases += [
-            ("flash_attn_fwd", lambda: fa.flash_attn_fwd(fq, fk, fv, sc)[0],
-             lambda: fo_ref),
-            ("flash_attn_bwd", lambda: fa.flash_attn_bwd(fq, fk, fv, fo, fdo, flse, sc),
-             lambda: fa.flash_attn_bwd_plain(fq, fk, fv, fo_ref, fdo, flse_ref, sc))]
+
+        def flash_cases(B_, T_, pb):
+            """The forward and the backward at (B_, 16, T_, 96); the plain
+            twins (held, not timed) on the first pb batches: at T = 5121 on
+            batch 0 alone, whose f32 scores are 1.7 GB."""
+            fq, fk, fv, fdo = (randn(B_, T_, 16, 96).transpose(1, 2) for _ in range(4))
+            fo, flse = fa.flash_attn_fwd(fq, fk, fv, sc)
+            fo_ref, flse_ref = fa.flash_attn_fwd_plain(fq[:pb], fk[:pb], fv[:pb], sc)
+            dref = fa.flash_attn_bwd_plain(fq[:pb], fk[:pb], fv[:pb], fo_ref, fdo[:pb], flse_ref,
+                                           sc)
+            at = "" if T_ == 1025 else f" ({B_}, 16, {T_}, 96)"
+            return [(f"flash_attn_fwd{at}", lambda: fa.flash_attn_fwd(fq, fk, fv, sc)[0],
+                     lambda: fo_ref),
+                    (f"flash_attn_bwd{at}",
+                     lambda: fa.flash_attn_bwd(fq, fk, fv, fo, fdo, flse, sc), lambda: dref)]
+
+        cases += flash_cases(8, 1025, 8) + flash_cases(4, 5121, 1)
     rows = []
-    for name, fn, plain in cases:
+    for name, fn, plain in (c for c in cases if args.only in c[0]):
         if name.startswith("vq_argmin"):  # the share of indices that differ
             err = float((fn() != plain()).float().mean())
             if not err <= 1e-3:
                 raise AssertionError(f"{name}: {err:.3e} of the indices differ")
-        elif name == "flash_attn_bwd":  # dq, dk, dv: the worst
-            err = max(chip_smoke.rel_err(a, b) for a, b in zip(fn(), plain()))
+        elif name.startswith("flash_attn_bwd"):  # dq, dk, dv: the worst, on the plain batches
+            err = max(chip_smoke.rel_err(a[:b.shape[0]], b) for a, b in zip(fn(), plain()))
             if not err <= chip_smoke.KERNEL_REL_TOL:
                 raise AssertionError(f"{name}: relative error {err:.3e}")
         else:
-            err = chip_smoke.rel_err(fn(), plain())
+            got, want = fn(), plain()  # the flash rows' plain twins: their batches
+            err = chip_smoke.rel_err(got[:want.shape[0]], want)
             if not err <= chip_smoke.KERNEL_REL_TOL:
                 raise AssertionError(f"{name}: relative error {err:.3e}")
         row = {"name": name, "rel_err": err}

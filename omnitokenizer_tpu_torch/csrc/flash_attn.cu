@@ -1,6 +1,6 @@
 // Causal flash attention over (B, H, T, D), forward and backward:
 //   o = softmax(q k^T * scale, key j <= query i) v,  lse = log sum_j exp(s_ij)
-// bf16 in and out; both products accumulate in f32 and the online softmax
+// bf16 in and out; every product accumulates in f32 and the online softmax
 // runs in f32; lse (B, H, T) f32 is saved for the backward, which computes
 //   di = sum_d o * do,  p = exp(s - lse),  dv = p^T do,  dp = do v^T,
 //   ds = p * (dp - di),  dq = ds k * scale,  dk = ds^T q * scale.
@@ -13,508 +13,915 @@
 //
 // Bound: tensor-core operations. Counted causal, a forward is
 // 4 * B * H * T(T+1)/2 * D flops (26 GFLOP a layer at the flagship LM's
-// (8, 16, 1025, 96): 0.026 ms at 989 TFLOP/s bf16) and the backward 2.5x that
-// (the score product recomputed, then dv, dp, dq, dk).
+// (8, 16, 1025, 96): 0.026 ms at 989 TFLOP/s bf16, under its 0.030 ms of
+// bytes) and the backward 2.5x that (the scores again, then dv, dp, dq, dk);
+// at the long-sequence recipes' (4, 16, 5121, 96) 0.32 + 0.81 TFLOP a layer,
+// 0.33 + 0.81 ms, far above their bytes.
 //
-// Design, FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, f32 accumulate),
-// 4 warps a block, 16 rows a warp, tiles staged in shared memory by cp.async
-// (rows padded by 16 bytes, so ldmatrix reads them without bank conflicts),
-// the next tile's copies in flight while the current one is computed:
-//   forward: a block owns 64 queries of one (b, h); Q's fragments stay in
-//     registers; it walks the key tiles of 64 from 0 up to the diagonal, so
-//     tiles wholly above it are never read; S = Q K^T, the online softmax in
-//     the accumulator fragment (row max and sum over the thread quad, exp2
-//     with scale * log2(e) folded in), P rounded to bf16 is P V's A fragment
-//     as it sits in registers; O is rescaled in registers and divided by the
-//     row sum at the end. The blocks with the longest rows start first.
-//   di: one warp a row.
-//   dkv: a block owns 64 keys (16 a warp) and walks the query tiles from the
-//     diagonal to T, as JAX's dkv kernel does: S^T = K Q^T, P^T from lse,
-//     dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - di), dK += dS^T Q.
-//   dq: a block owns 64 queries and walks the key tiles up to the diagonal:
-//     S, P, dP = dO V^T, dS, dQ += dS K.
-// Each output row has one owner, so there are no atomics and the result is
-// deterministic. Rows past T are zero-filled by cp.async and never stored; the
-// diagonal tile masks key j > query i (which covers the keys past T of every
-// stored row), and the dkv kernel also drops queries past T. D is 16, 32, 64,
-// 96 or 128 (the wrapper zero-pads other widths up to 128); the tensors are
-// read and written through (b, h, t) strides with unit last stride, so the
-// LM's (B, T, H, D) projections go in as they are.
-#include "common.cuh"
+// Design, after FlashAttention-3: every product is a wgmma (64 rows a
+// warpgroup, B from shared memory, A from shared memory or, for P and dS,
+// from registers: the f32 accumulator layout of m64nNk16 is the bf16 A
+// fragment layout, so P is rounded in place); tiles come by TMA through a
+// ring of 3 (forward) or 4 (backward) stages guarded by mbarriers (full: the bytes landed; empty: every
+// consumer warp is done with the stage). A block is two consumer
+// warpgroups and a producer warpgroup of which one thread issues every copy;
+// it is a warpgroup and not a warp because setmaxnreg works on whole
+// warpgroups: the producer drops to 24 registers, the consumers rise to 240.
+// Each kernel is persistent: one block an SM walks work items of 128 rows
+// of one (b, h), the longest walks first, and the ring runs on from one
+// item into the next, so the next item's tiles load while this one's
+// epilogue stores. q, k, v, o, do are read through a 4-D map over
+// (d, t, h, b) of their strides (sm90_gemm.cuh make_map_bhtd), so the LM's
+// (B, T, H, D) projections go in as they are, and TMA's zeros fill the
+// rows past T of each (b, h). Outputs are stored from registers through the
+// same strides.
+//   forward: an item is 128 queries, 64 a consumer warpgroup. Q comes once
+//     (refilled when both warpgroups' last S has landed); K and V tiles of
+//     128 keys, each with its own full barrier, from the diagonal tile down
+//     to key 0, so tiles above the diagonal are never loaded and only the
+//     first tile is masked (the two warpgroups meet the diagonal at
+//     different columns; each masks its own rows, and the first computes
+//     only the 64 keys it can see there). S = Q K^T, the online softmax in
+//     registers (exp2, scale * log2(e) folded in), O += P V with V read
+//     MN-major. The exps overlap the products two ways, as in FA3: inside a
+//     warpgroup the next tile's S and this tile's P V are issued together
+//     and the new S's softmax runs while P V is in flight (O is rescaled
+//     after it lands); across the two, named barriers make them take turns
+//     to issue (ping-pong), so one's softmax runs under the other's
+//     products. At D = 96 a 128 x 128 tile costs the SFUs (16 exp2 a clock
+//     an SM) about 60% of its tensor-core time, so both overlaps count.
+//   di: a thread a row, o . do in f32, written with lse * log2(e) into a
+//     (2, B, H, Tp) f32 scratch padded with zeros to Tp = T rounded up to
+//     64, so the dkv kernel bulk-copies 64 of each a tile.
+//   dkv: an item is 128 keys (64 a warpgroup); K and V come once, and it
+//     walks query tiles of 64 from the diagonal to T, Q, dO, lse and di
+//     through the ring: S^T = K Q^T (A = K, B = Q), P^T from lse, dV +=
+//     P^T dO (A = P^T in registers), dP^T = V dO^T, dS^T = P^T (dP^T - di),
+//     dK += dS^T Q (A in registers). Key block 0 walks longest and goes first.
+//   dq: an item is 128 queries (64 a warpgroup); Q and dO come once, and it
+//     walks key tiles of 64 up to the diagonal, K and V through the ring:
+//     S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
+// Each output row has one writer, so there are no atomics and two runs on
+// the same inputs are bitwise equal. Rows past T are computed and never
+// stored; keys past T are TMA's zeros behind the diagonal's j > i mask, which
+// every stored row sees; queries past T are masked in the dkv kernel, where
+// lse and di read the scratch's zeros. A warpgroup whose 64 rows all lie past
+// T computes nothing (it keeps its turns and releases the stages), and one
+// whose rows a tile cannot reach (wholly above the diagonal) skips it but
+// still releases it. D is 16, 32, 64, 96 or 128 (the wrapper zero-pads other
+// widths up to the next): a tile is stored as TMA wrote it, in column boxes
+// of 16, 32 or 64 (32-, 64- or 128-byte swizzle; 96 is three boxes of 32 and
+// 128 two of 64), the K-major descriptors stepping box by box, the MN-major
+// ones (V, dO, Q, K as B of the register-A products) spanning the boxes with
+// LBO = the box stride.
+//
+// Registers and spills (nvcc 12.9 -Xptxas -v, sm_90a, at D = 16, 32, 64,
+// 96 and 128 alike): the forward, dkv and dq kernels report 168 registers a
+// thread at launch (384 threads, one block an SM; the consumers' code runs
+// under setmaxnreg's 240) and 0 bytes of spill; the di pass 30, no spill.
+// No instance has its wgmmas serialized by ptxas (a branch around a wgmma,
+// even one uniform over the warpgroup, makes ptxas serialize them all: keep
+// every product outside a conditional).
+#include "sm90_gemm.cuh"
 
 namespace {
 
 using otk::bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBM = 64;        // queries a block (forward, dq); keys a block (dkv)
-constexpr int kBN = 64;        // keys a tile (forward, dq)
-constexpr int kPad = 8;        // elements of padding a shared-memory row
+constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kFwdStages = 3;  // the forward's ring (the backward's: kBwdStages)
+
+// the columns of a tile's box at head width D (see Box)
+constexpr int box_cols(int D) { return D % 64 == 0 ? 64 : D < 64 ? D : 32; }
+
+// A tile of R rows x D columns lies in shared memory as kCount column boxes
+// of kCols, each R rows of kRowBytes with the swizzle of that width.
+template <int D>
+struct Box {
+  static constexpr int kCols = box_cols(D);
+  static constexpr int kCount = D / kCols;
+  static constexpr uint32_t kRowBytes = 2 * kCols;
+  static constexpr int kSteps = kCols / 16;  // k steps of 16 inside a box
+  static_assert(D % kCols == 0 && kCols % 16 == 0, "head width");
+};
+template <int D, int R>
+struct Tile {
+  static constexpr uint32_t kBoxBytes = R * Box<D>::kRowBytes;
+  static constexpr uint32_t kBytes = Box<D>::kCount * kBoxBytes;
+};
+
+// wgmma descriptor: 8-row groups 8 box rows apart (SBO), the swizzle of the
+// box width, LBO as given (K-major: unused; MN-major: box to box)
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint32_t rb = Box<D>::kRowBytes;
+  constexpr uint64_t kLayout = rb == 128 ? 1 : rb == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)((8 * rb) >> 4) << 32) | (kLayout << 62);
+}
+// K-major operand (the k dimension is D): 64 (A) or all R (B) rows from
+// row0 of an R-row tile, k step kk
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  using Bx = Box<D>;
+  return desc<D>(tile + (kk / Bx::kSteps) * Tile<D, R>::kBoxBytes + row0 * Bx::kRowBytes +
+                     32 * (kk % Bx::kSteps),
+                 16);
+}
+// MN-major B operand (N = the D columns, the k dimension the tile's rows):
+// k step j is rows 16 j .. 16 j + 15 of an R-row tile
+template <int D, int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j) {
+  using Bx = Box<D>;
+  return desc<D>(tile + 16 * j * Bx::kRowBytes,
+                 Bx::kCount > 1 ? Tile<D, R>::kBoxBytes : 8 * Bx::kRowBytes);
+}
+
+// TMA: rows [row0, row0 + R) of (b, h) into an R-row tile, 64 rows a copy
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int h, int b) {
+  using Bx = Box<D>;
+#pragma unroll
+  for (int c = 0; c < Bx::kCount; ++c)
+#pragma unroll
+    for (int r = 0; r < R; r += 64)
+      otk::tma_load(dst + c * Tile<D, R>::kBoxBytes + r * Bx::kRowBytes, map, bar, c * Bx::kCols,
+                    row0 + r, h, b);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {  // ex2(-inf) = +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// an m64nNk16 f32 fragment (element 4i + 2e + c is row 16 w + g + 8 e,
+// column 8 i + 2 t + c) rounded to bf16 as the A fragments of N / 16 k
+// steps: keys 16 j + [0, 8) are tile 2 j, 16 j + [8, 16) tile 2 j + 1
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (*a)[4], const float* f) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float* x = f + 4 * (2 * j + half);
+      a[j][2 * half] = pack_bf16(x[0], x[1]);
+      a[j][2 * half + 1] = pack_bf16(x[2], x[3]);
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// d (64 x N f32) += A (64 x 16 bf16 in registers) B, B (16 x N) MN-major in
+// shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// a warpgroup's 64 x D f32 fragment times mul as bf16 rows row0 + 16 w + g
+// (+ 8) of a strided (T, D) slice; rows past T are dropped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0, int T,
+                                           const float* acc, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row_a = row0 + ((threadIdx.x >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row_a + 8 * e;
+    if (row >= T) continue;
+    bf16* p = dst + (long long)row * ld + 2 * t;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * e] * mul, acc[4 * i + 2 * e + 1] * mul);
+  }
+}
 
 struct Strides {
   long long b, h, t;
 };
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(otk::smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(otk::smem_u32(p))
-               : "memory");
+// Work items of a persistent kernel: (block of rows, h, b), the longest
+// walks first; block x takes items x, x + gridDim.x, ... in that order, so
+// one item's loads are in flight while the previous item's epilogue runs.
+struct Item {
+  int blk, h, b;
+};
+__device__ __forceinline__ Item item_at(int idx, int H, int BH, int n_blk, bool last_first) {
+  const int r = idx % BH, k = idx / BH;
+  return {last_first ? n_blk - 1 - k : k, r % H, r / H};
 }
 
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// named barriers 1 and 2: the two consumer warpgroups take turns to issue
+// their products (FA3's ping-pong), so one's softmax runs under the other's
+// products; every round of one warpgroup waits for the other's last
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) otk::mbar_arrive(bar);
 }
 
-// Fragment addressing (lane = thread % 32). An m16n8k16 A fragment is four
-// 8 x 8 matrices: rows 0-7 / 8-15 by columns 0-7 / 8-15, in the order
-// (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
-// A 16 x 16 A fragment of a row-major tile (rows = M, columns = K).
-__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int ld, int row0, int col0,
-                                              int lane) {
-  return tile + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
-}
-// Two n8 B fragments (b0, b1 of n-tile 0, then of n-tile 1) of B = X^T for a
-// row-major tile X whose rows are N and columns K (K in the score product,
-// V in dP = dO V^T): plain ldmatrix.
-__device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int ld, int n0, int k0,
-                                               int lane) {
-  const int m = lane >> 3;
-  return tile + (n0 + (m >> 1) * 8 + (lane & 7)) * ld + k0 + (m & 1) * 8;
-}
-// Two n8 B fragments of B = X for a row-major tile X whose rows are K and
-// columns N (V in P V, dO in dV, Q in dK, K in dQ): ldmatrix.trans.
-__device__ __forceinline__ const bf16* b_addr(const bf16* tile, int ld, int k0, int n0,
-                                              int lane) {
-  const int m = lane >> 3;
-  return tile + (k0 + (m & 1) * 8 + (lane & 7)) * ld + n0 + (m >> 1) * 8;
-}
+// -------------------------------------------------------------- forward
+constexpr int kFwdBQ = 128;  // queries an item: two warpgroups of 64
+constexpr int kFwdBN = 128;  // keys a tile
 
-// rows [row0, row0 + ROWS) of a (T, D) slice with row stride `ld` into a
-// shared tile of row stride D + kPad; rows past T are zero-filled
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int row0,
-                                          int T) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c - r * kChunks;
-    const bool ok = row0 + r < T;
-    const bf16* g = ok ? src + (long long)(row0 + r) * ld + cc * 8 : src;
-    otk::cp_async16(dst + r * (D + kPad) + cc * 8, g, ok ? 16 : 0);
-  }
-}
-
-// S (16 x NT*8 per warp) = A rows (16 x D) times B^T, B a row-major tile of
-// NT*8 rows; A's fragments are in registers (`a_frag`, D / 16 of them)
-template <int D, int NT>
-__device__ __forceinline__ void score_tile(float (&s)[NT][4], uint32_t (*a_frag)[4],
-                                           const bf16* b_tile, int lane) {
-  constexpr int ld = D + kPad;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      uint32_t b[4];
-      ldsm_x4(b, bt_addr(b_tile, ld, n2 * 16, kd * 16, lane));
-      mma(s[2 * n2], a_frag[kd], b[0], b[1]);
-      mma(s[2 * n2 + 1], a_frag[kd], b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x D per warp) += P (16 x NT*8, in accumulator fragments, rounded
-// to bf16 here) times B, B a row-major tile of NT*8 rows and D columns
-template <int D, int NT>
-__device__ __forceinline__ void pv_tile(float (&acc)[D / 8][4], float (&p)[NT][4],
-                                        const bf16* b_tile, int lane) {
-  constexpr int ld = D + kPad;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_addr(b_tile, ld, kk * 16, dd * 16, lane));
-      mma(acc[2 * dd], a, b[0], b[1]);
-      mma(acc[2 * dd + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* tile,
-                                             int row0, int lane) {
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) ldsm_x4(f[kd], a_addr(tile, D + kPad, row0, kd * 16, lane));
-}
-
-// a warp's 16 x D f32 accumulator (times `mul`) as bf16 rows row0 + lane/4
-// (+8) of a strided (T, D) slice; rows past T are dropped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld, int row0, int T,
-                                           float (&acc)[D / 8][4], const float (&mul)[2],
-                                           int lane) {
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = row0 + (lane >> 2) + 8 * e;
-    if (row >= T) continue;
-    bf16* p = dst + (long long)row * ld + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * e] * mul[e], acc[n][2 * e + 1] * mul[e]);
-  }
-}
-
-struct FwdParams {
-  const bf16 *q, *k, *v;
+struct FwdArgs {
   bf16* o;
   float* lse;  // (B, H, T) contiguous
-  Strides sq, sk, sv, so;
-  int H, T;
-  float scale_log2;  // scale * log2(e)
+  Strides so;
+  int B, H, T, n_items;
+  float c;  // scale * log2(e)
 };
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdParams p) {
-  constexpr int ld = D + kPad, NT = kBN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBM * ld;      // two stages
-  bf16* sV = sK + 2 * kBN * ld;  // two stages
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* q = p.q + b * p.sq.b + h * p.sq.h;
-  const bf16* k = p.k + b * p.sk.b + h * p.sk.h;
-  const bf16* v = p.v + b * p.sv.b + h * p.sv.h;
-  const int q0 = qt * kBM, T = p.T;
-
-  load_tile<kBM, D>(sQ, q, p.sq.t, q0, T);
-  load_tile<kBN, D>(sK, k, p.sk.t, 0, T);
-  load_tile<kBN, D>(sV, v, p.sv.t, 0, T);
-  otk::cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
-  const int row_a = q0 + warp * 16 + (lane >> 2);  // this thread's rows: row_a, row_a + 8
-
-  const int n_tiles = qt + 1;  // kBN == kBM: key tiles 0 .. qt reach the diagonal
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_tile<kBN, D>(sK + (st ^ 1) * kBN * ld, k, p.sk.t, (kt + 1) * kBN, T);
-      load_tile<kBN, D>(sV + (st ^ 1) * kBN * ld, v, p.sv.t, (kt + 1) * kBN, T);
-      otk::cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    if (kt == 0) load_a_frags<D>(qf, sQ, warp * 16, lane);
-
-    float s[NT][4];
-    score_tile<D, NT>(s, qf, sK + st * kBN * ld, lane);
-    if (kt == qt) {  // the diagonal tile: key j > query i scores -inf
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int col = kt * kBN + n * 8 + 2 * (lane & 3) + (r & 1);
-          if (col > row_a + 8 * (r >> 1)) s[n][r] = -CUDART_INF_F;
-        }
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * e], s[n][2 * e + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[e], mx * p.scale_log2);  // finite: the diagonal key
-      const float alpha = exp2f(m_run[e] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        s[n][2 * e] = exp2f(s[n][2 * e] * p.scale_log2 - m_new);
-        s[n][2 * e + 1] = exp2f(s[n][2 * e + 1] * p.scale_log2 - m_new);
-        sum += s[n][2 * e] + s[n][2 * e + 1];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run[e] = l_run[e] * alpha + sum;
-      m_run[e] = m_new;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][2 * e] *= alpha;
-        acc[n][2 * e + 1] *= alpha;
-      }
-    }
-    pv_tile<D, NT>(acc, s, sV + st * kBN * ld, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  bf16* o = p.o + b * p.so.b + h * p.so.h;
-  store_rows<D>(o, p.so.t, q0 + warp * 16, T, acc, inv, lane);
-  if ((lane & 3) == 0) {
-    float* lse = p.lse + ((long long)b * p.H + h) * T;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int row = row_a + 8 * e;
-      if (row < T) lse[row] = (m_run[e] + log2f(l_run[e])) * (1.f / kLog2e);
-    }
-  }
-}
-
-struct BwdParams {
-  const bf16 *q, *k, *v, *o, *dout;
-  const float* lse;  // (B, H, T) contiguous
-  float* di;         // (B, H, T) contiguous
-  bf16 *dq, *dk, *dv;
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int H, T;
-  float scale, scale_log2;
-};
-
-// di = sum_d o * do in f32, one warp a row
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_di_kernel(BwdParams p, int rows) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int t = row % p.T, bh = row / p.T, h = bh % p.H, b = bh / p.H;
-  const bf16* o = p.o + b * p.so.b + h * p.so.h + t * p.so.t;
-  const bf16* d = p.dout + b * p.sdo.b + h * p.sdo.h + t * p.sdo.t;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc += __bfloat162float(o[c]) * __bfloat162float(d[c]);
-  acc = otk::warp_sum(acc);
-  if (lane == 0) p.di[row] = acc;
-}
-
-template <int D>
-struct DkvTile {
-  static constexpr int kBQ = D <= 96 ? 64 : 32;  // queries a tile: registers at D = 128
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
-  constexpr int ld = D + kPad, BQ = DkvTile<D>::kBQ, NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kBM * ld;
-  bf16* sQ = sV + kBM * ld;       // two stages
-  bf16* sDO = sQ + 2 * BQ * ld;   // two stages
-  float* sL = reinterpret_cast<float*>(sDO + 2 * BQ * ld);  // lse * log2(e), two stages
-  float* sD = sL + 2 * BQ;                                  // di, two stages
-  const int kt = gridDim.x - 1 - blockIdx.x;  // the longest walks first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = kt * kBM, T = p.T;
-  const bf16* q = p.q + b * p.sq.b + h * p.sq.h;
-  const bf16* dout = p.dout + b * p.sdo.b + h * p.sdo.h;
-  const float* lse = p.lse + ((long long)b * p.H + h) * T;
-  const float* di = p.di + ((long long)b * p.H + h) * T;
-
-  auto stage_q = [&](int qt, int st) {
-    load_tile<BQ, D>(sQ + st * BQ * ld, q, p.sq.t, qt * BQ, T);
-    load_tile<BQ, D>(sDO + st * BQ * ld, dout, p.sdo.t, qt * BQ, T);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int row = qt * BQ + i;
-      sL[st * BQ + i] = row < T ? lse[row] * kLog2e : 0.f;
-      sD[st * BQ + i] = row < T ? di[row] : 0.f;
-    }
-  };
-
-  load_tile<kBM, D>(sK, p.k + b * p.sk.b + h * p.sk.h, p.sk.t, k0, T);
-  load_tile<kBM, D>(sV, p.v + b * p.sv.b + h * p.sv.h, p.sv.t, k0, T);
-  const int qt0 = k0 / BQ, n_qt = (T + BQ - 1) / BQ;  // query tiles from the diagonal
-  stage_q(qt0, 0);
-  otk::cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dk[n][r] = dv[n][r] = 0.f;
-  const int key_a = k0 + warp * 16 + (lane >> 2);  // this thread's keys: key_a, key_a + 8
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int st = (qt - qt0) & 1;
-    if (qt + 1 < n_qt) {
-      stage_q(qt + 1, st ^ 1);
-      otk::cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    const bf16* tq = sQ + st * BQ * ld;
-    const bf16* tdo = sDO + st * BQ * ld;
-    const float* tl = sL + st * BQ;
-    const float* td = sD + st * BQ;
-
-    // P^T = exp(S^T - lse): rows keys, columns queries
-    float s[NT][4];
-    {
-      uint32_t kf[D / 16][4];
-      load_a_frags<D>(kf, sK, warp * 16, lane);
-      score_tile<D, NT>(s, kf, tq, lane);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = n * 8 + 2 * (lane & 3) + (r & 1), i = qt * BQ + c;
-        const int j = key_a + 8 * (r >> 1);
-        s[n][r] = (j <= i && i < T) ? exp2f(s[n][r] * p.scale_log2 - tl[c]) : 0.f;
-      }
-    pv_tile<D, NT>(dv, s, tdo, lane);  // dV += P^T dO
-
-    float dp[NT][4];  // dP^T = V dO^T
-    {
-      uint32_t vf[D / 16][4];
-      load_a_frags<D>(vf, sV, warp * 16, lane);
-      score_tile<D, NT>(dp, vf, tdo, lane);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = n * 8 + 2 * (lane & 3) + (r & 1);
-        dp[n][r] = s[n][r] * (dp[n][r] - td[c]);  // dS^T
-      }
-    pv_tile<D, NT>(dk, dp, tq, lane);  // dK += dS^T Q
-    __syncthreads();
-  }
-
-  const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
-  store_rows<D>(p.dk + b * p.sdk.b + h * p.sdk.h, p.sdk.t, k0 + warp * 16, T, dk, scale, lane);
-  store_rows<D>(p.dv + b * p.sdv.b + h * p.sdv.h, p.sdv.t, k0 + warp * 16, T, dv, one, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int ld = D + kPad, NT = kBN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + kBM * ld;
-  bf16* sK = sDO + kBM * ld;     // two stages
-  bf16* sV = sK + 2 * kBN * ld;  // two stages
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qt * kBM, T = p.T;
-  const bf16* k = p.k + b * p.sk.b + h * p.sk.h;
-  const bf16* v = p.v + b * p.sv.b + h * p.sv.h;
-
-  load_tile<kBM, D>(sQ, p.q + b * p.sq.b + h * p.sq.h, p.sq.t, q0, T);
-  load_tile<kBM, D>(sDO, p.dout + b * p.sdo.b + h * p.sdo.h, p.sdo.t, q0, T);
-  load_tile<kBN, D>(sK, k, p.sk.t, 0, T);
-  load_tile<kBN, D>(sV, v, p.sv.t, 0, T);
-  otk::cp_async_commit();
-
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  float lse2[2], dii[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = row_a + 8 * e;
-    const long long at = ((long long)b * p.H + h) * T + row;
-    lse2[e] = row < T ? p.lse[at] * kLog2e : 0.f;
-    dii[e] = row < T ? p.di[at] : 0.f;
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const int n_tiles = qt + 1;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_tile<kBN, D>(sK + (st ^ 1) * kBN * ld, k, p.sk.t, (kt + 1) * kBN, T);
-      load_tile<kBN, D>(sV + (st ^ 1) * kBN * ld, v, p.sv.t, (kt + 1) * kBN, T);
-      otk::cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    const bf16* tk = sK + st * kBN * ld;
-    const bf16* tv = sV + st * kBN * ld;
-
-    float s[NT][4];
-    {
-      uint32_t qf[D / 16][4];
-      load_a_frags<D>(qf, sQ, warp * 16, lane);
-      score_tile<D, NT>(s, qf, tk, lane);
-    }
-    float dp[NT][4];  // dP = dO V^T
-    {
-      uint32_t df[D / 16][4];
-      load_a_frags<D>(df, sDO, warp * 16, lane);
-      score_tile<D, NT>(dp, df, tv, lane);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int e = r >> 1, j = kt * kBN + n * 8 + 2 * (lane & 3) + (r & 1);
-        const float pr = j <= row_a + 8 * e ? exp2f(s[n][r] * p.scale_log2 - lse2[e]) : 0.f;
-        dp[n][r] = pr * (dp[n][r] - dii[e]);  // dS
-      }
-    pv_tile<D, NT>(dq, dp, tk, lane);  // dQ += dS K
-    __syncthreads();
-  }
-  const float scale[2] = {p.scale, p.scale};
-  store_rows<D>(p.dq + b * p.sdq.b + h * p.sdq.h, p.sdq.t, q0 + warp * 16, T, dq, scale, lane);
-}
 
 template <int D>
 constexpr size_t fwd_smem() {
-  return (size_t)(kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  constexpr int BQ = DkvTile<D>::kBQ;
-  return (size_t)(2 * kBM + 4 * BQ) * (D + kPad) * sizeof(bf16) + 4 * BQ * sizeof(float);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  return (size_t)(2 * kBM + 4 * kBN) * (D + kPad) * sizeof(bf16);
+  return 1024 + Tile<D, kFwdBQ>::kBytes + (size_t)kFwdStages * 2 * Tile<D, kFwdBN>::kBytes +
+         (2 + 3 * kFwdStages) * sizeof(uint64_t);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const FwdArgs a) {
+  constexpr uint32_t kQBytes = Tile<D, kFwdBQ>::kBytes, kKV = Tile<D, kFwdBN>::kBytes;
+  constexpr int kSSteps = D / 16, kPSteps = kFwdBN / 16;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (otk::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = otk::smem_u32(smem), kv_s = q_s + kQBytes;
+  const uint32_t q_full = kv_s + kFwdStages * 2 * kKV, q_empty = q_full + 8;
+  const uint32_t fullk0 = q_empty + 8, fullv0 = fullk0 + 8 * kFwdStages, empty0 = fullv0 + 8 * kFwdStages;
+  const int T = a.T, BH = a.B * a.H, n_blk = (T + kFwdBQ - 1) / kFwdBQ;
+
+  if (threadIdx.x == 0) {
+    otk::mbar_init(q_full, 1);
+    otk::mbar_init(q_empty, kConsumers / 32);  // one arrival a consumer warp
+    for (int s = 0; s < kFwdStages; ++s) {
+      otk::mbar_init(fullk0 + 8 * s, 1);
+      otk::mbar_init(fullv0 + 8 * s, 1);
+      otk::mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    otk::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      int n = 0, base = 0;  // items and key tiles so far
+      for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+        const Item w = item_at(idx, a.H, BH, n_blk, true);
+        if (n > 0) otk::mbar_wait(q_empty, (n - 1) & 1);
+        otk::mbar_expect_tx(q_full, kQBytes);
+        load_tile<D, kFwdBQ>(q_s, &tq, q_full, w.blk * kFwdBQ, w.h, w.b);
+        for (int it = 0; it <= w.blk; ++it, ++base) {  // the diagonal tile, then down to 0
+          const int s = base % kFwdStages, row0 = (w.blk - it) * kFwdBN;
+          if (base >= kFwdStages) otk::mbar_wait(empty0 + 8 * s, ((base / kFwdStages) - 1) & 1);
+          const uint32_t k_dst = kv_s + s * 2 * kKV;
+          otk::mbar_expect_tx(fullk0 + 8 * s, kKV);
+          load_tile<D, kFwdBN>(k_dst, &tk, fullk0 + 8 * s, row0, w.h, w.b);
+          otk::mbar_expect_tx(fullv0 + 8 * s, kKV);
+          load_tile<D, kFwdBN>(k_dst + kKV, &tv, fullv0 + 8 * s, row0, w.h, w.b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r_loc = 64 * wg + ((threadIdx.x >> 5) & 3) * 16 + g;  // rows r_loc, r_loc + 8
+  const float c = a.c;
+  if (wg == 1) turn_pass(wg);  // the first warpgroup issues first
+
+  // the rows' max of a scaled score tile, the scores turned into exp2(s - m)
+  // in place, and the rows' partial sums (this thread's columns)
+  auto softmax = [&](float* sc, float (&m_new)[2], float (&sum)[2]) {
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < kFwdBN / 2; ++i) mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 1));
+      mt[e] = fmaxf(mt[e], __shfl_xor_sync(0xffffffffu, mt[e], 2));
+      m_new[e] = fmaxf(m_new[e], mt[e]);
+      sum[e] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kFwdBN / 2; ++i) {
+      const int e = (i >> 1) & 1;
+      sc[i] = exp2_approx(sc[i] - m_new[e]);
+      sum[e] += sc[i];
+    }
+  };
+
+  int n = 0, base = 0;
+  for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+    const Item w = item_at(idx, a.H, BH, n_blk, true);
+    const int q0 = w.blk * kFwdBQ, n_tiles = w.blk + 1;
+    otk::mbar_wait(q_full, n & 1);
+    if (q0 + 64 * wg >= T) {  // its 64 rows all lie past T: its turns and releases only
+      for (int it = 0; it <= n_tiles; ++it) {
+        turn_wait(wg);
+        turn_pass(wg);
+        if (it < n_tiles) {
+          const int s = (base + it) % kFwdStages, ph = ((base + it) / kFwdStages) & 1;
+          otk::mbar_wait(fullk0 + 8 * s, ph);
+          otk::mbar_wait(fullv0 + 8 * s, ph);
+          warp_arrive(empty0 + 8 * s);
+        }
+      }
+      warp_arrive(q_empty);
+      base += n_tiles;
+      continue;
+    }
+
+    float o[D / 2], m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2];
+    uint32_t pa[kPSteps][4];
+    zero<D / 2>(o);
+    {  // the diagonal tile: keys q0 + col, this thread's rows q0 + r_loc (+ 8)
+      const int s = base % kFwdStages;
+      float sc[kFwdBN / 2];
+      zero<kFwdBN / 2>(sc);
+      otk::mbar_wait(fullk0 + 8 * s, (base / kFwdStages) & 1);
+      otk::fence_regs<kFwdBN / 2>(sc);
+      otk::wgmma_fence();
+      turn_wait(wg);
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)
+        otk::wgmma<kFwdBN>(sc, kmajor<D, kFwdBQ>(q_s, 64 * wg, kk),
+                           kmajor<D, kFwdBN>(kv_s + s * 2 * kKV, 0, kk));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      otk::fence_regs<kFwdBN / 2>(sc);
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * t + (i & 1), row = r_loc + 8 * ((i >> 1) & 1);
+        sc[i] = col > row ? -CUDART_INF_F : sc[i] * c;  // key 0 of the tile is every row's
+      }
+      softmax(sc, m_run, l_run);
+      to_a_frags<kFwdBN>(pa, sc);
+    }
+
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = (base + it) % kFwdStages, sp = (base + it - 1) % kFwdStages;
+      float sc[kFwdBN / 2];
+      zero<kFwdBN / 2>(sc);
+      otk::mbar_wait(fullk0 + 8 * s, ((base + it) / kFwdStages) & 1);
+      otk::mbar_wait(fullv0 + 8 * sp, ((base + it - 1) / kFwdStages) & 1);
+      otk::fence_regs<kFwdBN / 2>(sc);
+      otk::fence_regs<D / 2>(o);
+      otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+      otk::wgmma_fence();
+      turn_wait(wg);
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)
+        otk::wgmma<kFwdBN>(sc, kmajor<D, kFwdBQ>(q_s, 64 * wg, kk),
+                           kmajor<D, kFwdBN>(kv_s + s * 2 * kKV, 0, kk));
+      wgmma_commit();
+      const uint32_t vt = kv_s + sp * 2 * kKV + kKV;
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j) wgmma_rs<D>(o, pa[j], mnmajor<D, kFwdBN>(vt, j));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();  // S has landed; the previous tile's P V is in flight
+      otk::fence_regs<kFwdBN / 2>(sc);
+#pragma unroll
+      for (int i = 0; i < kFwdBN / 2; ++i) sc[i] *= c;  // below the diagonal: no mask
+      float m_new[2] = {m_run[0], m_run[1]}, sum[2];
+      softmax(sc, m_new, sum);
+      wgmma_wait<0>();
+      otk::fence_regs<D / 2>(o);
+      otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+      warp_arrive(empty0 + 8 * sp);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float alpha = exp2_approx(m_run[e] - m_new[e]);
+        l_run[e] = l_run[e] * alpha + sum[e];
+        m_run[e] = m_new[e];
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[4 * i + 2 * e] *= alpha;
+          o[4 * i + 2 * e + 1] *= alpha;
+        }
+      }
+      to_a_frags<kFwdBN>(pa, sc);
+    }
+    warp_arrive(q_empty);  // every S of this item has landed: Q may be refilled
+
+    {  // the last tile's P V
+      const int sl = (base + n_tiles - 1) % kFwdStages;
+      otk::mbar_wait(fullv0 + 8 * sl, ((base + n_tiles - 1) / kFwdStages) & 1);
+      otk::fence_regs<D / 2>(o);
+      otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+      otk::wgmma_fence();
+      turn_wait(wg);
+      const uint32_t vt = kv_s + sl * 2 * kKV + kKV;
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j) wgmma_rs<D>(o, pa[j], mnmajor<D, kFwdBN>(vt, j));
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+      otk::fence_regs<D / 2>(o);
+      warp_arrive(empty0 + 8 * sl);
+    }
+
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 1);
+      l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], 2);
+    }
+    bf16* out = a.o + w.b * a.so.b + w.h * a.so.h;
+    float* lse = a.lse + ((long long)w.b * a.H + w.h) * T;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + r_loc + 8 * e;
+      if (row >= T) continue;
+      const float inv = 1.f / l_run[e];
+      bf16* p = out + (long long)row * a.so.t + 2 * t;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(p + 8 * i) =
+            __floats2bfloat162_rn(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+      if (t == 0) lse[row] = (m_run[e] + log2f(l_run[e])) * (1.f / kLog2e);
+    }
+    base += n_tiles;
+  }
+}
+
+// -------------------------------------------------------------- backward
+constexpr int kBwdBlock = 128;  // keys (dkv) or queries (dq) an item
+constexpr int kBwdTile = 64;    // queries (dkv) or keys (dq) a tile
+// a stage stays held one tile longer while its dK or dQ product finishes, so
+// four stages keep two tiles ahead (1.5-2.3% faster than three on H100)
+constexpr int kBwdStages = 4;
+
+struct BwdArgs {
+  const bf16 *o, *dout;
+  const float* lse;  // (B, H, T) contiguous
+  float* aux;        // lse * log2(e), then di: (2, B, H, Tp), zeros past T
+  bf16 *dq, *dk, *dv;
+  Strides so, sdo, sdq, sdk, sdv;
+  int B, H, T, Tp, n_items;
+  float scale, c;  // c = scale * log2(e)
+};
+
+// di = sum_d o * do in f32 and lse * log2(e) into the padded scratch: a
+// half-warp a row, a 16-byte chunk a lane (D / 8 <= 16 of them), so a
+// row's bytes are read together
+constexpr int kPrepRows = 16;  // rows a 256-thread block
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_prep_kernel(const BwdArgs a) {
+  const long long rows = (long long)a.B * a.H * a.Tp;
+  const long long row = (long long)blockIdx.x * kPrepRows + (threadIdx.x >> 4);
+  const int c = threadIdx.x & 15;
+  if (row >= rows) return;  // whole half-warps
+  const int tt = (int)(row % a.Tp);
+  const long long bh = row / a.Tp;
+  const int h = (int)(bh % a.H), b = (int)(bh / a.H);
+  float di = 0.f;
+  if (tt < a.T && c < D / 8) {
+    float x[8], y[8];
+    otk::load8(a.o + b * a.so.b + h * a.so.h + tt * a.so.t + 8 * c, x);
+    otk::load8(a.dout + b * a.sdo.b + h * a.sdo.h + tt * a.sdo.t + 8 * c, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) di += x[e] * y[e];
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) di += __shfl_xor_sync(0xffffffffu, di, off);
+  if (c == 0) {
+    a.aux[row] = tt < a.T ? a.lse[bh * a.T + tt] * kLog2e : 0.f;
+    a.aux[rows + row] = di;
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return 1024 + 2 * (size_t)Tile<D, kBwdBlock>::kBytes +
+         (size_t)kBwdStages * 2 * (Tile<D, kBwdTile>::kBytes + kBwdTile * sizeof(float)) +
+         (2 + 2 * kBwdStages) * sizeof(uint64_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  constexpr uint32_t kKV = Tile<D, kBwdBlock>::kBytes, kQ = Tile<D, kBwdTile>::kBytes;
+  constexpr uint32_t kVec = kBwdTile * sizeof(float);
+  constexpr uint32_t kStage = 2 * kQ;  // Q and dO; lse2 and di in a ring of their own
+  constexpr int kSSteps = D / 16, kPSteps = kBwdTile / 16, kN = kBwdTile / 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (otk::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t k_s = otk::smem_u32(smem), v_s = k_s + kKV, ring = v_s + kKV;
+  const uint32_t vecs = ring + kBwdStages * kStage;  // kBwdStages x (lse2, di)
+  const uint32_t kv_full = vecs + kBwdStages * 2 * kVec, kv_empty = kv_full + 8;
+  const uint32_t full0 = kv_empty + 8, empty0 = full0 + 8 * kBwdStages;
+  const int T = a.T, BH = a.B * a.H, n_blk = (T + kBwdBlock - 1) / kBwdBlock;
+  const int n_qt = (T + kBwdTile - 1) / kBwdTile;
+
+  if (threadIdx.x == 0) {
+    otk::mbar_init(kv_full, 1);
+    otk::mbar_init(kv_empty, kConsumers / 32);
+    for (int s = 0; s < kBwdStages; ++s) {
+      otk::mbar_init(full0 + 8 * s, 1);
+      otk::mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    otk::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      int n = 0, base = 0;
+      for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+        const Item w = item_at(idx, a.H, BH, n_blk, false);  // key block 0 walks longest
+        const long long bh = (long long)w.b * a.H + w.h;
+        const float* lse2 = a.aux + bh * a.Tp;
+        const float* dis = a.aux + ((long long)BH + bh) * a.Tp;
+        const int qt0 = w.blk * kBwdBlock / kBwdTile;
+        if (n > 0) otk::mbar_wait(kv_empty, (n - 1) & 1);
+        otk::mbar_expect_tx(kv_full, 2 * kKV);
+        load_tile<D, kBwdBlock>(k_s, &tk, kv_full, w.blk * kBwdBlock, w.h, w.b);
+        load_tile<D, kBwdBlock>(v_s, &tv, kv_full, w.blk * kBwdBlock, w.h, w.b);
+        for (int qt = qt0; qt < n_qt; ++qt, ++base) {
+          const int s = base % kBwdStages, row0 = qt * kBwdTile;
+          if (base >= kBwdStages) otk::mbar_wait(empty0 + 8 * s, ((base / kBwdStages) - 1) & 1);
+          const uint32_t dst = ring + s * kStage, vec = vecs + s * 2 * kVec, full = full0 + 8 * s;
+          otk::mbar_expect_tx(full, kStage + 2 * kVec);
+          load_tile<D, kBwdTile>(dst, &tq, full, row0, w.h, w.b);
+          load_tile<D, kBwdTile>(dst + kQ, &tdo, full, row0, w.h, w.b);
+          otk::bulk_load(vec, lse2 + row0, kVec, full);
+          otk::bulk_load(vec + kVec, dis + row0, kVec, full);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, t = lane & 3;
+  const float c = a.c;
+  int n = 0, base = 0;
+  for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+    const Item w = item_at(idx, a.H, BH, n_blk, false);
+    const int k0w = w.blk * kBwdBlock + 64 * wg, qt0 = w.blk * kBwdBlock / kBwdTile;
+    const int key_a = k0w + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // and key_a + 8
+    const bool idle = k0w >= T;  // its 64 keys all lie past T
+    float dk[D / 2], dv[D / 2];
+    zero<D / 2>(dk);
+    zero<D / 2>(dv);
+    otk::mbar_wait(kv_full, n & 1);
+
+    uint32_t pa[kPSteps][4];  // P^T, then dS^T: dK's A operand, in flight into the next tile
+    int pending = -1;         // the stage that dK still reads
+    for (int qt = qt0; qt < n_qt; ++qt, ++base) {
+      const int s = base % kBwdStages, i0 = qt * kBwdTile;
+      otk::mbar_wait(full0 + 8 * s, (base / kBwdStages) & 1);
+      if (idle || i0 + kBwdTile <= k0w) {  // no key of this warpgroup before any query
+        warp_arrive(empty0 + 8 * s);
+        continue;
+      }
+      const uint32_t q_t = ring + s * kStage, do_t = q_t + kQ;
+      const float* sl = reinterpret_cast<const float*>(smem + (vecs - k_s) + s * 2 * kVec);
+      const float* sd = sl + kBwdTile;
+
+      float st[kN], dpt[kN];
+      zero<kN>(st);
+      zero<kN>(dpt);
+      otk::fence_regs<kN>(st);
+      otk::fence_regs<kN>(dpt);
+      otk::fence_regs<D / 2>(dv);
+      otk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)  // S^T = K Q^T
+        otk::wgmma<kBwdTile>(st, kmajor<D, kBwdBlock>(k_s, 64 * wg, kk),
+                             kmajor<D, kBwdTile>(q_t, 0, kk));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)  // dP^T = V dO^T
+        otk::wgmma<kBwdTile>(dpt, kmajor<D, kBwdBlock>(v_s, 64 * wg, kk),
+                             kmajor<D, kBwdTile>(do_t, 0, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tile's dK and this S^T have landed
+      otk::fence_regs<kN>(st);
+      otk::fence_regs<D / 2>(dk);
+      otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+      if (pending >= 0) warp_arrive(empty0 + 8 * pending);
+
+      // P^T = exp2(S^T c - lse2): rows keys, columns queries i0 + col; zero
+      // where key > query or query >= T
+      const bool edge = i0 < k0w + 64 || i0 + kBwdTile > T;
+#pragma unroll
+      for (int nn = 0; nn < kBwdTile / 8; ++nn) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * nn + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int idx4 = 4 * nn + r, i = i0 + 8 * nn + 2 * t + (r & 1), j = key_a + 8 * (r >> 1);
+          const float p = exp2_approx(st[idx4] * c - ((r & 1) ? l2.y : l2.x));
+          st[idx4] = edge && !(j <= i && i < T) ? 0.f : p;
+        }
+      }
+      to_a_frags<kBwdTile>(pa, st);
+      otk::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)  // dV += P^T dO
+        wgmma_rs<D>(dv, pa[j], mnmajor<D, kBwdTile>(do_t, j));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T has landed; dV is in flight
+      otk::fence_regs<kN>(dpt);
+#pragma unroll
+      for (int nn = 0; nn < kBwdTile / 8; ++nn) {
+        const float2 di = *reinterpret_cast<const float2*>(sd + 8 * nn + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dpt[4 * nn + r] = st[4 * nn + r] * (dpt[4 * nn + r] - ((r & 1) ? di.y : di.x));  // dS^T
+      }
+      wgmma_wait<0>();  // dV has landed: P^T's registers take dS^T
+      otk::fence_regs<D / 2>(dv);
+      otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+      to_a_frags<kBwdTile>(pa, dpt);
+      otk::fence_regs<D / 2>(dk);
+      otk::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)  // dK += dS^T Q, waited for in the next tile
+        wgmma_rs<D>(dk, pa[j], mnmajor<D, kBwdTile>(q_t, j));
+      wgmma_commit();
+      pending = s;
+    }
+    wgmma_wait<0>();
+    otk::fence_regs<D / 2>(dk);
+    otk::fence_regs<4 * kPSteps>(&pa[0][0]);
+    if (pending >= 0) warp_arrive(empty0 + 8 * pending);
+    warp_arrive(kv_empty);  // K and V may be refilled
+    if (!idle) {
+      store_rows<D>(a.dk + w.b * a.sdk.b + w.h * a.sdk.h, a.sdk.t, k0w, T, dk, a.scale);
+      store_rows<D>(a.dv + w.b * a.sdv.b + w.h * a.sdv.h, a.sdv.t, k0w, T, dv, 1.f);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + 2 * (size_t)Tile<D, kBwdBlock>::kBytes +
+         (size_t)kBwdStages * 2 * Tile<D, kBwdTile>::kBytes + (2 + 2 * kBwdStages) * sizeof(uint64_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  constexpr uint32_t kQ = Tile<D, kBwdBlock>::kBytes, kKV = Tile<D, kBwdTile>::kBytes;
+  constexpr uint32_t kStage = 2 * kKV;
+  constexpr int kSSteps = D / 16, kPSteps = kBwdTile / 16, kN = kBwdTile / 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (otk::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = otk::smem_u32(smem), do_s = q_s + kQ, ring = do_s + kQ;
+  const uint32_t q_full = ring + kBwdStages * kStage, q_empty = q_full + 8;
+  const uint32_t full0 = q_empty + 8, empty0 = full0 + 8 * kBwdStages;
+  const int T = a.T, BH = a.B * a.H, n_blk = (T + kBwdBlock - 1) / kBwdBlock;
+
+  if (threadIdx.x == 0) {
+    otk::mbar_init(q_full, 1);
+    otk::mbar_init(q_empty, kConsumers / 32);
+    for (int s = 0; s < kBwdStages; ++s) {
+      otk::mbar_init(full0 + 8 * s, 1);
+      otk::mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    otk::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      int n = 0, base = 0;
+      for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+        const Item w = item_at(idx, a.H, BH, n_blk, true);
+        const int q0 = w.blk * kBwdBlock;
+        const int n_it = (min(q0 + kBwdBlock, T) - 1) / kBwdTile + 1;  // up to the diagonal
+        if (n > 0) otk::mbar_wait(q_empty, (n - 1) & 1);
+        otk::mbar_expect_tx(q_full, 2 * kQ);
+        load_tile<D, kBwdBlock>(q_s, &tq, q_full, q0, w.h, w.b);
+        load_tile<D, kBwdBlock>(do_s, &tdo, q_full, q0, w.h, w.b);
+        for (int it = 0; it < n_it; ++it, ++base) {
+          const int s = base % kBwdStages;
+          if (base >= kBwdStages) otk::mbar_wait(empty0 + 8 * s, ((base / kBwdStages) - 1) & 1);
+          const uint32_t dst = ring + s * kStage, full = full0 + 8 * s;
+          otk::mbar_expect_tx(full, kStage);
+          load_tile<D, kBwdTile>(dst, &tk, full, it * kBwdTile, w.h, w.b);
+          load_tile<D, kBwdTile>(dst + kKV, &tv, full, it * kBwdTile, w.h, w.b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, t = lane & 3;
+  const float c = a.c;
+  int n = 0, base = 0;
+  for (int idx = blockIdx.x; idx < a.n_items; idx += gridDim.x, ++n) {
+    const Item w = item_at(idx, a.H, BH, n_blk, true);
+    const int q0 = w.blk * kBwdBlock, q0w = q0 + 64 * wg;
+    const int n_it = (min(q0 + kBwdBlock, T) - 1) / kBwdTile + 1;
+    const int row_a = q0w + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // and row_a + 8
+    const bool idle = q0w >= T;  // its 64 rows all lie past T
+    const long long bh = (long long)w.b * a.H + w.h;
+    // rows of a working warpgroup lie before Tp: the scratch holds them (zeros past T)
+    float l2[2] = {0.f, 0.f}, di[2] = {0.f, 0.f};
+    if (!idle) {
+      const float* dis = a.aux + ((long long)BH + bh) * a.Tp;
+      l2[0] = a.aux[bh * a.Tp + row_a];
+      l2[1] = a.aux[bh * a.Tp + row_a + 8];
+      di[0] = dis[row_a];
+      di[1] = dis[row_a + 8];
+    }
+    float dq[D / 2];
+    zero<D / 2>(dq);
+    otk::mbar_wait(q_full, n & 1);
+
+    uint32_t ds[kPSteps][4];  // dS: dQ's A operand, in flight into the next tile
+    int pending = -1;         // the stage that dQ still reads
+    for (int it = 0; it < n_it; ++it, ++base) {
+      const int s = base % kBwdStages, j0 = it * kBwdTile;
+      otk::mbar_wait(full0 + 8 * s, (base / kBwdStages) & 1);
+      if (idle || j0 > q0w + 63) {  // every key of the tile after every row of this warpgroup
+        warp_arrive(empty0 + 8 * s);
+        continue;
+      }
+      const uint32_t k_t = ring + s * kStage, v_t = k_t + kKV;
+      float sc[kN], dp[kN];
+      zero<kN>(sc);
+      zero<kN>(dp);
+      otk::fence_regs<kN>(sc);
+      otk::fence_regs<kN>(dp);
+      otk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)  // S = Q K^T
+        otk::wgmma<kBwdTile>(sc, kmajor<D, kBwdBlock>(q_s, 64 * wg, kk),
+                             kmajor<D, kBwdTile>(k_t, 0, kk));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kSSteps; ++kk)  // dP = dO V^T
+        otk::wgmma<kBwdTile>(dp, kmajor<D, kBwdBlock>(do_s, 64 * wg, kk),
+                             kmajor<D, kBwdTile>(v_t, 0, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tile's dQ and this S have landed
+      otk::fence_regs<kN>(sc);
+      otk::fence_regs<D / 2>(dq);
+      otk::fence_regs<4 * kPSteps>(&ds[0][0]);
+      if (pending >= 0) warp_arrive(empty0 + 8 * pending);
+      const bool diag = j0 + kBwdTile - 1 > q0w;
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        const int e = (i >> 1) & 1, j = j0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = exp2_approx(sc[i] * c - l2[e]);
+        sc[i] = diag && j > row_a + 8 * e ? 0.f : p;
+      }
+      wgmma_wait<0>();
+      otk::fence_regs<kN>(dp);
+#pragma unroll
+      for (int i = 0; i < kN; ++i) dp[i] = sc[i] * (dp[i] - di[(i >> 1) & 1]);  // dS
+      to_a_frags<kBwdTile>(ds, dp);
+      otk::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kPSteps; ++j)  // dQ += dS K, waited for in the next tile
+        wgmma_rs<D>(dq, ds[j], mnmajor<D, kBwdTile>(k_t, j));
+      wgmma_commit();
+      pending = s;
+    }
+    wgmma_wait<0>();
+    otk::fence_regs<D / 2>(dq);
+    otk::fence_regs<4 * kPSteps>(&ds[0][0]);
+    if (pending >= 0) warp_arrive(empty0 + 8 * pending);
+    warp_arrive(q_empty);  // Q and dO may be refilled
+    if (!idle) store_rows<D>(a.dq + w.b * a.sdq.b + w.h * a.sdq.h, a.sdq.t, q0w, T, dq, a.scale);
+  }
+}
+
+// ----------------------------------------------------------------- host
 Strides strides_at(const long long* st, int i) { return {st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
 
 template <typename K>
@@ -523,106 +930,131 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// maps of the tensors at strides st + 3 i, in 64-row boxes
+bool maps(CUtensorMap* out, const void* const* ptrs, int n, const long long* st, int B, int H,
+          int T, int D) {
+  for (int i = 0; i < n; ++i)
+    if (!otk::make_map_bhtd(out + i, ptrs[i], B, H, T, D, st + 3 * i, 64, box_cols(D)))
+      return false;
+  return true;
+}
+
+// a persistent grid: one block an SM, or one an item where there are fewer
+int grid_for(int n_items) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return n_items < sms ? n_items : sms;
+}
+
 template <int D>
-int launch_fwd(const FwdParams& p, int B, cudaStream_t s) {
+int launch_fwd(const CUtensorMap* m, const FwdArgs& a, cudaStream_t s) {
   cudaError_t err = set_smem(flash_fwd_kernel<D>, fwd_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.T + kBM - 1) / kBM, p.H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), s>>>(p);
+  flash_fwd_kernel<D><<<grid_for(a.n_items), kThreads, fwd_smem<D>(), s>>>(m[0], m[1], m[2], a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bwd(const BwdParams& p, int B, cudaStream_t s) {
-  const int rows = B * p.H * p.T;
-  flash_bwd_di_kernel<D><<<(rows + 3) / 4, kThreads, 0, s>>>(p, rows);
+int launch_bwd(const CUtensorMap* m, const BwdArgs& a, cudaStream_t s) {
+  const long long rows = (long long)a.B * a.H * a.Tp;
+  flash_bwd_prep_kernel<D><<<(unsigned)((rows + kPrepRows - 1) / kPrepRows), 256, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if ((err = set_smem(flash_bwd_dkv_kernel<D>, dkv_smem<D>())) != cudaSuccess ||
       (err = set_smem(flash_bwd_dq_kernel<D>, dq_smem<D>())) != cudaSuccess)
     return static_cast<int>(err);
-  const dim3 grid((p.T + kBM - 1) / kBM, p.H, B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), s>>>(p);
+  const int grid = grid_for(a.n_items);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), s>>>(m[0], m[1], m[2], m[3], a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), s>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), s>>>(m[0], m[1], m[2], m[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the items of a launch, B H ceil(T / 128), index a 32-bit int
 bool shape_ok(int B, int H, int T) {
-  return B >= 1 && H >= 1 && T >= 1 && B <= 65535 && H <= 65535;
+  return B >= 1 && H >= 1 && T >= 1 && (long long)B * H * ((T + 127) / 128) < (1ll << 31);
 }
 
 }  // namespace
 
-// strides: (b, h, t) in elements of q, k, v and o (unit last stride, rows
-// 16-byte aligned); lse (B, H, T) f32 contiguous
+// strides: (b, h, t) in elements of q, k, v and o (unit last stride, 16-byte
+// base and strides); lse (B, H, T) f32 contiguous
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                      void* lse, const void* strides, int B, int H, int T, int D,
                                      float scale, void* stream) {
   if (!shape_ok(B, H, T)) return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();  // the calling thread's earlier error is not this launch's
   const long long* st = static_cast<const long long*>(strides);
-  FwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.sq = strides_at(st, 0);
-  p.sk = strides_at(st, 1);
-  p.sv = strides_at(st, 2);
-  p.so = strides_at(st, 3);
-  p.H = H;
-  p.T = T;
-  p.scale_log2 = scale * kLog2e;
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap m[3];
+  if ((D != 16 && D != 32 && D != 64 && D != 96 && D != 128) || !maps(m, ptrs, 3, st, B, H, T, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a;
+  a.o = static_cast<bf16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.so = strides_at(st, 3);
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.n_items = B * H * ((T + kFwdBQ - 1) / kFwdBQ);
+  a.c = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_fwd<16>(p, B, s);
-    case 32: return launch_fwd<32>(p, B, s);
-    case 64: return launch_fwd<64>(p, B, s);
-    case 96: return launch_fwd<96>(p, B, s);
-    case 128: return launch_fwd<128>(p, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_fwd<16>(m, a, s);
+    case 32: return launch_fwd<32>(m, a, s);
+    case 64: return launch_fwd<64>(m, a, s);
+    case 96: return launch_fwd<96>(m, a, s);
+    default: return launch_fwd<128>(m, a, s);
   }
 }
 
-// strides: (b, h, t) of q, k, v, o, do, dq, dk, dv; lse and di (the scratch
-// the wrapper allocates) (B, H, T) f32 contiguous
+// strides: (b, h, t) of q, k, v, o, do, dq, dk, dv; lse (B, H, T) f32
+// contiguous; aux the wrapper's (2, B, H, Tp) f32 scratch, Tp = T rounded
+// up to 64
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                                     const void* dout, const void* lse, void* di, void* dq,
+                                     const void* dout, const void* lse, void* aux, void* dq,
                                      void* dk, void* dv, const void* strides, int B, int H, int T,
                                      int D, float scale, void* stream) {
   if (!shape_ok(B, H, T)) return static_cast<int>(cudaErrorInvalidValue);
+  // the calling thread's earlier error is not this launch's: autograd's
+  // device thread can hold one from before its first backward
+  (void)cudaGetLastError();
   const long long* st = static_cast<const long long*>(strides);
-  BwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<const bf16*>(o);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.di = static_cast<float*>(di);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.sq = strides_at(st, 0);
-  p.sk = strides_at(st, 1);
-  p.sv = strides_at(st, 2);
-  p.so = strides_at(st, 3);
-  p.sdo = strides_at(st, 4);
-  p.sdq = strides_at(st, 5);
-  p.sdk = strides_at(st, 6);
-  p.sdv = strides_at(st, 7);
-  p.H = H;
-  p.T = T;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
+  // q, k, v, do: the do map takes do's strides (the fifth set)
+  const void* ptrs[4] = {q, k, v, dout};
+  const long long map_st[12] = {st[0], st[1], st[2],  st[3],  st[4],  st[5],
+                                st[6], st[7], st[8], st[12], st[13], st[14]};
+  CUtensorMap m[4];
+  if ((D != 16 && D != 32 && D != 64 && D != 96 && D != 128) ||
+      !maps(m, ptrs, 4, map_st, B, H, T, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.o = static_cast<const bf16*>(o);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.aux = static_cast<float*>(aux);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.so = strides_at(st, 3);
+  a.sdo = strides_at(st, 4);
+  a.sdq = strides_at(st, 5);
+  a.sdk = strides_at(st, 6);
+  a.sdv = strides_at(st, 7);
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.Tp = (T + kBwdTile - 1) / kBwdTile * kBwdTile;  // whole query tiles
+  a.n_items = B * H * ((T + kBwdBlock - 1) / kBwdBlock);
+  a.scale = scale;
+  a.c = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_bwd<16>(p, B, s);
-    case 32: return launch_bwd<32>(p, B, s);
-    case 64: return launch_bwd<64>(p, B, s);
-    case 96: return launch_bwd<96>(p, B, s);
-    case 128: return launch_bwd<128>(p, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_bwd<16>(m, a, s);
+    case 32: return launch_bwd<32>(m, a, s);
+    case 64: return launch_bwd<64>(m, a, s);
+    case 96: return launch_bwd<96>(m, a, s);
+    default: return launch_bwd<128>(m, a, s);
   }
 }

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the bf16 kernels (sm_90a): mbarriers,
-// TMA tile loads and their tensor maps, bf16 wgmma from shared memory, a
+// TMA tile loads (2-, 3- and 4-D maps) and bulk copies, bf16 wgmma from shared memory, a
 // LayerNorm pass (a warp a row) and one warp-specialized TMA/wgmma GEMM.
 //
 // The GEMM computes out[m, n] = sum_k A[m, k] B[n, k] (both K-major bf16,
@@ -68,6 +68,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a map of four dimensions (make_map_bhtd)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from a 16-byte aligned global address into
+// shared memory, completing on the mbarrier as a TMA tile load does
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -163,6 +184,38 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int 
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batches > 0 ? 3 : 2,
                 const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (B, H, T, D) bf16 tensor with unit last stride, read through its
+// element strides st = (b, h, t) as a map of four dimensions (d, t, h, b) in
+// boxes of box_cols x box_rows inside one (b, h): the LM's (B, T, H, D)
+// projections seen as (B, H, T, D) go in with byte strides 2 H D (t), 2 D
+// (h), 2 T H D (b). T is a dimension of its own, so a box's rows past T read
+// as zeros whatever follows them in memory. A dimension of size 1 is never
+// stepped: its stride is set to 16 bytes, whatever the tensor says.
+inline bool make_map_bhtd(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
+                          const long long* st, int box_rows, int box_cols) {
+  EncodeTiled encode = encode_fn();
+  if (!encode || (box_cols != 64 && box_cols != 32 && box_cols != 16) ||
+      reinterpret_cast<uintptr_t>(ptr) % 16)
+    return false;
+  const int sizes[3] = {T, H, B};
+  const long long elems[3] = {st[2], st[1], st[0]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = sizes[i] == 1 ? 16 : (cuuint64_t)elems[i] * sizeof(bf16);
+    if (sizes[i] > 1 && (elems[i] <= 0 || strides[i] % 16)) return false;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                 : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B

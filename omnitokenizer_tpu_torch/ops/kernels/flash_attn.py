@@ -6,17 +6,19 @@ Replaces JAX's stock TPU kernel, which the JAX LM's full forward calls at
 `omnitokenizer_tpu/models/gpt.py:103-131` (jax/experimental/pallas/ops/tpu/
 flash_attention.py: the forward `_flash_attention_impl`, the backward's
 `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`; its (l, m) pair is
-folded into lse). The CUDA kernels are `csrc/flash_attn.cu`: one forward
-launch, and a backward of three (di = sum o * do, then dk/dv and dq) that
-counts as one call. `flash_attn_fwd_plain` and `flash_attn_bwd_plain` are
+folded into lse). The CUDA kernels are `csrc/flash_attn.cu`, TMA-fed
+wgmma with warp specialization: one forward launch, and a backward of three
+(di = sum o * do with lse * log2(e) into a padded scratch, then dk/dv and
+dq) that counts as one call. `flash_attn_fwd_plain` and `flash_attn_bwd_plain` are
 their plain versions, in f32 math; `flash_attention` is the
 `torch.autograd.Function` that saves (q, k, v, o, lse) and runs the
 backward kernels (on a CPU tensor, the plain versions).
 
 The kernels take bf16 q, k, v whose last stride is 1 and whose (b, h, t)
 strides are multiples of 8 elements (16-byte rows): the LM hands them its
-(B, T, H, D) projections seen as (B, H, T, D) views, read as they are, and
-the outputs are written in that layout too. A tensor with other strides
+(B, T, H, D) projections seen as (B, H, T, D) views, which TMA reads as
+they are through a map of four dimensions, and the outputs are written in
+that layout too. A tensor with other strides
 (a gradient that arrives expanded, say) is copied once with `.contiguous()`.
 """
 
@@ -38,6 +40,9 @@ MIN_T = 256
 # zero columns of v give zero output columns, sliced off)
 DIM_HEADS = (16, 32, 64, 96, 128)
 MAX_DIM_HEAD = DIM_HEADS[-1]
+# the backward's query tile (csrc/flash_attn.cu kBwdTile): its scratch rows
+# are T rounded up to it
+AUX_PAD = 64
 
 
 def flash_attn_supported(t: int, dim_head: int) -> bool:
@@ -48,8 +53,9 @@ def flash_attn_supported(t: int, dim_head: int) -> bool:
 def narrowed(t: int, dim_head: int) -> bool:
     """Shapes the JAX gate takes (bf16, T >= 256, any head width) and the
     kernels do not, which keep the LM's materialized math: head widths above
-    128. A warp keeps 16 rows of its f32 accumulators (dQ, or dK and dV) in
-    registers, D / 2 a thread each; past 128 they spill."""
+    128. A warpgroup keeps 64 rows of its f32 accumulators (O, dQ, or dK and
+    dV) in registers, D / 2 a thread each; past 128 they do not fit beside
+    the score tiles."""
     return t >= MIN_T and dim_head > MAX_DIM_HEAD
 
 
@@ -86,9 +92,10 @@ def flash_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: t
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernels read it through its strides (unit last
-    stride, 16-byte rows and base), else one contiguous copy."""
+    stride, 16-byte base, positive strides of whole 16-byte rows: what a TMA
+    map takes), else one contiguous copy."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+          and all(s > 0 and s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
     return t if ok else t.contiguous()
 
 
@@ -154,10 +161,12 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         q, k, v, o, do = (F.pad(t, (0, W - D)) for t in (q, k, v, o, do))
     q, k, v, o, do = (_strided(t) for t in (q, k, v, o, do))
     dq, dk, dv = (_out(B, H, T, W, q) for _ in range(3))
-    di = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    # lse * log2(e) and di, each row padded with zeros to a whole query tile
+    aux = torch.empty(2, B, H, -(-T // AUX_PAD) * AUX_PAD, dtype=torch.float32,
+                      device=q.device)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     _build.launch("flash_attn_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), aux.data_ptr(), dq.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), B, H, T, W,
                   float(scale))
     flash_attn_bwd.launches += 1

@@ -5,11 +5,13 @@ interpret mode (its forward and, through jax.vjp, its dkv and dq kernels),
 at whole 128-row blocks and at a ragged T padded as the JAX LM pads it
 (`omnitokenizer_tpu/models/gpt.py:119-129`), and against torch autograd of
 the materialized math; then the CUDA kernels' tile walk emulated in
-PyTorch (csrc/flash_attn.cu: 64-row query and key tiles, the causal skip of
-the tiles above the diagonal, the diagonal and tail masks, the running max
-and sum in the log2 domain, lse; the dkv walk from the diagonal down with
-its 32-query tiles at D = 128, the dq walk up to it) against the plain
-versions at ragged T. All f32."""
+PyTorch (csrc/flash_attn.cu: 128-row blocks of two 64-row warpgroups,
+warpgroups past T idle; the forward's key tiles of 128 from the diagonal
+down, only the first masked, the previous tile's P V added before the
+rescale; the dkv walk over query tiles of 64 from the diagonal to T and the
+dq walk over key tiles of 64 up to it, tiles wholly above a warpgroup's
+diagonal skipped; lse * log2(e) and di in a scratch zero-padded past T)
+against the plain versions at ragged T. All f32."""
 
 import math
 
@@ -26,7 +28,6 @@ from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
 torch.set_num_threads(1)
 
 TOL = 1e-5        # f32, another order of summation: whole-tensor relative
-TILE = 64         # query and key rows a tile (csrc/flash_attn.cu kBM, kBN)
 LOG2E = 1.4426950408889634
 
 
@@ -103,8 +104,17 @@ def test_plain_matches_autograd(T, D):
 
 
 # -- the kernels' tile walk ------------------------------------------------------------
+# csrc/flash_attn.cu: 64 rows a consumer warpgroup, two a block; the forward's
+# key tiles of 128 (kFwdBN), the backward's query (dkv) and key (dq) tiles of
+# 64 (kBwdTile). The sizes are the same at every head width.
+WG = 64           # rows a warpgroup
+BLOCK = 128       # queries a forward or dq block, keys a dkv block: two warpgroups
+FWD_KEYS = 128    # keys a forward tile
+BWD_TILE = 64     # queries a dkv tile, keys a dq tile; the scratch pads T to it
+
+
 def tiles(x, t0, rows):
-    """Rows [t0, t0 + rows) of (..., T, D), zero-filled past T (cp.async's zeros)."""
+    """Rows [t0, t0 + rows) of (..., T, D), zero-filled past T (TMA's zeros)."""
     T = x.shape[-2]
     out = x.new_zeros(x.shape[:-2] + (rows, x.shape[-1]))
     n = max(0, min(rows, T - t0))
@@ -112,99 +122,127 @@ def tiles(x, t0, rows):
     return out
 
 
+def warpgroups(T):
+    """(block start, warpgroup start) of every warpgroup that has a row
+    before T; the others do no work."""
+    return [(b0, b0 + w) for b0 in range(0, T, BLOCK) for w in (0, WG) if b0 + w < T]
+
+
 def emulate_fwd(q, k, v, scale, visited):
-    """flash_fwd_kernel: a block of 64 queries walks key tiles 0 .. its own."""
+    """flash_fwd_kernel: each warpgroup of a 128-query block walks the key
+    tiles of 128 from its block's diagonal tile (masked) down to 0; the next
+    tile's softmax runs while the previous tile's P V is in flight, so P V
+    is added before O is rescaled."""
     T = q.shape[-2]
-    n_tiles = -(-T // TILE)
     o, lse = torch.zeros_like(q), torch.zeros(q.shape[:-1])
     c = scale * LOG2E
-    for qt in range(n_tiles):
-        rows = torch.arange(qt * TILE, (qt + 1) * TILE)
-        qb = tiles(q, qt * TILE, TILE)
-        m = torch.full(q.shape[:-2] + (TILE,), -math.inf)
-        l, acc = torch.zeros_like(m), torch.zeros(qb.shape)
-        for kt in range(qt + 1):  # the tiles above the diagonal are never read
-            visited.add((qt, kt))
-            s = qb @ tiles(k, kt * TILE, TILE).transpose(-1, -2)
-            if kt == qt:
-                cols = torch.arange(kt * TILE, (kt + 1) * TILE)
+    for q0, q0w in warpgroups(T):
+        rows = torch.arange(q0w, q0w + WG)
+        qw = tiles(q, q0w, WG)
+        for it, kt in enumerate(range(q0 // FWD_KEYS, -1, -1)):
+            visited.add((q0w // WG, kt))
+            s = (qw @ tiles(k, kt * FWD_KEYS, FWD_KEYS).transpose(-1, -2)) * c
+            if it == 0:  # the diagonal tile
+                cols = torch.arange(kt * FWD_KEYS, (kt + 1) * FWD_KEYS)
                 s = s.masked_fill(cols[None, :] > rows[:, None], -math.inf)
-            m_new = torch.maximum(m, s.amax(-1) * c)
-            p = torch.exp2(s * c - m_new[..., None])
-            alpha = torch.exp2(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p @ tiles(v, kt * TILE, TILE)
-            m = m_new
-        n = min(TILE, T - qt * TILE)
-        o[..., qt * TILE:qt * TILE + n, :] = (acc / l[..., None])[..., :n, :]
-        lse[..., qt * TILE:qt * TILE + n] = ((m + torch.log2(l)) / LOG2E)[..., :n]
+                m = s.amax(-1)
+                p = torch.exp2(s - m[..., None])
+                l, acc = p.sum(-1), torch.zeros(qw.shape)
+            else:
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp2(s - m_new[..., None])
+                acc = acc + p_prev @ v_prev
+                alpha = torch.exp2(m - m_new)
+                acc, l, m = acc * alpha[..., None], l * alpha + p.sum(-1), m_new
+            p_prev, v_prev = p, tiles(v, kt * FWD_KEYS, FWD_KEYS)
+        acc = acc + p_prev @ v_prev
+        n = min(WG, T - q0w)
+        o[..., q0w:q0w + n, :] = (acc / l[..., None])[..., :n, :]
+        lse[..., q0w:q0w + n] = ((m + torch.log2(l)) / LOG2E)[..., :n]
     return o, lse
 
 
-def emulate_bwd(q, k, v, o, do, lse, scale):
-    """di, then flash_bwd_dkv_kernel (64 keys a block; query tiles of 64, 32
-    at D = 128, from the diagonal to T) and flash_bwd_dq_kernel (64 queries
-    a block, key tiles 0 .. its own)."""
-    T, D = q.shape[-2:]
+def emulate_bwd(q, k, v, o, do, lse, scale, visited_dkv, visited_dq):
+    """The di pass into the zero-padded scratch (lse * log2(e), di), then
+    flash_bwd_dkv_kernel (a warpgroup owns 64 keys of a 128-key block and
+    walks the query tiles of 64 from its block's diagonal to T, skipping a
+    tile wholly above its keys) and flash_bwd_dq_kernel (a warpgroup owns 64
+    queries of a 128-query block and walks the key tiles of 64 up to its
+    block's last row, skipping a tile wholly after its rows)."""
+    T = q.shape[-2]
     c = scale * LOG2E
-    di = (o * do).sum(-1)
-    lse2 = lse * LOG2E
-    BQ = 64 if D <= 96 else 32
-    n_tiles = -(-T // TILE)
+    n_tiles = -(-T // BWD_TILE)
+    pad = n_tiles * BWD_TILE - T
+    lse2 = torch.nn.functional.pad(lse * LOG2E, (0, pad))
+    di = torch.nn.functional.pad((o * do).sum(-1), (0, pad))
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-
-    def vec(x, t0, rows):
-        return tiles(x[..., None], t0, rows)[..., 0]
-
-    for kt in range(n_tiles):
-        keys = torch.arange(kt * TILE, (kt + 1) * TILE)
-        kb, vb = tiles(k, kt * TILE, TILE), tiles(v, kt * TILE, TILE)
-        dkb, dvb = torch.zeros_like(kb), torch.zeros_like(vb)
-        for qt in range(kt * TILE // BQ, -(-T // BQ)):
-            qs = torch.arange(qt * BQ, (qt + 1) * BQ)
-            qb, dob = tiles(q, qt * BQ, BQ), tiles(do, qt * BQ, BQ)
-            st = kb @ qb.transpose(-1, -2)  # keys x queries
-            ok = (keys[:, None] <= qs[None, :]) & (qs[None, :] < T)
-            pt = torch.where(ok, torch.exp2(st * c - vec(lse2, qt * BQ, BQ)[..., None, :]),
-                             torch.zeros(()))
-            dvb += pt @ dob
-            dpt = vb @ dob.transpose(-1, -2)
-            dkb += (pt * (dpt - vec(di, qt * BQ, BQ)[..., None, :])) @ qb
-        n = min(TILE, T - kt * TILE)
-        dk[..., kt * TILE:kt * TILE + n, :] = (dkb * scale)[..., :n, :]
-        dv[..., kt * TILE:kt * TILE + n, :] = dvb[..., :n, :]
-    for qt in range(n_tiles):
-        rows = torch.arange(qt * TILE, (qt + 1) * TILE)
-        qb, dob = tiles(q, qt * TILE, TILE), tiles(do, qt * TILE, TILE)
-        l2, d_i = vec(lse2, qt * TILE, TILE), vec(di, qt * TILE, TILE)
-        dqb = torch.zeros_like(qb)
-        for kt in range(qt + 1):
-            cols = torch.arange(kt * TILE, (kt + 1) * TILE)
-            kb, vb = tiles(k, kt * TILE, TILE), tiles(v, kt * TILE, TILE)
-            p = torch.exp2((qb @ kb.transpose(-1, -2)) * c - l2[..., None])
-            p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
-            dqb += (p * (dob @ vb.transpose(-1, -2) - d_i[..., None])) @ kb
-        n = min(TILE, T - qt * TILE)
-        dq[..., qt * TILE:qt * TILE + n, :] = (dqb * scale)[..., :n, :]
+    for k0, k0w in warpgroups(T):
+        keys = torch.arange(k0w, k0w + WG)
+        kw, vw = tiles(k, k0w, WG), tiles(v, k0w, WG)
+        dkw, dvw = torch.zeros_like(kw), torch.zeros_like(vw)
+        for qt in range(k0 // BWD_TILE, n_tiles):
+            i0 = qt * BWD_TILE
+            if i0 + BWD_TILE <= k0w:  # every key after every query: skipped
+                continue
+            visited_dkv.add((k0w // WG, qt))
+            qs = torch.arange(i0, i0 + BWD_TILE)
+            qb, dob = tiles(q, i0, BWD_TILE), tiles(do, i0, BWD_TILE)
+            pt = torch.exp2((kw @ qb.transpose(-1, -2)) * c - lse2[..., None, i0:i0 + BWD_TILE])
+            if i0 < k0w + WG or i0 + BWD_TILE > T:
+                ok = (keys[:, None] <= qs[None, :]) & (qs[None, :] < T)
+                pt = torch.where(ok, pt, torch.zeros(()))
+            dvw += pt @ dob
+            dpt = vw @ dob.transpose(-1, -2)
+            dkw += (pt * (dpt - di[..., None, i0:i0 + BWD_TILE])) @ qb
+        n = min(WG, T - k0w)
+        dk[..., k0w:k0w + n, :] = (dkw * scale)[..., :n, :]
+        dv[..., k0w:k0w + n, :] = dvw[..., :n, :]
+    for q0, q0w in warpgroups(T):
+        rows = torch.arange(q0w, q0w + WG)
+        qw, dow = tiles(q, q0w, WG), tiles(do, q0w, WG)
+        l2, d_i = lse2[..., q0w:q0w + WG, None], di[..., q0w:q0w + WG, None]
+        dqw = torch.zeros_like(qw)
+        for kt in range((min(q0 + BLOCK, T) - 1) // BWD_TILE + 1):
+            j0 = kt * BWD_TILE
+            if j0 > q0w + WG - 1:  # every key after every row: skipped
+                continue
+            visited_dq.add((q0w // WG, kt))
+            kb, vb = tiles(k, j0, BWD_TILE), tiles(v, j0, BWD_TILE)
+            p = torch.exp2((qw @ kb.transpose(-1, -2)) * c - l2)
+            if j0 + BWD_TILE - 1 > q0w:
+                cols = torch.arange(j0, j0 + BWD_TILE)
+                p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
+            dqw += (p * (dow @ vb.transpose(-1, -2) - d_i)) @ kb
+        n = min(WG, T - q0w)
+        dq[..., q0w:q0w + n, :] = (dqw * scale)[..., :n, :]
     return dq, dk, dv
 
 
 @pytest.mark.parametrize("T,D", [(1, 16), (63, 32), (64, 64), (257, 96), (300, 128),
-                                 (1025, 96)])
+                                 (1025, 96), (127, 64), (128, 96), (129, 96), (173, 32),
+                                 (200, 128)])
 def test_tile_walk_matches_plain(T, D):
-    """The kernels' walk at whole and ragged tiles: the tiles it reads are
-    those at or below the diagonal (the skipped ones are wholly masked), and
-    o, lse, dq, dk, dv are the plain versions'."""
+    """The kernels' walk at whole and ragged tiles (127, 128, 129 at the
+    forward's tile edge; 173 leaves its last block's first warpgroup partial
+    and the second idle, 200 the first whole and the second partial): every
+    warpgroup with a row before T visits exactly the tiles at or below its
+    diagonal (none wholly above it, none it would need skipped), and o, lse,
+    dq, dk, dv are the plain versions'."""
     B, H = (1, 1) if T > 300 else (2, 2)
     q, k, v, do = (torch.from_numpy(t) for t in inputs(T + D + 1, B, H, T, D))
     scale = D ** -0.5
     visited = set()
     o, lse = emulate_fwd(q, k, v, scale, visited)
-    n_tiles = -(-T // TILE)
-    assert visited == {(a, b) for a in range(n_tiles) for b in range(a + 1)}
+    ws = [w // WG for _, w in warpgroups(T)]
+    assert visited == {(w, kt) for w in ws for kt in range(w * WG // FWD_KEYS + 1)}
+    assert all(kt * FWD_KEYS <= w * WG + WG - 1 for w, kt in visited)
     want_o, want_lse = fa.flash_attn_fwd_plain(q, k, v, scale)
     assert rel(o, want_o) <= TOL and rel(lse, want_lse) <= TOL
-    got = emulate_bwd(q, k, v, o, do, lse, scale)
+    v_dkv, v_dq = set(), set()
+    got = emulate_bwd(q, k, v, o, do, lse, scale, v_dkv, v_dq)
+    n_tiles = -(-T // BWD_TILE)
+    assert v_dkv == {(w, qt) for w in ws for qt in range(w, n_tiles)}
+    assert v_dq == {(w, kt) for w in ws for kt in range(w + 1)}
     for a, b in zip(got, fa.flash_attn_bwd_plain(q, k, v, want_o, do, want_lse, scale)):
         # at T = 1 (a softmax over one key) dq and dk are 0 in exact
         # arithmetic: both sides hold f32 rounding noise of order 1e-8

@@ -4,7 +4,8 @@ widths the gates take (model widths up to 2048, cosine_mha at head widths
 16 to 128, the small-group core at every multiple of 16, mha's flash
 branches on zero-padded widths, vq_argmin at any code dim with duplicate
 codes), ragged row counts and small groups, the LM's causal flash attention
-forward and backward over head widths 16-128 and ragged sequence lengths,
+forward and backward over head widths 16-128, sequence lengths at its tile
+edges, ragged ones and the long recipes' 5121, and its backward's determinism,
 and the wrappers refusing what the kernels do not take. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
@@ -481,11 +482,29 @@ def check_flash(q, k, v, do, scale):
     return o, grads
 
 
-@pytest.mark.parametrize("B,H", [(1, 1), (2, 3)])
-@pytest.mark.parametrize("T", [1, 63, 256, 257, 1025, 2048])
-@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+# every width at the tile edges (64, 127-129: the forward's 128-row blocks and
+# key tiles) and ragged T; the long-sequence recipes' T = 5121 at their width
+FLASH_CASES = [(D, T, B, H) for D in (16, 32, 64, 96, 128)
+               for T in (1, 63, 127, 128, 129, 256, 257, 1025, 2048)
+               for B, H in ((1, 1), (2, 3))] + [(96, 5121, 1, 1)]
+
+
+@pytest.mark.parametrize("D,T,B,H", FLASH_CASES,
+                         ids=[f"{B}-{H}-{T}-{D}" for D, T, B, H in FLASH_CASES])
 def test_flash_attn(gen, D, T, B, H):
     check_flash(*flash_inputs(gen, B, H, T, D), D ** -0.5)
+
+
+@pytest.mark.parametrize("D,T", [(96, 1025), (128, 300)])
+def test_flash_attn_bwd_deterministic(gen, D, T):
+    """One writer a row and no atomics: two backward runs on the same inputs
+    are bitwise equal."""
+    q, k, v, do = flash_inputs(gen, 2, 16, T, D)
+    o, lse = fa.flash_attn_fwd(q, k, v, D ** -0.5)
+    first = fa.flash_attn_bwd(q, k, v, o, do, lse, D ** -0.5)
+    second = fa.flash_attn_bwd(q, k, v, o, do, lse, D ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("D,T", [(24, 300), (80, 129), (112, 64)])
