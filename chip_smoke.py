@@ -99,7 +99,21 @@ Phases (any failure raises and exits non-zero):
      step, tokens/s, peak memory, the share of the FLOP bound, launches a
      step), every parameter moved, a profiled step by kernel group; then
      train_lm at full width and 2 layers: 2 steps and a resume to 3 against
-     an unbroken 3-step run.
+     an unbroken 3-step run;
+ 13. checkpoints in, scores out: (a) the flagship tokenizer with random
+     weights from seed 0 written in the JAX package's msgpack format with
+     its .cfg.json sidecar (utils/msgpack_io.py, convert.state_dict_to_jax),
+     loaded on the card through load_from_checkpoint: its bf16 round trip
+     of B=4 clips bit-equal to the source model's, the five kernels'
+     launches, load seconds beside convert_ckpt's .pt; (b) the LM at 24 x
+     1536 written as the JAX CLI's (params, opt_state, step), loaded through
+     transformer_eval's loader: logits bit-equal; (c) DiT-XL/2 at full width
+     and 2 blocks written as a DiffusionTrainState, read through
+     dit_sample's loader from params and ema_params: forwards bit-equal, 10
+     sampling steps decoded through the f32 VAE (mha 4); (d) metrics_eval
+     over .npz directories of (a)'s clips and reconstructions, every metric,
+     on the card against --device cpu; (e) precision_recall on 50000 x 2048
+     f32 features timed beside its bound.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
 The line before the last is a JSON object with a row per kernel and shape
@@ -2759,6 +2773,347 @@ def phase12_lm_train() -> dict:
     return {"lm_train": runs["kernel"]["launches_per_step"]}
 
 
+# -- phase 13: checkpoints in, scores out ------------------------------------------------------
+# The JAX package's msgpack files, written by the port's own writer (utils/msgpack_io.py, the
+# inverse key maps of convert.py) from models with random weights, read back through the CLIs'
+# loaders on the card, then the generation metrics on the card against the CPU.
+CKPT_METRIC_TOL = 1e-4     # metrics_eval psnr / ssim, card vs CPU, absolute
+PR_N, PR_D = 50000, 2048   # the OpenAI evaluator's 50k samples of pool3 features
+PR_SUBSET = 5000           # radii card vs CPU on this many rows
+PR_RADII_REL_TOL = 1e-5    # f32 distances in another summation order, TF32 off on both
+
+
+def _file_gb(path: str) -> float:
+    return os.path.getsize(path) / 1e9
+
+
+def phase13a_tokenizer(root: str, video: torch.Tensor) -> tuple:
+    """The flagship tokenizer written as a JAX .msgpack + .cfg.json sidecar,
+    loaded on the card; its bf16 round trip bit-equal to the source's, with
+    the kernels' launches; convert_ckpt's .pt loaded beside it."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+    from omnitokenizer_tpu_torch.cli import convert_ckpt
+    from omnitokenizer_tpu_torch.convert import state_dict_to_jax
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.utils.checkpoint import config_to_json
+    from omnitokenizer_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
+
+    cfg = imagenet_k600_config().replace(dtype=BF)
+    src = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda")
+    path = os.path.join(root, "imagenet_k600.msgpack")
+    t0 = time.perf_counter()
+    write_msgpack(path, state_dict_to_jax(src.net))  # the f32 masters, before serving()
+    with open(path + ".cfg.json", "w") as f:
+        json.dump(config_to_json(cfg), f)
+    write_s = time.perf_counter() - t0
+    pt = os.path.join(root, "imagenet_k600.pt")
+    convert_ckpt.main(["--src", path, "--dst", pt])
+    secs = {"load_s": [], "pt_load_s": [], "read_s": [], "torch_load_s": []}
+    for _ in range(2):  # in turns, twice: the first of each pays the first-call costs
+        for name, fn in (("load_s", lambda: OmniTokenizerVQGAN.load_from_checkpoint(path)),
+                         ("pt_load_s", lambda: OmniTokenizerVQGAN.load_from_checkpoint(pt)),
+                         ("read_s", lambda: read_msgpack(path)),
+                         ("torch_load_s", lambda: torch.load(pt, map_location="cpu"))):
+            t0 = time.perf_counter()
+            out = fn()  # load_from_checkpoint: on the card, the default
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            if name == "load_s":
+                model = out
+            elif name == "pt_load_s":
+                from_pt = out
+            del out
+    load_s, load_pt_s, read_s, torch_load_s = (min(secs[k]) for k in
+                                               ("load_s", "pt_load_s", "read_s", "torch_load_s"))
+    for k, v in src.net.state_dict().items():
+        if not (torch.equal(model.net.state_dict()[k], v)
+                and torch.equal(from_pt.net.state_dict()[k], v)):
+            raise AssertionError(f"{k}: the loaded tensor differs from the written one")
+    del from_pt
+    src.serving()
+    model.serving()
+    with torch.inference_mode():
+        want, want_aux = src.reconstruct(video, is_image=False)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, aux = model.reconstruct(video, is_image=False)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[13a] launches in the loaded tokenizer's round trip: {counts}")
+    if counts != EXPECTED_LAUNCHES["vq"]:
+        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES['vq']}")
+    if not (torch.equal(got, want) and torch.equal(aux["encodings"], want_aux["encodings"])):
+        raise AssertionError(f"round trip from the msgpack differs: max abs {max_abs(got, want)}")
+    print(f"[13a] imagenet_k600 {model.num_params()} parameters: wrote {_file_gb(path):.3f} GB "
+          f"msgpack in {write_s:.2f} s; load_from_checkpoint on the card {load_s:.2f} s (the "
+          f"file read alone {read_s:.2f} s) against the convert_ckpt .pt's {load_pt_s:.2f} s "
+          f"(torch.load alone {torch_load_s:.2f} s), the faster of two turns each, warm page "
+          f"cache ({ {k: [round(x, 3) for x in v] for k, v in secs.items()} }); bf16 round trip of "
+          f"B={video.shape[0]} {T}x{RES}^2 clips bit-equal to the source model's, indices too")
+    row = {"params": model.num_params(), "msgpack_gb": _file_gb(path), "write_s": write_s,
+           "load_s": load_s, "read_s": read_s, "pt_load_s": load_pt_s,
+           "torch_load_s": torch_load_s, "turns": secs, "launches": counts}
+    recon = got.float().cpu().numpy()
+    del src, model, got, want
+    torch.cuda.empty_cache()
+    return counts, row, recon
+
+
+def phase13b_lm(root: str, tok_path: str) -> dict:
+    """The class-conditional LM at 24 x 1536 written as the JAX CLI's
+    (params, opt_state, step), loaded through transformer_eval's loader;
+    one batch's logits bit-equal to the source model's."""
+    from omnitokenizer_tpu_torch.cli import args as A
+    from omnitokenizer_tpu_torch.cli import transformer_eval
+    from omnitokenizer_tpu_torch.convert import gpt_state_dict_from_jax, gpt_state_dict_to_jax
+    from omnitokenizer_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
+
+    gpt = lm_model(9193, LM_BLOCK)
+    path = os.path.join(root, "imagenet_class_lm.msgpack")
+    t0 = time.perf_counter()
+    # opt_state written as None, as the JAX convert_ckpt writes it: an Adam state would triple
+    # the file, and no loader reads it
+    write_msgpack(path, (gpt_state_dict_to_jax(gpt.state_dict()), None, 0))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()  # where the loader's time goes: the file read, the key map
+    tree = read_msgpack(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpt_state_dict_from_jax(tree["0"])
+    map_s = time.perf_counter() - t0
+    del tree
+    args = A.normalize_precision(transformer_eval.build_parser().parse_args(
+        ["--gpt_ckpt", path, "--vqvae", tok_path, "--starts_with_sos", "--class_first", "--bf16"]))
+    t0 = time.perf_counter()
+    n2n, _ = transformer_eval.build_model(args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    idx = torch.randint(0, 9193, (LM_B, LM_BLOCK - 1), generator=torch.Generator().manual_seed(70)
+                        ).cuda()
+    with torch.inference_mode():
+        want, got = gpt(idx)[0], n2n.gpt(idx)[0]
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"LM logits from the msgpack differ: max abs {max_abs(got, want)}")
+    n = sum(p.numel() for p in gpt.parameters())
+    print(f"[13b] LM {n} parameters: wrote {_file_gb(path):.3f} GB msgpack (opt_state None) in "
+          f"{write_s:.2f} s; transformer_eval's loader (the tokenizer's .msgpack too) on the "
+          f"card {load_s:.2f} s (alone: the file read {read_s:.2f} s, the key map {map_s:.2f} "
+          f"s); logits of B={LM_B} x {LM_BLOCK - 1} tokens bit-equal to the source model's")
+    row = {"params": n, "msgpack_gb": _file_gb(path), "write_s": write_s, "load_s": load_s,
+           "read_s": read_s, "map_s": map_s}
+    del gpt, n2n, want, got
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase13c_dit(root: str) -> tuple:
+    """DiT-XL/2 at full width and 2 blocks written as a JAX
+    DiffusionTrainState, read through dit_sample's loader from params and
+    ema_params: each forward bit-equal to its source; then 10 DDPM steps of
+    the EMA model decoded through the f32 VAE, mha's launches counted."""
+    from omnitokenizer_tpu_torch import DiffusionVAEAdapter, imagenet_k600_config
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.cli import diffusion_common, dit_sample
+    from omnitokenizer_tpu_torch.convert import (dit_state_dict_to_jax, load_diffusion_checkpoint,
+                                                 load_diffusion_state_dict)
+    from omnitokenizer_tpu_torch.models.dit import DiT
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+
+    args = dit_sample.build_parser().parse_args(SAMPLE_FLAGS + ["--num_sampling_steps", "10"])
+    cfg = diffusion_common.model_config(args, False).replace(depth=2)
+    sources = {}
+    for field, seed in (("params", 0), ("ema_params", 1)):
+        with torch.device("cuda"):
+            sources[field] = fill_random(DiT(cfg), seed).eval()
+    path = os.path.join(root, "state_000000002.msgpack")
+    t0 = time.perf_counter()
+    write_msgpack(path, {f: dit_state_dict_to_jax(m.state_dict(), cfg.patch_size)
+                         for f, m in sources.items()} | {"opt_state": None,
+                                                         "step": np.asarray(2, np.int32)})
+    write_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(71)
+    x = torch.randn(2, cfg.in_channels, cfg.input_size, cfg.input_size, generator=g).cuda()
+    t, y = torch.tensor([17, 640], device="cuda"), torch.tensor([3, 981], device="cuda")
+    loaded, load_s = {}, {}
+    for field, use_ema in (("params", False), ("ema_params", True)):
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            model = DiT(cfg)
+        load_diffusion_state_dict(model, load_diffusion_checkpoint(path, cfg.patch_size, use_ema))
+        torch.cuda.synchronize()
+        load_s[field] = time.perf_counter() - t0
+        with torch.inference_mode():
+            same = torch.equal(model.eval()(x, t, y), sources[field](x, t, y))
+        if not same:
+            raise AssertionError(f"DiT forward from {field} differs from its source")
+        loaded[field] = model
+    del sources
+    ad = DiffusionVAEAdapter.from_config(imagenet_k600_config(use_vae=True), seed=0)
+    diffusion = dit_sample.make_diffusion(args, False)
+    gen = torch.Generator("cuda").manual_seed(72)
+    z = dit_sample.sample_batch(args, loaded["ema_params"], diffusion,
+                                torch.tensor([1, 500], device="cuda"), gen, False)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.inference_mode():
+        pixels = diffusion_common.decode_batch_fn(ad, False)(z)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != DIFF_LAUNCHES["decode"]:
+        raise AssertionError(f"decode launches {counts} != {DIFF_LAUNCHES['decode']}")
+    if (tuple(pixels.shape) != (2, 3, RES, RES) or not bool(torch.isfinite(pixels).all())
+            or float(pixels.abs().max()) > 0.5):
+        raise AssertionError(f"bad samples {tuple(pixels.shape)}")
+    print(f"[13c] DiT-XL/2 at 2 blocks: wrote {_file_gb(path):.3f} GB (params + ema_params) in "
+          f"{write_s:.2f} s; dit_sample's loader {load_s['params']:.2f} s (--no_ema) and "
+          f"{load_s['ema_params']:.2f} s (--use_ema), each forward bit-equal to its source; 10 "
+          f"DDPM steps of 2 images decoded through the f32 VAE, launches in the decode {counts}")
+    del loaded, ad, z, pixels
+    torch.cuda.empty_cache()
+    return counts, {"msgpack_gb": _file_gb(path), "write_s": write_s, "load_s": load_s}
+
+
+def he_normal(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every conv and linear weight N(0, 2 / fan_in), zero biases, unit
+    BatchNorm (running mean 0, var 1): random weights under which a deep
+    ReLU network's features still depend on its input (the default inits
+    shrink them layer by layer until every clip gives the same features)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * (2 / fan_in) ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.reset_parameters()
+    return model
+
+
+def phase13d_metrics(root: str, video: torch.Tensor, recon) -> dict:
+    """metrics_eval over .npz directories of (a)'s clips and their
+    reconstructions with random I3D and Inception .pt files, every metric,
+    on the card and with --device cpu."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.cli import metrics_eval
+    from omnitokenizer_tpu_torch.eval.frechet import frechet_distance
+    from omnitokenizer_tpu_torch.eval.i3d import InceptionI3d
+    from omnitokenizer_tpu_torch.eval.inception import load_inception
+
+    gt = video.float().cpu().numpy()
+    for d, clips in (("gt", gt), ("gen", recon)):
+        os.makedirs(os.path.join(root, d))
+        for i, clip in enumerate(clips):  # (C, T, H, W), the model's [-0.5, 0.5]
+            np.savez(os.path.join(root, d, f"clip{i}.npz"), video=clip)
+    torch.save(he_normal(InceptionI3d(), 2).state_dict(), os.path.join(root, "i3d.pt"))
+    inc, _ = load_inception(None, device="cpu", seed=1)
+    torch.save(he_normal(inc, 3).state_dict(), os.path.join(root, "inception.pt"))
+    flags = ["--gen_dir", os.path.join(root, "gen"), "--gt_dir", os.path.join(root, "gt"),
+             "--i3d_path", os.path.join(root, "i3d.pt"), "--inception_path",
+             os.path.join(root, "inception.pt"),
+             "--metrics", "psnr,ssim,fvd,lpips,is,fid,sfid,prec_recall"]
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = metrics_eval.main(flags + ["--device", device])
+        torch.cuda.synchronize()
+        out[device + "_s"] = time.perf_counter() - t0
+        if device == "cuda":
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card, cpu = out["cuda"], out["cpu"]
+    frames = len(gt) * T
+    feats = np.random.RandomState(75).randn(2, frames, 2048)
+    t0 = time.perf_counter()  # one Frechet distance on the host (float64, two SVD roots)
+    frechet_distance(feats[0], feats[1])
+    frechet_s = time.perf_counter() - t0
+    errs = {k: abs(card[k] - cpu[k]) for k in ("psnr", "ssim", "precision", "recall")}
+    print(f"[13d] metrics_eval, {len(gt)} clips of {T}x{RES}^2 ({frames} frames): card "
+          f"{out['cuda_s']:.2f} s ({len(gt) / out['cuda_s']:.3f} clips/s, peak {peak:.2f} GiB), "
+          f"--device cpu "
+          f"{out['cpu_s']:.2f} s; |card - cpu|: " + ", ".join(f"{k} {v:.3e}"
+                                                               for k, v in errs.items())
+          + f"; one 2048-d Frechet distance on the host {frechet_s:.2f} s (FID and sFID take "
+            f"one each, FVD one at 400-d)")
+    print(f"[13d] Frechet values with random features (no bar: N < d leaves the matrix root "
+          f"ill-conditioned), card / cpu: " + ", ".join(
+              f"{k} {card[k]:.6g} / {cpu[k]:.6g}" for k in ("fvd", "fid", "sfid", "is")))
+    if not (errs["psnr"] <= CKPT_METRIC_TOL and errs["ssim"] <= CKPT_METRIC_TOL
+            and errs["precision"] <= 2 / frames and errs["recall"] <= 2 / frames):
+        raise AssertionError(f"metrics, card vs CPU: {errs}")
+    if any(card[k] is None or not math.isfinite(card[k])
+           for k in ("psnr", "ssim", "fvd", "is", "fid", "sfid", "precision", "recall")):
+        raise AssertionError(f"metrics on the card: {card}")
+    return {"card": card, "cpu": cpu, "card_s": out["cuda_s"], "cpu_s": out["cpu_s"],
+            "clips_per_s": len(gt) / out["cuda_s"], "peak_gib": peak, "abs_err": errs,
+            "frechet_2048_host_s": frechet_s}
+
+
+def phase13e_prec_recall() -> dict:
+    """precision_recall at the evaluator's size, timed beside its bound, and
+    the radii of a subset on the card against the CPU."""
+    from omnitokenizer_tpu_torch.eval.prec_recall import manifold_radii, precision_recall
+
+    g = torch.Generator("cuda").manual_seed(73)
+    ref = torch.randn(PR_N, PR_D, generator=g, device="cuda")
+    sample = torch.randn(PR_N, PR_D, generator=g, device="cuda")
+    sub = ref[:PR_SUBSET]
+    rel = rel_err(manifold_radii(sub).cpu(), manifold_radii(sub.cpu(), device="cpu"))
+    if not rel <= PR_RADII_REL_TOL:
+        raise AssertionError(f"radii, card vs CPU: {rel:.3e} > {PR_RADII_REL_TOL}")
+    precision_recall(ref[:PR_SUBSET], sample[:PR_SUBSET])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prec, rec = precision_recall(ref, sample)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    flops = 3 * 2 * PR_N ** 2 * PR_D  # the radii of each set and the folds: N^2 D MACs each
+    b = bound(flops, 2 * PR_N * PR_D * 4, PEAK_F32)
+    print(f"[13e] precision_recall {PR_N} x {PR_D} f32 (TF32 off): {secs:.3f} s, bound "
+          f"{b['bound_ms'] / 1e3:.3f} s ({flops / 1e12:.1f} TFLOP at {PEAK_F32 / 1e12:.0f} "
+          f"TFLOP/s, {b['bound_ms'] / 1e3 / secs:.1%} of it), peak {peak:.2f} GiB above the "
+          f"features; precision {prec:.4f} recall {rec:.4f}; radii of {PR_SUBSET} rows, card vs "
+          f"CPU, max-abs ratio {rel:.3e}")
+    return {"seconds": secs, "bound_s": b["bound_ms"] / 1e3, "bound_by": b["bound_by"],
+            "tflop": flops / 1e12, "peak_gib": peak, "precision": prec, "recall": rec,
+            "radii_rel_err": rel}
+
+
+def phase13_checkpoints() -> dict:
+    """Checkpoints in, scores out: (a) the flagship tokenizer, (b) the LM,
+    (c) DiT, each written in the JAX package's msgpack format and read back
+    through the entry points' loaders on the card; (d) metrics_eval on the
+    card against the CPU; (e) precision/recall at the evaluator's size."""
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(74)
+    video = (torch.rand(B, 3, T, RES, RES, generator=g) - 0.5).cuda()  # the model's range
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        paths["ckpt_tokenizer"], tok, recon = phase13a_tokenizer(root, video)
+        lm = phase13b_lm(root, os.path.join(root, "imagenet_k600.msgpack"))
+        paths["ckpt_dit_decode"], dit = phase13c_dit(root)
+        metrics = phase13d_metrics(root, video, recon)
+    del video, recon
+    torch.cuda.empty_cache()
+    pr = phase13e_prec_recall()
+    print(json.dumps({"checkpoints": {"tokenizer": tok, "lm": lm, "dit": dit},
+                      "metrics": metrics, "prec_recall": pr}))
+    print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2777,6 +3132,7 @@ def main() -> int:
     paths.update(phase10_lm())
     paths.update(phase11_diffusion())
     paths.update(phase12_lm_train())
+    paths.update(phase13_checkpoints())
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -2789,7 +3145,7 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-12 in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] phases 0-13 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

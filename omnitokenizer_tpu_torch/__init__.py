@@ -3,7 +3,9 @@ training (`training/`), the LM's serving path (`models/gpt.py`,
 `models/net2net.py`) and its training (`training/lm_loop.py`, with the causal
 flash attention kernels of `ops/kernels/flash_attn.py`), and diffusion
 synthesis (`diffusion/`, `models/dit.py`, `models/latte.py`,
-`training/diffusion_loop.py`).
+`training/diffusion_loop.py`), the JAX package's msgpack checkpoints read
+and written without flax (`utils/msgpack_io.py`, `cli/convert_ckpt.py`),
+and the generation metrics (`cli/metrics_eval.py`, `eval/prec_recall.py`).
 
 The JAX package `omnitokenizer_tpu` is the reference; this package mirrors
 its module layout and imports no JAX.

@@ -5,8 +5,9 @@ reference's DiT sample.py / sample_ddp.py).
         [--vae_ckpt VAE.ckpt] [--ddim] [--bf16] [--device cpu]
 
 The EMA weights by default (--no_ema: the trained ones) of a dit_train
-state_*.pt or a reference .pt (a raw state_dict or the train script's
-{'ema', 'model'} dict). Classifier-free guidance doubles the batch with the
+state_*.pt, a reference .pt (a raw state_dict or the train script's
+{'ema', 'model'} dict) or the JAX package's state_*.msgpack (its
+ema_params, or params with --no_ema). Classifier-free guidance doubles the batch with the
 null class; respaced DDPM over --num_sampling_steps (or DDIM with --ddim),
 without clipping. With --vae_ckpt the latents decode through the VAE into
 PNGs (mp4s for Latte); without, they are written as .npy, channels-first.
@@ -30,7 +31,8 @@ def build_parser(video: bool = False):
     p = argparse.ArgumentParser("latte_sample" if video else "dit_sample")
     add_common_diffusion_args(p, video)
     p.add_argument("--ckpt", type=str, required=True,
-                   help="state_*.pt from dit_train/latte_train, or a reference .pt")
+                   help="state_*.pt from dit_train/latte_train, a reference .pt, or the JAX "
+                        "package's state_*.msgpack")
     p.add_argument("--use_ema", action="store_true", default=True)
     p.add_argument("--no_ema", dest="use_ema", action="store_false")
     p.add_argument("--num_sampling_steps", type=int, default=250)
@@ -115,13 +117,12 @@ def generate(args, model, diffusion, adapter, video: bool) -> int:
 
 
 def main(argv=None, video: bool = False):
-    from ..convert import load_diffusion_state_dict, load_torch_diffusion_state_dict
+    from ..convert import load_diffusion_checkpoint, load_diffusion_state_dict
 
     args = build_parser(video).parse_args(argv)
-    if args.ckpt.endswith(".msgpack"):
-        raise NotImplementedError("the JAX package's msgpack states need flax; give a .pt")
-    model, _ = build_model(args, video, init=False)
-    load_diffusion_state_dict(model, load_torch_diffusion_state_dict(args.ckpt, args.use_ema))
+    model, cfg = build_model(args, video, init=False)
+    load_diffusion_state_dict(model, load_diffusion_checkpoint(args.ckpt, cfg.patch_size,
+                                                               args.use_ema))
     model = model.serving()
     return generate(args, model, make_diffusion(args, video), load_vae_adapter(args), video)
 

@@ -11,7 +11,8 @@ vae.encode(pixels) * 0.18215 each step (--synthetic_data: random latents,
 no VAE or data). A run resumes from the newest state_*.pt under
 --results_dir, writes one every --ckpt_every steps and at the end, and
 logs metrics.jsonl. --init_from seeds the parameters from a reference
-DiT/Latte .pt. One process on one device; data parallelism is not ported.
+DiT/Latte .pt (its EMA), a state_*.pt, or the JAX package's state_*.msgpack
+(its params, as the JAX CLI takes them). One process on one device; data parallelism is not ported.
 `latte_train` is `main(video=True)`.
 """
 
@@ -47,7 +48,8 @@ def build_parser(video: bool = False):
     p.add_argument("--schedule_sampler", type=str, default="uniform",
                    choices=["uniform", "loss-second-moment"])
     p.add_argument("--init_from", type=str, default=None,
-                   help="seed the parameters from a reference DiT/Latte .pt or a state_*.pt")
+                   help="seed the parameters from a reference DiT/Latte .pt, a state_*.pt or "
+                        "the JAX package's state_*.msgpack")
     p.add_argument("--synthetic_data", action="store_true",
                    help="train directly on random latents (no VAE or data needed)")
     if video:
@@ -189,14 +191,15 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
 
 
 def main(argv=None, video: bool = False):
-    from ..convert import load_diffusion_state_dict, load_torch_diffusion_state_dict
+    from ..convert import load_diffusion_checkpoint, load_diffusion_state_dict
 
     args = build_parser(video).parse_args(argv)
-    model, _ = build_model(args, video)
+    model, cfg = build_model(args, video)
     if args.init_from:
-        if args.init_from.endswith(".msgpack"):
-            raise NotImplementedError("the JAX package's msgpack states need flax; give a .pt")
-        load_diffusion_state_dict(model, load_torch_diffusion_state_dict(args.init_from))
+        # a JAX state's params (its :119-124), a torch file's EMA
+        use_ema = not args.init_from.endswith(".msgpack")
+        load_diffusion_state_dict(model, load_diffusion_checkpoint(args.init_from,
+                                                                   cfg.patch_size, use_ema))
         print(f"[{'latte' if video else 'dit'}_train] initialized params from {args.init_from}")
     adapter = None if args.synthetic_data else load_vae_adapter(args)
     batches = None

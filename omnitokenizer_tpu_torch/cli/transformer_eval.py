@@ -12,8 +12,9 @@ class: class-conditional generation with CFG, 8 classes a batch, one PNG
 frame_prediction: encode the first 2 latent frames of each clip of
   --data_path/--val_datalist, continue the rest with the LM, decode, and
   write pred*.npz (video, ground_truth).
-The tokenizer and the GPT load from the reference's checkpoints
-(utils/checkpoint.py, utils/gpt_checkpoint.py); the decode runs as CUDA
+The tokenizer and the GPT load from the reference's checkpoints or the JAX
+package's `.msgpack` files (utils/checkpoint.py, utils/gpt_checkpoint.py);
+the decode runs as CUDA
 graphs on the card unless --device cpu. Classes run in one process: the
 JAX CLI's tensor-parallel decode (--model_parallel) and its multi-process
 class split are not ported (ROADMAP.md, "Parallelism").
@@ -84,9 +85,6 @@ def build_model(args):
     from ..models.wrapper import OmniTokenizerVQGAN
     from ..utils.gpt_checkpoint import load_gpt_checkpoint
 
-    if args.gpt_ckpt.endswith(".msgpack"):
-        raise NotImplementedError("the JAX package's msgpack GPT checkpoints need flax and are "
-                                  "not read (ROADMAP.md); pass the reference's .ckpt")
     tok = OmniTokenizerVQGAN.load_from_checkpoint(args.vqvae, device=args.device)
     vocab = tok.cfg.n_codes + (0 if args.unconditional else args.class_cond_dim)
     if args.starts_with_sos and not args.unconditional:

@@ -7,14 +7,14 @@ checkpoints with auto-resume.
         --data_path DIR --train_datalist LIST --default_root_dir RUNS \\
         --starts_with_sos --class_first --sequence_length 1 --bf16 [--device cpu]
 
-Checkpoints land in <default_root_dir>/checkpoints/step_*.pt (the GPT's
-state_dict, the optimizer state, the step) every 3000 steps and at the end;
-a run resumes from the newest. One process on one device (the card unless
+--vqvae takes a reference .ckpt, the port's .pt or the JAX package's
+.msgpack (with its .cfg.json sidecar). Checkpoints land in
+<default_root_dir>/checkpoints/step_*.pt (the GPT's state_dict, the
+optimizer state, the step) every 3000 steps and at the end; a run resumes
+from the newest. One process on one device (the card unless
 --device cpu). Not ported, and refused: --pipeline_stages and
---model_parallel above 1 (ROADMAP.md, "Parallelism"), text and stft
-conditioning (ROADMAP.md, "The remaining host pieces"), and the JAX
-package's msgpack tokenizer checkpoints (ROADMAP.md, "The JAX package's
-msgpack checkpoints, read without flax").
+--model_parallel above 1 (ROADMAP.md, "Parallelism"), and text and stft
+conditioning (ROADMAP.md, "The remaining host pieces").
 """
 
 from __future__ import annotations
@@ -74,11 +74,6 @@ def build_model(args):
     from ..models.net2net import Net2NetTransformer
     from ..models.wrapper import OmniTokenizerVQGAN
 
-    if args.vqvae.endswith(".msgpack"):
-        raise NotImplementedError(
-            "the JAX package's msgpack tokenizer checkpoints need flax and are not read "
-            "(ROADMAP.md, \"The JAX package's msgpack checkpoints, read without flax\"); "
-            "pass the reference's .ckpt")
     tok = OmniTokenizerVQGAN.load_from_checkpoint(args.vqvae, device=args.device)
     first_stage_vocab = args.first_stage_vocab_size or tok.cfg.n_codes
     vocab = first_stage_vocab + (0 if args.unconditional else args.class_cond_dim)

@@ -10,7 +10,8 @@ video mode: PSNR over frames, codebook usage, and rFVD from I3D logits with
   i3d_pretrained_400.pt (--i3d_path).
 FVD and FID are computed only with real weights: random features give no
 metric. VAE mode reconstructs a posterior sample and keeps no usage, as
-the reference does. The model runs on the card unless --device cpu; the
+the reference does. CKPT is a reference .ckpt, a .pt of the port or a
+JAX .msgpack. The model runs on the card unless --device cpu; the
 result is printed and written to <save>/result.json.
 """
 

@@ -24,11 +24,21 @@ unfilled, or a shape that disagrees raises.
 `gpt_state_dict_from_jax(params)` turns the JAX LM's params (block{i}/query/
 kernel, ...) into the state_dict of the port's GPT, whose modules carry the
 reference's torch names (blocks.{i}.attn.query.weight, ...); it is strict in
-the same way.
+the same way. `dit_state_dict_from_jax` does the same for DiT and Latte.
+
+A leaf may be a numpy array (a JAX array the caller converted) or a CPU
+tensor as `utils.msgpack_io` reads it from the JAX package's files,
+bfloat16 included. Each map has its inverse, the port's weights as the JAX
+package's tree (`state_dict_to_jax`, `gpt_state_dict_to_jax`,
+`dit_state_dict_to_jax`), which `utils.msgpack_io.write_msgpack` writes in
+the JAX package's own file format. An inverse's leaves are numpy arrays,
+but a bfloat16 tensor stays a tensor (numpy has no bfloat16).
 """
 
 from __future__ import annotations
 
+import re
+import warnings
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -37,6 +47,49 @@ from torch import nn
 
 
 COLLECTIONS = ("params", "buffers", "batch_stats")
+
+
+def _np(value: Any) -> np.ndarray:
+    """A leaf as numpy: a tensor (bfloat16 through f32, which holds it
+    exactly), or np.asarray of anything else."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    return np.asarray(value)
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """`t` (a view, maybe permuted) in its own C-order memory: one copy, by
+    torch."""
+    return t.contiguous() if not t.is_contiguous() else t.clone()
+
+
+def _out(t: torch.Tensor) -> Any:
+    """A (permuted) port tensor as an inverse map's leaf: numpy, or a
+    bfloat16 tensor."""
+    t = _own(t)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _t32(value: Any) -> torch.Tensor:
+    """A leaf as an f32 CPU tensor, sharing the leaf's memory where it can
+    (the caller copies it once, transposed or not)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().float()
+    with warnings.catch_warnings():  # a read-only array: read here, never written
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+
+def _nest(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    """{path: leaf} -> nested dicts."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -73,14 +126,14 @@ def state_dict_from_jax(variables: Dict[str, Any], model: nn.Module) -> Dict[str
     unused = []
     for collection in COLLECTIONS:
         for path, value in _leaves(variables.get(collection, {})):
-            key, arr = _port_key(path, np.asarray(value))
+            key, arr = _port_key(path, _np(value))
             if key not in want:
                 unused.append("/".join((collection,) + path))
                 continue
             if tuple(arr.shape) != tuple(want[key].shape):
                 raise ValueError(f"{key}: JAX shape {tuple(arr.shape)} "
                                  f"!= port shape {tuple(want[key].shape)}")
-            out[key] = torch.tensor(np.array(arr), dtype=want[key].dtype)
+            out[key] = torch.tensor(arr, dtype=want[key].dtype)  # the one copy
     if unused:
         raise KeyError(f"JAX leaves with no port tensor: {unused}")
     missing = sorted(set(want) - set(out))
@@ -102,6 +155,44 @@ def load_train_state_from_jax(tree: Dict[str, Any], state) -> None:
              {"params": tree["params_d"][which], "batch_stats": tree["batch_stats_d"][which]})
     load(state.lpips, {"params": tree["lpips_params"]})
     state.step = int(tree["step"])
+
+
+def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of state_dict_from_jax for the tokenizer: `model`'s
+    state_dict as the JAX tokenizer's variables {"params": ..., "buffers":
+    ...}. A Linear of an attention or
+    feed-forward block was a raw `<name>_kernel` parameter of its flax
+    module (ops/attention.py), any other Linear a Dense `kernel`; PEG's
+    depthwise conv was `dsconv_kernel`, (d, 1, 3, 3, 3) -> (3, 3, 3, 1, d)."""
+    from .ops.attention import Attention, FeedForward
+
+    buffers = {n for n, _ in model.named_buffers()}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for key, value in model.state_dict().items():
+        *scope, leaf = key.split(".")
+        arr = value.detach().cpu()
+        if key in buffers:
+            flat[("buffers", *scope, leaf)] = _out(arr)
+            continue
+        module = model.get_submodule(".".join(scope)) if scope else model
+        if scope and scope[-1] == "dsconv":
+            path = (*scope[:-1], f"dsconv_{'kernel' if leaf == 'weight' else 'bias'}")
+            arr = arr.permute(2, 3, 4, 1, 0) if leaf == "weight" else arr
+        elif isinstance(module, nn.Linear):
+            owner = model.get_submodule(".".join(scope[:-1]))
+            if leaf == "bias":
+                path = (*scope, "bias")
+            elif isinstance(owner, (Attention, FeedForward)):
+                path = (*scope[:-1], f"{scope[-1]}_kernel")
+            else:
+                path = (*scope, "kernel")
+            arr = arr.T if leaf == "weight" else arr
+        elif isinstance(module, nn.modules.conv._ConvNd):
+            raise KeyError(f"{key}: a conv outside PEG has no JAX tokenizer leaf")
+        else:
+            path = (*scope, leaf)
+        flat[("params",) + path] = _out(arr)
+    return _nest(flat)
 
 
 # the JAX GPT's scopes -> the port's (the reference's torch) module names
@@ -128,7 +219,7 @@ def gpt_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for path, value in _leaves(params):
-        arr = np.asarray(value, np.float32)
+        t = _t32(value)
         if path in (("pos_emb",), ("vtokens_pos_emb",)):
             key = path[0]
         elif len(path) == 2 and path[0] in ("tok_emb", "ln_f", "head") and path[1] in _GPT_LEAVES:
@@ -139,7 +230,7 @@ def gpt_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             unused.append("/".join(path))
             continue
-        out[key] = torch.tensor(np.array(arr.T if path[-1] == "kernel" else arr))
+        out[key] = _own(t.T if path[-1] == "kernel" else t)
     if unused:
         raise KeyError(f"JAX leaves with no port tensor: {unused}")
     n_layer = len({k.split(".")[1] for k in out if k.startswith("blocks.")})
@@ -147,6 +238,36 @@ def gpt_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port tensors left unfilled: {missing}")
     return out
+
+
+def gpt_state_dict_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of gpt_state_dict_from_jax: the port GPT's state_dict as
+    the JAX GPT's params (nn.Linear weights transposed back to kernels)."""
+    scopes = {v: k for k, v in _GPT_SCOPES.items()}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for key, value in sd.items():
+        arr = value.detach().cpu()
+        m = re.fullmatch(r"blocks\.(\d+)\.(.+)\.(weight|bias)", key)
+        if key in ("pos_emb", "vtokens_pos_emb"):
+            path = (key,)
+        elif key == "tok_emb.weight":
+            path = ("tok_emb", "embedding")
+        elif key in ("ln_f.weight", "ln_f.bias"):
+            path = ("ln_f", "scale" if key.endswith("weight") else "bias")
+        elif key == "head.weight":
+            path, arr = ("head", "kernel"), arr.T
+        elif m and m.group(2) in scopes:
+            scope, leaf = scopes[m.group(2)], m.group(3)
+            if leaf == "bias":
+                path = (f"block{m.group(1)}", scope, "bias")
+            elif scope in ("ln1", "ln2"):
+                path = (f"block{m.group(1)}", scope, "scale")
+            else:
+                path, arr = (f"block{m.group(1)}", scope, "kernel"), arr.T
+        else:
+            raise KeyError(f"{key}: no JAX GPT leaf")
+        flat[path] = _out(arr)
+    return _nest(flat)
 
 
 # the JAX DiT/Latte scopes -> the port's (the reference's torch) module names
@@ -166,14 +287,14 @@ def dit_state_dict_from_jax(params: Dict[str, Any], patch_size: int) -> Dict[str
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for path, value in _leaves(params):
-        arr, scope, leaf = np.asarray(value, np.float32), path[:-1], path[-1]
+        arr, scope, leaf = _t32(value), path[:-1], path[-1]
         if scope == ("x_embed",):
             key = "x_embedder.proj"
             if leaf == "kernel":
                 p = patch_size
-                arr = arr.reshape(p, p, -1, arr.shape[-1]).transpose(3, 2, 0, 1)
+                arr = arr.reshape(p, p, -1, arr.shape[-1]).permute(3, 2, 0, 1)
         elif scope == ("y_embed", "table") and leaf == "embedding":
-            out["y_embedder.embedding_table.weight"] = torch.tensor(arr)
+            out["y_embedder.embedding_table.weight"] = _own(arr)
             continue
         elif scope in _DIT_SCOPES:
             key = _DIT_SCOPES[scope]
@@ -188,13 +309,48 @@ def dit_state_dict_from_jax(params: Dict[str, Any], patch_size: int) -> Dict[str
             continue
         if leaf == "kernel" and scope != ("x_embed",):
             arr = arr.T
-        out[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = torch.tensor(np.array(arr))
+        out[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = _own(arr)
     if unused:
         raise KeyError(f"JAX leaves with no port tensor: {unused}")
     return out
 
 
 latte_state_dict_from_jax = dit_state_dict_from_jax
+
+
+def dit_state_dict_to_jax(sd: Dict[str, torch.Tensor], patch_size: int) -> Dict[str, Any]:
+    """The inverse of dit_state_dict_from_jax: a port DiT's (or Latte's)
+    state_dict as the JAX model's params; the fixed sin-cos tables are no
+    params there and are left out."""
+    scopes = {v: k for k, v in _DIT_SCOPES.items()}
+    blocks = {v: k for k, v in _DIT_BLOCK.items()}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for key, value in sd.items():
+        if key in ("pos_embed", "temp_embed"):
+            continue
+        arr, (module, leaf) = value.detach().cpu(), key.rsplit(".", 1)
+        m = re.fullmatch(r"blocks\.(\d+)\.(.+)", module)
+        if key == "y_embedder.embedding_table.weight":
+            flat[("y_embed", "table", "embedding")] = _out(arr)
+            continue
+        if module == "x_embedder.proj":
+            scope = ("x_embed",)
+            if leaf == "weight":  # (D, C, p, p) -> (p * p * C, D)
+                D, C = value.shape[:2]
+                arr = arr.permute(2, 3, 1, 0).reshape(patch_size * patch_size * C, D)
+        elif module in scopes:
+            scope = scopes[module]
+        elif m and m.group(2) in blocks:
+            scope = (f"block_{m.group(1)}", blocks[m.group(2)])
+        else:
+            raise KeyError(f"{key}: no JAX DiT/Latte leaf")
+        if leaf == "weight" and module != "x_embedder.proj":
+            arr = arr.T
+        flat[scope + ("kernel" if leaf == "weight" else "bias",)] = _out(arr)
+    return _nest(flat)
+
+
+latte_state_dict_to_jax = dit_state_dict_to_jax
 
 
 def load_torch_diffusion_state_dict(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
@@ -209,6 +365,37 @@ def load_torch_diffusion_state_dict(path: str, use_ema: bool = True) -> Dict[str
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     return {k: torch.as_tensor(v) for k, v in ckpt.items()}
+
+
+def diffusion_state_field(raw: Any, field: str, where: str) -> Dict[str, Any]:
+    """The `field` tree (params or ema_params) of a JAX DiffusionTrainState
+    as msgpack_io reads it (params, ema_params, opt_state, step)."""
+    if not isinstance(raw, dict) or not isinstance(raw.get(field), dict):
+        have = sorted(raw) if isinstance(raw, dict) else type(raw).__name__
+        raise KeyError(f"{where}: no '{field}' tree (a DiffusionTrainState has params, "
+                       f"ema_params, opt_state, step; the file has {have})")
+    return raw[field]
+
+
+def diffusion_state_dict_from_msgpack(path: str, patch_size: int, use_ema: bool = True
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX DiffusionTrainState file (training/diffusion_loop.py's
+    state_*.msgpack) -> the reference-named state_dict of its ema_params
+    (params unless use_ema)."""
+    from .utils.msgpack_io import read_msgpack
+
+    field = "ema_params" if use_ema else "params"
+    return dit_state_dict_from_jax(diffusion_state_field(read_msgpack(path), field, path),
+                                   patch_size)
+
+
+def load_diffusion_checkpoint(path: str, patch_size: int, use_ema: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX state_*.msgpack (diffusion_state_dict_from_msgpack) or a torch
+    file (load_torch_diffusion_state_dict) as a reference-named state_dict."""
+    if path.endswith(".msgpack"):
+        return diffusion_state_dict_from_msgpack(path, patch_size, use_ema)
+    return load_torch_diffusion_state_dict(path, use_ema)
 
 
 def load_diffusion_state_dict(model: nn.Module, sd: Dict[str, Any]) -> None:

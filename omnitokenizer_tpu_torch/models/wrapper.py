@@ -1,7 +1,8 @@
 """User-facing tokenizer API (mirror of `omnitokenizer_tpu.models.wrapper`):
 
     vqgan = OmniTokenizerVQGAN.from_config(cfg, seed=0)   # on the card
-    vqgan = OmniTokenizerVQGAN.load_from_checkpoint(ckpt)  # a released .ckpt
+    vqgan = OmniTokenizerVQGAN.load_from_checkpoint(ckpt)  # a released .ckpt, a .pt
+                                                           # or a JAX .msgpack
     tokens = vqgan.encode(video, is_image=False)   # (B, C, T, H, W) in
     recons = vqgan.decode(tokens, is_image=False)  # (B, C, T, H, W) out
 
@@ -73,11 +74,13 @@ class OmniTokenizerVQGAN:
                              device: Any = "cuda", strict: bool = False
                              ) -> "OmniTokenizerVQGAN":
         """A reference Lightning .ckpt, a training checkpoint
-        (checkpoints/step_*.pt) or a save_tokenizer_checkpoint file, on the
-        card unless the caller asks for the CPU; see
+        (checkpoints/step_*.pt), a save_tokenizer_checkpoint file or the JAX
+        package's .msgpack (variables or a training state, with its
+        .cfg.json sidecar unless `cfg` is given), on the card unless the
+        caller asks for the CPU; see
         utils.checkpoint.load_tokenizer_checkpoint. With strict=False a
-        tensor the file lacks keeps its init value (from seed 0), and
-        `unfilled` names them."""
+        tensor a torch file lacks keeps its init value (from seed 0), and
+        `unfilled` names them; a .msgpack must hold every tensor."""
         from ..utils.checkpoint import load_tokenizer_checkpoint
 
         check_device(device)

@@ -11,7 +11,8 @@ a copy of them.
 
 Checkpoints are torch.save files of the state's state_dict ("model" and
 "ema" are reference-named state_dicts, so a sampler reads either). The JAX
-package's msgpack states need flax and are not read.
+package's state_*.msgpack files are read by the sample and train CLIs
+through `convert.load_diffusion_checkpoint` (params or ema_params).
 """
 
 from __future__ import annotations

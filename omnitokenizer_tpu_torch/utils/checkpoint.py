@@ -1,6 +1,8 @@
 """Tokenizer checkpoints (mirror of `omnitokenizer_tpu.utils.checkpoint`):
 the released Lightning `.ckpt` files, the training loop's own
-`checkpoints/step_*.pt` and `save_tokenizer_checkpoint`'s files.
+`checkpoints/step_*.pt`, `save_tokenizer_checkpoint`'s files, and the JAX
+package's `.msgpack` files (its `save_tokenizer_checkpoint`'s variables
+and its training loop's `step_*.msgpack` states).
 
 A released checkpoint is a Lightning dict {"state_dict", "hyper_parameters":
 {"args": argparse.Namespace}}. `config_from_args` reads the architecture from
@@ -12,9 +14,10 @@ scopes, so a reference key reaches a port key by composing that map with
 (out, in) -> flax (in, out) -> port (out, in), a depthwise PEG kernel
 (d, 1, 3, 3, 3) -> (3, 3, 3, 1, d) -> (d, 1, 3, 3, 3)).
 
-The JAX package's own msgpack checkpoints need flax to read and are not
-read here (ROADMAP.md); its weights reach the port through
-`convert.state_dict_from_jax`.
+A `.msgpack` file is read as the JAX loader reads it: the config from its
+`<path>.cfg.json` sidecar (or the caller's `cfg`), the generator's half
+of a training state, and every leaf through `convert.state_dict_from_jax`
+(strict both ways), read by `utils.msgpack_io` without flax.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import TokenizerConfig
-from ..convert import _port_key
+from ..convert import _port_key, state_dict_from_jax
 
 CNN_NOT_PORTED = ("patch_embed='cnn' is not ported (ROADMAP.md, \"The rest of tokenizer "
                   "inference\"): the port's tokenizer has only the linear patch embed")
@@ -285,11 +288,14 @@ def load_tokenizer_checkpoint(path: str, cfg: Optional[TokenizerConfig] = None,
     """-> (cfg, OmniTokenizerNet on the CPU, the keys left at init values).
 
     Reads a reference Lightning `.ckpt` (or a bare reference state_dict), the
-    training loop's `checkpoints/step_*.pt` (its generator half, "net"), or
-    a `save_tokenizer_checkpoint` file. Without `cfg` the architecture comes
-    from the Lightning hparams or from the `<path>.cfg.json` sidecar."""
+    training loop's `checkpoints/step_*.pt` (its generator half, "net"), a
+    `save_tokenizer_checkpoint` file, or a JAX `.msgpack` (variables or a
+    training state). Without `cfg` the architecture comes from the Lightning
+    hparams or from the `<path>.cfg.json` sidecar."""
     from ..models.tokenizer import OmniTokenizerNet, init_weights
 
+    if path.endswith(".msgpack"):
+        return load_jax_tokenizer_checkpoint(path, cfg)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     native = "net" in ckpt  # the port's own keys
     sd, args = ({k: v.numpy() for k, v in ckpt["net"].items()}, None) if native else (
@@ -314,6 +320,37 @@ def load_tokenizer_checkpoint(path: str, cfg: Optional[TokenizerConfig] = None,
         state, unfilled = convert_tokenizer_state(sd, cfg, template, strict=strict)
     net.load_state_dict(state)
     return cfg, net, unfilled
+
+
+def load_jax_tokenizer_checkpoint(path: str, cfg: Optional[TokenizerConfig] = None):
+    """-> (cfg, OmniTokenizerNet on the CPU, []) from a JAX `.msgpack`, as
+    the JAX package's load_tokenizer_checkpoint reads it
+    (`omnitokenizer_tpu/utils/checkpoint.py:374-391`): the config from the
+    sidecar unless given, and a training state's generator half (params_g,
+    buffers). Every tensor comes from the file: a leaf with no port tensor or
+    a port tensor the file lacks raises."""
+    from ..models.tokenizer import OmniTokenizerNet
+    from .msgpack_io import read_msgpack
+
+    if cfg is None and os.path.exists(_cfg_sidecar_path(path)):
+        with open(_cfg_sidecar_path(path)) as f:
+            cfg = config_from_json(json.load(f))
+    if cfg is None:
+        raise ValueError(f"{path}: a JAX msgpack checkpoint without a .cfg.json sidecar "
+                         "needs an explicit config (pass cfg)")
+    if cfg.patch_embed == "cnn":
+        raise NotImplementedError(CNN_NOT_PORTED)
+    raw = read_msgpack(path)
+    if not isinstance(raw, dict):
+        raise KeyError(f"{path}: a {type(raw).__name__}, not a tree of variables")
+    if "params_g" in raw:  # a training state (training/loop.save_state): its generator
+        raw = {"params": raw["params_g"], "buffers": raw["buffers"]}
+    net = OmniTokenizerNet(cfg)
+    try:
+        net.load_state_dict(state_dict_from_jax(raw, net))
+    except (KeyError, ValueError) as e:
+        raise type(e)(f"{path}: {e}") from None
+    return cfg, net, []
 
 
 def save_tokenizer_checkpoint(path: str, net: torch.nn.Module,

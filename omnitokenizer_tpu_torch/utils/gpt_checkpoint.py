@@ -9,9 +9,12 @@ blocks.{i}.attn.{key,query,value,proj}.{weight,bias},
 blocks.{i}.mlp.{0,2}.{weight,bias}, ln_f.{weight,bias}, head.weight), so a
 checkpoint loads with no key map and no transpose.
 
-The JAX package's own msgpack GPT checkpoints need flax to read and are not
-read here (ROADMAP.md); its weights reach the port through
-`convert.gpt_state_dict_from_jax`.
+The JAX package's own `.msgpack` GPT files (transformer_train's
+`step_*.msgpack`, the tuple (params, opt_state, step), stored as a dict
+keyed '0', '1', '2') are read without flax (`utils.msgpack_io`): the
+params, entry '0', through `convert.gpt_state_dict_from_jax`. The
+optimizer state is not read. The pipeline-parallel layout {"stacked",
+"rest"} is not read, as the JAX package's transformer_eval does not read it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Dict
 
 import torch
 
-from ..convert import gpt_keys
+from ..convert import gpt_keys, gpt_state_dict_from_jax
 from .checkpoint import load_torch_state_dict
 
 PREFIX = "transformer."
@@ -44,8 +47,29 @@ def gpt_state_dict_from_reference(sd: Dict) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(sd[k]).float().clone() for k in sorted(keep)}
 
 
+def gpt_state_dict_from_msgpack(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX transformer_train `.msgpack` -> the port GPT's state_dict."""
+    from .msgpack_io import read_msgpack
+
+    raw = read_msgpack(path)
+    params = raw.get("0") if isinstance(raw, dict) else None
+    if isinstance(params, dict) and {"stacked", "rest"} <= set(params):
+        raise NotImplementedError(f"{path}: the pipeline-parallel GPT layout (stacked, rest) "
+                                  "is not read (ROADMAP.md, \"Parallelism\")")
+    if not isinstance(params, dict):
+        have = sorted(raw) if isinstance(raw, dict) else type(raw).__name__
+        raise KeyError(f"{path}: not the JAX LM's (params, opt_state, step) tuple: entry '0' "
+                       f"is no params tree (the file has {have})")
+    try:
+        return gpt_state_dict_from_jax(params)
+    except KeyError as e:
+        raise KeyError(f"{path}: {e}") from None
+
+
 def load_gpt_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference Lightning GPT checkpoint (or a bare state_dict) -> the
-    port GPT's state_dict, for GPT.load_state_dict."""
+    """A reference Lightning GPT checkpoint (or a bare state_dict), or a JAX
+    `.msgpack` -> the port GPT's state_dict, for GPT.load_state_dict."""
+    if path.endswith(".msgpack"):
+        return gpt_state_dict_from_msgpack(path)
     sd, _ = load_torch_state_dict(path)
     return gpt_state_dict_from_reference(sd)

@@ -12,7 +12,13 @@ class-conditional CFG ids with int8 and buckets, frame prediction, and the
 CLI writing PNGs; the flash Function's gradients; transformer_train takes
 a step on PNG files. The diffusion modules (the Gaussian process, the
 timestep samplers, DiT, Latte, the training loop, the five CLIs) import
-with JAX, flax and optax unimportable, and train, resume and sample."""
+with JAX, flax and optax unimportable, and train, resume and sample. The
+checkpoint interchange and the generation metrics (the msgpack reader and
+writer, the key maps and their inverses, the loaders, convert_ckpt,
+download, prec_recall, metrics_eval) import and run with jax, flax, optax
+and the msgpack package unimportable: a tokenizer, a GPT and a DiT state
+written in the JAX package's format, read back through the CLIs' loaders
+and convert_ckpt, and metrics_eval over .npz directories."""
 
 import subprocess
 import sys
@@ -251,5 +257,81 @@ print("ok")
 def test_diffusion_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", DIFFUSION_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+INTERCHANGE_SCRIPT = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack"):
+    sys.modules[name] = None
+import importlib, json, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+MODULES = ["utils.msgpack_io", "convert", "utils.checkpoint", "utils.gpt_checkpoint",
+           "cli.convert_ckpt", "download", "eval.prec_recall", "cli.metrics_eval",
+           "cli.transformer_eval", "cli.transformer_train", "cli.dit_sample", "cli.dit_train"]
+for m in MODULES:
+    importlib.import_module("omnitokenizer_tpu_torch." + m)
+from omnitokenizer_tpu_torch import GPT, GPTConfig, OmniTokenizerVQGAN, TokenizerConfig, convert
+from omnitokenizer_tpu_torch.cli import convert_ckpt, dit_sample, metrics_eval
+from omnitokenizer_tpu_torch.download import resolve_checkpoint
+from omnitokenizer_tpu_torch.eval.prec_recall import precision_recall
+from omnitokenizer_tpu_torch.models.dit import DiT, dit_config
+from omnitokenizer_tpu_torch.utils.checkpoint import config_to_json
+from omnitokenizer_tpu_torch.utils.gpt_checkpoint import load_gpt_checkpoint
+from omnitokenizer_tpu_torch.utils.msgpack_io import read_msgpack, write_msgpack
+cfg = TokenizerConfig(embedding_dim=64, n_codes=64, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="tw", dec_block="tt", spatial_depth=2,
+                      temporal_depth=2, twod_window_size=2, heads=2, dim_head=32)
+tok = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cpu")
+gpt = GPT(GPTConfig(vocab_size=50, block_size=24, n_layer=2, n_head=2, n_embd=32))
+dcfg = dit_config("DiT-S/2", input_size=4, in_channels=4, num_classes=5)
+dit = DiT(dcfg)
+with tempfile.TemporaryDirectory() as root:
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    write_msgpack(p("tok.msgpack"), convert.state_dict_to_jax(tok.net))
+    with open(p("tok.msgpack.cfg.json"), "w") as f:
+        json.dump(config_to_json(cfg), f)
+    back = OmniTokenizerVQGAN.load_from_checkpoint(p("tok.msgpack"), device="cpu")
+    assert all(torch.equal(back.net.state_dict()[k], v) for k, v in tok.net.state_dict().items())
+    write_msgpack(p("gpt.msgpack"), (convert.gpt_state_dict_to_jax(gpt.state_dict()), None, 0))
+    sd = load_gpt_checkpoint(p("gpt.msgpack"))
+    assert all(torch.equal(sd[k], v) for k, v in gpt.state_dict().items())
+    tree = convert.dit_state_dict_to_jax(dit.state_dict(), 2)
+    write_msgpack(p("dit.msgpack"), {"params": tree, "ema_params": tree, "opt_state": {},
+                                     "step": np.asarray(3, np.int32)})
+    assert int(read_msgpack(p("dit.msgpack"))["step"]) == 3
+    convert_ckpt.main(["--src", p("tok.msgpack"), "--dst", p("tok.pt")])
+    convert_ckpt.main(["--kind", "dit", "--src", p("dit.msgpack"), "--dst", p("dit.pt")])
+    assert dit_sample.main(["--model", "DiT-S/2", "--image_size", "32", "--in_channels", "4",
+                            "--num_classes", "5", "--ckpt", p("dit.msgpack"), "--num_samples",
+                            "1", "--num_sampling_steps", "2", "--diffusion_steps", "8",
+                            "--noise_schedule", "squaredcos_cap_v2", "--sample_dir", p("s"),
+                            "--device", "cpu"]) == 1
+    assert resolve_checkpoint(p("tok.pt")) == p("tok.pt")
+    rng = np.random.RandomState(0)
+    for d in ("gen", "gt"):
+        os.makedirs(p(d))
+        for i in range(2):
+            np.savez(os.path.join(p(d), f"{i}.npz"),
+                     video=rng.uniform(-0.5, 0.5, (3, 16, 16, 3)).astype(np.float32))
+    res = metrics_eval.main(["--gen_dir", p("gen"), "--gt_dir", p("gt"), "--metrics",
+                             "psnr,ssim", "--device", "cpu"])
+    assert res["clips"] == 2 and np.isfinite(res["psnr"]) and np.isfinite(res["ssim"])
+prec, rec = precision_recall(rng.randn(30, 8), rng.randn(20, 8), device="cpu")
+assert 0 <= prec <= 1 and 0 <= rec <= 1
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "msgpack",
+                                                              "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_interchange_and_metrics_run_without_jax():
+    res = subprocess.run([sys.executable, "-c", INTERCHANGE_SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

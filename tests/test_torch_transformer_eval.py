@@ -149,8 +149,13 @@ def test_class_generation_npz_and_refusals(ckpts, tmp_path):
     assert img.shape == (3, 16, 16) and np.isfinite(img).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer_eval.main(flags + ["--model_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        transformer_eval.main(flags + ["--gpt_ckpt", "gpt.msgpack"])
+    # a JAX .msgpack LM is read (tests/test_torch_msgpack_cli.py); one that is not the
+    # JAX CLI's (params, opt_state, step) tuple raises, naming what it holds
+    from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+
+    write_msgpack(str(tmp_path / "gpt.msgpack"), {"params": {}})
+    with pytest.raises(KeyError, match="entry '0'"):
+        transformer_eval.main(flags + ["--gpt_ckpt", str(tmp_path / "gpt.msgpack")])
     if not torch.cuda.is_available():  # the card by default: no CPU fallback
         with pytest.raises(RuntimeError, match="no CUDA device"):
             transformer_eval.main(_class_flags(ckpts) + ["--save", str(tmp_path / "card")])

@@ -92,17 +92,28 @@ def gpt_configs(**kw):
     return JaxGPTConfig(**args), TorchGPTConfig(**args)
 
 
-def random_gpt_params(jcfg, seed: int = 0, **vtokens) -> dict:
+def _init_shapes(init, shapes_only: bool) -> dict:
+    """The params of `init()`, as numpy arrays, or with shapes_only as
+    jax.eval_shape's abstract leaves (no init runs, which is much faster for
+    a wide model; the dicts then come in sorted key order, so the same seed
+    fills other values than the concrete init's order does)."""
+    if shapes_only:
+        return jax.eval_shape(init)["params"]
+    return to_numpy_tree(init()["params"])
+
+
+def random_gpt_params(jcfg, seed: int = 0, shapes_only: bool = False, **vtokens) -> dict:
     """The JAX GPT's param tree (nested dicts of numpy arrays) with random
     values from a numpy seed: kernels and embeddings LeCun-normal, LayerNorm
     scales near 1, small biases, position tables N(0, 0.5) so that a wrong
-    position shows. `vtokens` are GPT's vtokens_* fields."""
+    position shows. `vtokens` are GPT's vtokens_* fields; see _init_shapes
+    for `shapes_only`."""
     from omnitokenizer_tpu.models.gpt import GPT as JaxGPT
 
     idx = jax.numpy.zeros((1, 4), jax.numpy.int32)
     cbox = jax.numpy.zeros((1, 4), jax.numpy.int32) if vtokens else None
-    shapes = to_numpy_tree(JaxGPT(jcfg, **vtokens).init(jax.random.PRNGKey(0), idx,
-                                                         cbox=cbox)["params"])
+    shapes = _init_shapes(lambda: JaxGPT(jcfg, **vtokens).init(jax.random.PRNGKey(0), idx,
+                                                               cbox=cbox), shapes_only)
     rng = np.random.RandomState(seed)
 
     def fill(path, v):
@@ -145,13 +156,14 @@ LATTE_SMALL = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=32, de
                    num_heads=2, num_frames=3, num_classes=10, extras=2)
 
 
-def random_diffusion_params(jax_model, example_args: tuple, seed: int = 0, **init_kw) -> dict:
+def random_diffusion_params(jax_model, example_args: tuple, seed: int = 0,
+                            shapes_only: bool = False, **init_kw) -> dict:
     """A JAX DiT's or Latte's param tree (nested dicts of numpy arrays) with
     every tensor random from a numpy seed, the adaLN-Zero ones included (the
     JAX init zeroes them, and a model that outputs 0 compares nothing):
     kernels N(0, 1/fan_in), biases N(0, 0.05^2), embedding tables N(0, 1)."""
-    shapes = to_numpy_tree(jax_model.init(jax.random.PRNGKey(0), *example_args,
-                                          **init_kw)["params"])
+    shapes = _init_shapes(lambda: jax_model.init(jax.random.PRNGKey(0), *example_args,
+                                                 **init_kw), shapes_only)
     rng = np.random.RandomState(seed)
 
     def fill(path, v):
