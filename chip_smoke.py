@@ -113,7 +113,27 @@ Phases (any failure raises and exits non-zero):
      sampling steps decoded through the f32 VAE (mha 4); (d) metrics_eval
      over .npz directories of (a)'s clips and reconstructions, every metric,
      on the card against --device cpu; (e) precision_recall on 50000 x 2048
-     f32 features timed beside its bound.
+     f32 features timed beside its bound;
+ 14. the tokenizer's variants and text-to-video: (a) five bf16 variants at
+     the flagship's width with every tensor random and BatchNorm's running
+     statistics off 0 and 1 (einsum on imagenet_only_config() and on the
+     flagship, patch_embed='cnn', both deferred pools at B=1, enc 'ttaw' /
+     dec 'nttt'), each round trip's launches asserted (no attention kernel
+     on a biased call) and held against its plain route at phase 3's bars
+     with frames/s and peak memory; the new paths' kernel shapes against
+     their plain versions; the plain attention of the deferred and biased
+     spatial calls timed beside SDPA; a small f32 cnn and einsum model card
+     against CPU; a cnn checkpoint as a reference .ckpt and as a JAX
+     msgpack with batch_stats, each loaded into a round trip bit-equal to
+     the source's. (b) LatteT2V at PixArt-alpha's widths with the JAX
+     CLI's defaults (28 x 1152, 4096-channel captions of 120 tokens from
+     the byte fallback, 16 frames of 32^2 latents, 8 -> 16 channels): f32
+     at 2 layers card against CPU, bf16 against f32 at full depth, ddim50
+     with CFG 7.5 on one prompt in bf16 (ms a step beside its FLOP bound,
+     clips/s, peak, kernels a step, device ms by group), the decode through
+     the f32 VAE (mha 8) against its plain route, and
+     latte_t2v_sample.main end to end from a JAX msgpack through the VAE.
+`--phases 14` (any comma list) runs phases 0, 1 and those alone.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
 The line before the last is a JSON object with a row per kernel and shape
@@ -565,45 +585,9 @@ def phase2_kernels() -> None:
 
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
-    # (b h w, H, 9, Dh) in bf16; q and k are l2-normalized, as the cosine
-    # attention hands them over, with its logit scale 8. The bf16 ones are the
-    # views that ops/attention.py:_attend hands over: (B, H, N, D) views of
-    # (B, N, H, D) memory, v inside the fused kv; the f32 ones the contiguous
-    # copies sdpa makes for the flash branch
-    def mha_inputs(shape, dtype):
-        b, h, n, d = shape
-        if dtype == torch.float32:
-            q, k = (F.normalize(randn(g, *shape), dim=-1) for _ in range(2))
-            return q, k, randn(g, *shape)
-        q, k = (F.normalize(randn(g, b, n, h, d), dim=-1).to(dtype).transpose(1, 2)
-                for _ in range(2))
-        kv = randn(g, b, n, 2 * h * d, dtype=dtype)
-        return q, k, kv[..., h * d:].view(b, n, h, d).transpose(1, 2)
-
-    for path, shape, dtype, causal, tol in (
-            ("vae", (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False, MHA_F32_REL_TOL),
-            ("rel", (B * hw, H, 1 + (T - 1) // 2, Dh), BF, True, KERNEL_REL_TOL)):
-        q, k, v = mha_inputs(shape, dtype)
-        bh, n = shape[0] * shape[1], shape[2]
-        err = compare(f"mha {dtype} causal={causal}", mh.mha(q, k, v, 8.0, causal),
-                      mh.mha_plain(q, k, v, 8.0, causal), tol)
-
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=8.0)
-
-        if dtype == BF and mh.mha(q, k, v, 8.0, causal).stride() != q.stride():
-            raise AssertionError("mha: the output on views does not take q's layout")
-
-        print(f"[2] mha ({path}): library call vs plain max_abs "
-              f"{max_abs(library(), mh.mha_plain(q, k, v, 8.0, causal)):.3e}; "
-              f"it runs {device_kernels(library)}")
-        pairs = n * (n + 1) // 2 if causal else n * n
-        flops, nbytes = 4 * bh * pairs * Dh, 4 * bh * n * Dh * q.element_size()
-        record("2", "mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
-               lambda: mh.mha_plain(q, k, v, 8.0, causal),
-               bound(flops, nbytes, PEAK_BF16) if dtype == BF
-               else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
-               library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
+    # (b h w, H, 9, Dh) in bf16
+    check_mha("2", "vae", g, (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False)
+    check_mha("2", "rel", g, (B * hw, H, 1 + (T - 1) // 2, Dh), BF, True)
     mha_f32_floor(mh, g)
     # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D)
     # projections; then the long-sequence recipes' shape, where the kernels are
@@ -611,6 +595,43 @@ def phase2_kernels() -> None:
     # of 96; no phase drives it, so its launches are null)
     check_flash("2", "lm_train", LM_TRAIN_B, LM_HEADS, LM_BLOCK, LM_WIDTH // LM_HEADS)
     check_flash("2", "lm_train_ucf", 4, LM_HEADS, 5121, LM_WIDTH // LM_HEADS)
+
+
+def check_mha(tag, path, g, shape, dtype, causal) -> None:
+    """mha at one path's (B, H, N, D) against its plain version: q and k
+    l2-normalized, as the cosine attention hands them over, with its logit
+    scale 8. The bf16 ones are the views that ops/attention.py:_attend hands
+    over: (B, H, N, D) views of (B, N, H, D) memory, v inside the fused kv;
+    the f32 ones the contiguous copies sdpa makes for the flash branch."""
+    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
+
+    b, h, n, d = shape
+    if dtype == torch.float32:
+        q, k = (F.normalize(randn(g, *shape), dim=-1) for _ in range(2))
+        v, tol = randn(g, *shape), MHA_F32_REL_TOL
+    else:
+        q, k = (F.normalize(randn(g, b, n, h, d), dim=-1).to(dtype).transpose(1, 2)
+                for _ in range(2))
+        kv = randn(g, b, n, 2 * h * d, dtype=dtype)
+        v, tol = kv[..., h * d:].view(b, n, h, d).transpose(1, 2), KERNEL_REL_TOL
+    err = compare(f"mha {dtype} causal={causal}", mh.mha(q, k, v, 8.0, causal),
+                  mh.mha_plain(q, k, v, 8.0, causal), tol)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=8.0)
+
+    if dtype == BF and mh.mha(q, k, v, 8.0, causal).stride() != q.stride():
+        raise AssertionError("mha: the output on views does not take q's layout")
+    print(f"[{tag}] mha ({path}): library call vs plain max_abs "
+          f"{max_abs(library(), mh.mha_plain(q, k, v, 8.0, causal)):.3e}; "
+          f"it runs {device_kernels(library)}")
+    pairs = n * (n + 1) // 2 if causal else n * n
+    flops, nbytes = 4 * b * h * pairs * d, 4 * b * h * n * d * q.element_size()
+    record(tag, "mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
+           lambda: mh.mha_plain(q, k, v, 8.0, causal),
+           bound(flops, nbytes, PEAK_BF16) if dtype == BF
+           else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
+           library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
 
 
 FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-2, 2e-2  # bf16 outputs vs f32 math on the same bf16 inputs
@@ -791,14 +812,15 @@ def route_bars(tag: str, model, video: torch.Tensor, idx: torch.Tensor, lat_tol:
         raise AssertionError(f"kernel path is {floor_k:.3e} from f32, plain {floor_p:.3e}")
 
 
-def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
+def bf16_slice(tag: str, cfg, expected: dict, batch: int = B, model=None, ref32=None) -> dict:
     """A bf16 VQ round trip at full width through OmniTokenizerVQGAN: launch
     counts, then the slice bars against the plain bf16 path on the same
-    weights and against the f32 model, then frames/s of both paths."""
+    weights and against the f32 model (`ref32`, else the same seed's), then
+    frames/s of both paths. `model`: the bf16 model, else from_config's."""
     from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
     from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda").serving()
+    model = (model or OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda")).serving()
     g = torch.Generator().manual_seed(1)
     video = (torch.rand(batch, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
     torch.cuda.synchronize()
@@ -811,21 +833,27 @@ def bf16_slice(tag: str, cfg, expected: dict, batch: int = B) -> dict:
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
-    t, hw = 1 + (T - 1) // cfg.temporal_patch_size, RES // cfg.patch_size
+    pools = sum(cfg.enc_block.count(c) for c in "aml")  # the encoder's 2 x 2 pools
+    t, hw = 1 + (T - 1) // cfg.temporal_patch_size, RES // cfg.patch_size // 2 ** pools
     if tuple(recon.shape) != (batch, 3, T, RES, RES) or not bool(torch.isfinite(recon).all()):
         raise AssertionError(f"bad reconstruction {tuple(recon.shape)}")
     idx = aux["encodings"]
     if tuple(idx.shape) != (batch, t, hw, hw) or int(idx.min()) < 0 or int(idx.max()) >= cfg.n_codes:
         raise AssertionError("bad indices")
 
-    route_bars(tag, model, video, idx, LATENT_REL_TOL, DECODE_REL_TOL)
+    route_bars(tag, model, video, idx, LATENT_REL_TOL, DECODE_REL_TOL, ref32=ref32)
     xl = video.permute(0, 2, 3, 4, 1)
     with torch.inference_mode(), train_kernel_ops("0"):
         fps_k, mem_k = fps_and_peak(lambda: model.reconstruct(video, is_image=False), batch * T)
         fps_p, mem_p = fps_and_peak(lambda: plain_vq_round_trip(model, xl), batch * T)
     print(f"[{tag}] round trip B={batch} {T}x{RES}^2 bf16: kernel path {fps_k:.2f} frames/s "
           f"(peak {mem_k:.2f} GiB), plain path {fps_p:.2f} frames/s (peak {mem_p:.2f} GiB)")
+    SLICE_STATS[tag] = {"batch": batch, "fps": fps_k, "peak_gib": mem_k, "plain_fps": fps_p,
+                        "plain_peak_gib": mem_p}
     return counts
+
+
+SLICE_STATS: dict = {}  # frames/s and peak memory of each bf16 round trip, by phase tag
 
 
 def fps_and_peak(fn, frames: int, iters: int = 5):
@@ -1447,7 +1475,7 @@ FEATURES_REL_TOL = 1e-3    # I3D logits / Inception features, card vs CPU, f32
 
 def reference_tokenizer_state(cfg, seed: int = 0) -> dict:
     """A state_dict in the reference's key scheme (Lightning's names for the
-    linear-patch-embed tokenizer, as tests/test_checkpoint.py writes them)
+    tokenizer, as tests/test_checkpoint.py writes them, the cnn patch embed's too)
     with random values from `seed` at a trained model's scales, plus keys of
     the discriminators and LPIPS that the tokenizer's loader skips."""
     import numpy as np
@@ -1506,7 +1534,21 @@ def reference_tokenizer_state(cfg, seed: int = 0) -> dict:
         ones(f"{prefix}.norm_out.gamma", d)
         zeros(f"{prefix}.norm_out.beta", d)
 
-    for name, n_in in (("to_patch_emb_first_frame", c * p * p), ("to_patch_emb", c * pt * p * p)):
+    def norm(key, n):  # a cnn Normalize (BatchNorm), its running statistics too
+        ones(f"{key}.weight", n)
+        small(f"{key}.bias", n)
+        sd[f"{key}.running_mean"] = 0.1 * rng.standard_normal(n)
+        sd[f"{key}.running_var"] = rng.uniform(0.5, 1.5, n)
+        sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    cnn = cfg.patch_embed == "cnn"
+    for name, kt in (("to_patch_emb_first_frame", 1), ("to_patch_emb", pt)):
+        n_in = c * kt * p * p
+        if cnn:  # Conv3d, Normalize
+            w(f"encoder.{name}.0.weight", d, c, kt, p, p)
+            small(f"encoder.{name}.0.bias", d)
+            norm(f"encoder.{name}.1", d)
+            continue
         ones(f"encoder.{name}.1.weight", n_in)
         small(f"encoder.{name}.1.bias", n_in)
         w(f"encoder.{name}.2.weight", d, n_in)
@@ -1518,9 +1560,14 @@ def reference_tokenizer_state(cfg, seed: int = 0) -> dict:
     transformer("encoder.enc_temporal_transformer", "t" * cfg.temporal_depth, False)
     transformer("decoder.dec_temporal_transformer", "t" * cfg.temporal_depth, False)
     transformer("decoder.dec_spatial_transformer", cfg.dec_block, rel)
-    for name, n_out in (("to_pixels_first_frame", c * p * p), ("to_pixels", c * pt * p * p)):
-        w(f"decoder.{name}.0.weight", n_out, d)
-        small(f"decoder.{name}.0.bias", n_out)
+    for name, kt in (("to_pixels_first_frame", 1), ("to_pixels", pt)):
+        if cnn:  # Rearrange, ConvTranspose3d, Normalize
+            w(f"decoder.{name}.1.weight", d, c, kt, p, p, fan_in=d)
+            small(f"decoder.{name}.1.bias", c)
+            norm(f"decoder.{name}.2", c)
+            continue
+        w(f"decoder.{name}.0.weight", c * kt * p * p, d)
+        small(f"decoder.{name}.0.bias", c * kt * p * p)
     code_out = cfg.codebook_dim * (2 if cfg.use_vae else 1)
     w("pre_vq_conv.1.weight", code_out, d)
     small("pre_vq_conv.1.bias", code_out)
@@ -3114,25 +3161,464 @@ def phase13_checkpoints() -> dict:
     return paths
 
 
-def main() -> int:
+# -- phase 14: the tokenizer's variants and text-to-video Latte ----------------------------------
+# (a) the flagship's width (512, 8 heads of 64, depth 4 + 4) in bf16 under the configurations the
+# port serves beside the linear/sdpa flagship, random weights from seed 0 with every tensor filled
+# and BatchNorm's running statistics away from 0 and 1. A call that carries a bias (einsum mode)
+# reaches no attention kernel: its logits take the bias in the plain math.
+_NONE = {k: 0 for k in KERNELS}
+VARIANTS = {  # name: (overrides of the config, the config, batch, launches in one round trip)
+    # 'rel' CPB on the spatial calls, AliBi on the causal temporal ones: ln_qkv and geglu_ff only
+    "einsum_rel": (dict(attn_bias_mode="einsum"), "imagenet_only", B,
+                   {**_NONE, "geglu_ff": 16, "ln_qkv": 14, "vq_argmin": 1}),
+    # RoPE: the spatial calls carry no bias (cosine_mha), the temporal ones AliBi (plain)
+    "einsum_rope": (dict(attn_bias_mode="einsum"), "imagenet_k600", B,
+                    {**_NONE, "geglu_ff": 16, "ln_qkv": 14, "cosine_mha": 6, "vq_argmin": 1}),
+    # the strided-conv patch embed and its BatchNorm: the flagship's stacks
+    "cnn": (dict(patch_embed="cnn"), "imagenet_k600", B, EXPECTED_LAUNCHES["vq"]),
+    # half patches: the spatial stacks at 64 x 64 = 4096 tokens, above cosine_mha's and mha's
+    # N <= 2048 (plain), the temporal ones at 9 frames (mha's small branch, causal)
+    "defer": (dict(defer_temporal_pool=True, defer_spatial_pool=True), "imagenet_k600", 1,
+              {**_NONE, "geglu_ff": 16, "ln_qkv": 14, "mha": 8, "vq_argmin": 1}),
+    # encoder 'ttaw': 2 cosine_mha at 32^2, a 2 x 2 average pool to 16^2, a window block; the
+    # temporal stacks at 16^2; decoder 'nttt': nearest x2 back to 32^2, 3 cosine_mha
+    "pool": (dict(enc_block="ttaw", dec_block="nttt"), "imagenet_k600", B,
+             {**_NONE, "geglu_ff": 16, "ln_qkv": 13, "cosine_mha": 5, "small_n_attention": 8,
+              "vq_argmin": 1}),
+}
+SMALL_VARIANT_REL_TOL = 1e-4  # f32 card vs CPU, whole-tensor
+
+
+def filled_tokenizer(cfg, seed: int = 0, device: str = "cuda"):
+    """OmniTokenizerVQGAN of `cfg` with every tensor random from `seed`:
+    from_config's LeCun-normal kernels and codebook, then every 1-D weight
+    (norms, scales) 1 + N(0, 0.1^2), every bias N(0, 0.02^2), BatchNorm's
+    running mean N(0, 0.1^2) and variance U(0.5, 1.5). The same seed fills
+    the same values at any dtype."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN
+
+    model = OmniTokenizerVQGAN.from_config(cfg, seed=seed, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.net.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if t.ndim != 1 or not t.is_floating_point() or name.startswith("codebook."):
+                continue
+            if leaf == "var":
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif leaf == "mean":
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif leaf.endswith("bias"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.02)
+            else:
+                t.copy_(1 + 0.1 * torch.randn(t.shape, generator=g))
+    model.net.to(device)
+    return model
+
+
+def reference_state_from(net, cfg) -> dict:
+    """`net`'s tensors under the reference's Lightning keys, in its layouts:
+    each key's index map from utils/checkpoint.py:port_key, applied to an
+    arange, inverts the layout transform exactly; the keys the tokenizer's
+    loader skips keep reference_tokenizer_state's values."""
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.utils.checkpoint import port_key
+
+    port = {k: v.detach().float().cpu().numpy() for k, v in net.state_dict().items()}
+    out = {}
+    for key, val in reference_tokenizer_state(cfg, seed=0).items():
+        k, idx = port_key(key, np.arange(val.numel()).reshape(tuple(val.shape)), cfg)
+        if k is None:
+            out[key] = val
+            continue
+        ref = np.empty(val.numel(), np.float32)
+        ref[idx.astype(np.int64).ravel()] = port[k].ravel()
+        out[key] = torch.from_numpy(ref.reshape(tuple(val.shape)))
+    return out
+
+
+def phase14a_variants() -> dict:
+    """The five variants' bf16 round trips (launches, the kernel route
+    against the plain route, frames/s and peak memory); each new path's
+    kernel shapes against their plain versions; a small f32 cnn and einsum
+    model on the card against the CPU; a cnn checkpoint as a reference .ckpt
+    and as a JAX msgpack with batch_stats, each loaded on the card into a
+    round trip bit-equal to the source model's."""
+    import argparse
+
+    from omnitokenizer_tpu_torch import (OmniTokenizerVQGAN, TokenizerConfig,
+                                         imagenet_k600_config, imagenet_only_config)
+    from omnitokenizer_tpu_torch.convert import state_dict_to_jax
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.utils.checkpoint import config_to_json
+    from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+
+    bases = {"imagenet_k600": imagenet_k600_config, "imagenet_only": imagenet_only_config}
+    paths = {}
+    for name, (kw, base, batch, expected) in VARIANTS.items():
+        cfg = bases[base]().replace(dtype=BF, **kw)
+        t0 = time.perf_counter()
+        ref32 = filled_tokenizer(cfg.replace(dtype=torch.float32))
+        paths[name] = bf16_slice(f"14a {name}", cfg, expected, batch,
+                                 model=filled_tokenizer(cfg), ref32=ref32)
+        del ref32
+        torch.cuda.empty_cache()
+        print(f"[14a {name}] {kw} on {base}, B={batch}: {time.perf_counter() - t0:.1f} s")
+
+    # the new paths' kernel shapes (the einsum and cnn variants run the flagship's and the
+    # stage-1 tokenizer's, phase 2's rows), with phase 2's weights
+    g = torch.Generator().manual_seed(14)
+    D, H, Dh, inner = 512, 8, 64, int(4 * 2 / 3 * 512)
+    gamma, ln_w, ln_b = 1 + randn(g, D, scale=0.1), 1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1)
+    wq = randn(g, D, D, scale=D ** -0.5, dtype=BF)
+    wkv = randn(g, 2 * D, D, scale=D ** -0.5, dtype=BF)
+    w1, w2 = randn(g, 2 * inner, D, scale=D ** -0.5), randn(g, D, inner, scale=inner ** -0.5)
+    qs, ks, emb = 1 + randn(g, Dh, scale=0.1), 1 + randn(g, Dh, scale=0.1), randn(g, 8192, 8)
+    for path, M in (("defer", 9 * 64 * 64), ("pool", B * 5 * 16 * 16)):
+        x = randn(g, M, D, dtype=BF)
+        check_ln_qkv("14a", path, x, gamma, wq, wkv)
+        check_geglu("14a", path, x, ln_w, ln_b, w1, w2)
+    check_mha("14a", "defer", g, (64 * 64, H, 9, Dh), BF, True)
+    check_small_n("14a", "pool", randn(g, B * 256, 5, H * Dh, dtype=BF),
+                  randn(g, B * 256, 5, 2 * H * Dh, dtype=BF), qs, ks, H, Dh)
+    for path, M in (("defer", 5 * 1024), ("pool", B * 5 * 256)):
+        check_vq("14a", path, F.normalize(randn(g, M, 8), dim=-1).contiguous(), emb)
+
+    # what the plain attention of these paths costs: the deferred encoder's spatial calls at
+    # (9, 8, 4096, 64), 6 a round trip, and einsum_rel's biased spatial calls at (36, 8, 1024,
+    # 64) with the CPB bias, 6 a round trip; bf16, SDPA on the same inputs beside them
+    from omnitokenizer_tpu_torch.ops.kernels.mha import mha_plain
+
+    for path, (b_, n) in (("defer", (9, 4096)), ("einsum_rel", (B * 9, 1024))):
+        q, k, v = (randn(g, b_, H, n, Dh, dtype=BF) for _ in range(3))
+        bias = randn(g, H, n, n) if path == "einsum_rel" else None
+        plain_ms = cuda_ms(lambda: mha_plain(q, k, v, 8.0, False, bias), iters=3, warmup=1)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if bias is None else bias.to(BF), scale=8.0), iters=3,
+            warmup=1)
+        print(f"[14a] {path}: the plain attention of a spatial call ({b_}, {H}, {n}, {Dh}) "
+              f"bf16{' + bias' if bias is not None else ''}: {plain_ms:.4f} ms (6 a round trip: "
+              f"{6 * plain_ms:.2f} ms); SDPA on the same inputs {sdpa_ms:.4f} ms")
+        del q, k, v, bias
+    torch.cuda.empty_cache()
+
+    # a small f32 cnn (BatchNorm) and einsum ('rel': CPB and AliBi) model, card against CPU
+    small = TokenizerConfig(embedding_dim=128, n_codes=256, resolution=64, sequence_length=9,
+                            enc_block="tw", dec_block="tt", spatial_depth=2, temporal_depth=2,
+                            twod_window_size=4, heads=2, dim_head=64, spatial_pos="rel")
+    video = torch.rand(2, 3, 9, 64, 64, generator=torch.Generator().manual_seed(15)) * 2 - 1
+    for kw in (dict(patch_embed="cnn"), dict(attn_bias_mode="einsum")):
+        out = {d: filled_tokenizer(small.replace(**kw), device=d).reconstruct(video.to(d), False)
+               for d in ("cpu", "cuda")}
+        err = rel_norm(out["cuda"][0].cpu(), out["cpu"][0])
+        same = torch.equal(out["cuda"][1]["encodings"].cpu(), out["cpu"][1]["encodings"])
+        print(f"[14a] small f32 {kw}: card vs CPU pixels rel err {err:.3e} (bar "
+              f"{SMALL_VARIANT_REL_TOL}), indices equal {same}")
+        if not (same and err <= SMALL_VARIANT_REL_TOL):
+            raise AssertionError(f"small f32 {kw}: card vs CPU {err:.3e}, indices equal {same}")
+
+    # a cnn flagship's weights as a reference .ckpt and as a JAX msgpack (batch_stats), loaded
+    cfg = imagenet_k600_config().replace(dtype=BF, patch_embed="cnn")
+    source = filled_tokenizer(cfg)
+    src = source.net  # its f32 masters, written before serving() casts them
+    clip = (torch.rand(B, 3, T, RES, RES, generator=torch.Generator().manual_seed(16)) - 0.5)
+    with tempfile.TemporaryDirectory() as root:
+        ckpt, mp = os.path.join(root, "cnn.ckpt"), os.path.join(root, "cnn.msgpack")
+        hp = argparse.Namespace(**{k: v for k, v in config_to_json(cfg).items() if k != "dtype"})
+        torch.save({"state_dict": reference_state_from(src, cfg),
+                    "hyper_parameters": {"args": hp}}, ckpt)
+        write_msgpack(mp, state_dict_to_jax(src))
+        with open(mp + ".cfg.json", "w") as f:
+            json.dump(config_to_json(cfg), f)
+        want = source.reconstruct(clip, is_image=False)
+        for path in (ckpt, mp):
+            t0 = time.perf_counter()
+            model = OmniTokenizerVQGAN.load_from_checkpoint(path, cfg=cfg)  # the card
+            load_s = time.perf_counter() - t0
+            reset_launch_counts()
+            got = model.reconstruct(clip, is_image=False)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            stats = model.net.encoder.to_patch_emb_cnorm.norm.var
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1]["encodings"], want[1]["encodings"])
+                    and counts == EXPECTED_LAUNCHES["vq"] and not bool((stats == 1).all())
+                    and not model.unfilled):
+                raise AssertionError(f"{os.path.basename(path)}: round trip unequal to the "
+                                     f"source's, launches {counts}, unfilled {model.unfilled[:3]}")
+            print(f"[14a] cnn {os.path.basename(path)} ({_file_gb(path):.3f} GB) loaded on the "
+                  f"card in {load_s:.2f} s: bf16 round trip of B={B} clips bit-equal to the "
+                  f"source model's, indices too, BatchNorm statistics from the file; launches "
+                  f"{counts}")
+            del model
+    del source, src
+    torch.cuda.empty_cache()
+    return paths
+
+
+# (b) LatteT2V at PixArt-alpha's widths with the JAX CLI's defaults (28 layers, 16 heads of 72,
+# T5-XXL captions of 4096 channels, 120 tokens, patch 2, gelu-approximate with attention bias,
+# 16 frames) at --image_size 256 (32^2 latents) and --in_channels 8 --out_channels 16 (the VAE's
+# latents, learned sigma); random weights from seed 0 with every tensor filled N(0, 0.02^2),
+# captions from the byte fallback (no T5 weights are at hand)
+T2V_FLAGS = ["--image_size", "256", "--in_channels", "8", "--out_channels", "16", "--device",
+             "cuda"]
+T2V_STEPS = 50
+# the f32 VAE's decode of 16 latent frames: the decoder's 4 spatial 't' blocks and its 4
+# temporal ones (N = 16: mha's small branch, causal)
+T2V_DECODE_LAUNCHES = {**_NONE, "mha": 8}
+
+
+def t2v_flops(cfg, rows: int, frames: int, tokens: int) -> float:
+    """FLOPs of one forward of `rows` samples, the products the code runs:
+    spatial blocks (self-attention, caption cross-attention over `tokens`,
+    feed-forward), temporal blocks, the caption projection, the embeds and
+    the final layer."""
+    D, p, Cc = cfg.inner_dim, cfg.patch_size, cfg.caption_channels
+    N = (cfg.sample_size // p) ** 2
+    ff = 2 * 2 * D * 4 * D
+    spatial = frames * (N * (2 * 4 * D * D + 4 * N * D + 2 * 2 * D * D + 4 * tokens * D + ff)
+                        + tokens * 2 * 2 * D * D)
+    temporal = N * frames * (2 * 4 * D * D + 4 * frames * D + ff)
+    other = (2 * tokens * (Cc * D + D * D) + 2 * (256 * D + D * D + 6 * D * D)
+             + frames * N * 2 * D * (cfg.in_channels * p * p + p * p * cfg.out_ch))
+    return float(rows * (cfg.num_layers * (spatial + temporal) + other))
+
+
+def t2v_profile(fn) -> dict:
+    """One call of fn() under torch.profiler: device ms by group (GEMMs,
+    attention, the rest: norms, modulation, activations, casts) and the
+    eight longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def self_dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    def group(key: str) -> str:
+        if any(k in key for k in ("fmha", "flash", "attention", "sdpa", "softmax")):
+            return "attention"
+        if any(k in key for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            return "gemm"
+        return "other"
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), key=self_dev,
+                     reverse=True)
+    ms = dict.fromkeys(("gemm", "attention", "other"), 0.0)
+    for e in kernels:
+        ms[group(e.key)] += self_dev(e)
+    print("[14b] a profiled sampling step, device ms by group: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    for e in kernels[:8]:
+        print(f"[14b]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+    return ms
+
+
+def phase14b_t2v() -> dict:
+    """LatteT2V: the f32 forward at 2 layers card against CPU, bf16 against
+    f32 at full depth, ddim50 sampling with CFG 7.5 in bf16 decoded through
+    the f32 VAE, and the sample CLI end to end from a JAX msgpack."""
+    import importlib.util
+
+    import numpy as np
+
+    from omnitokenizer_tpu_torch import DiffusionVAEAdapter, imagenet_k600_config
+    from omnitokenizer_tpu_torch.cli import latte_t2v_sample as cli
+    from omnitokenizer_tpu_torch.convert import latte_t2v_state_dict_to_jax
+    from omnitokenizer_tpu_torch.models.latte_t2v import LatteT2V
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.utils import media
+    from omnitokenizer_tpu_torch.utils.checkpoint import save_tokenizer_checkpoint
+    from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+
+    args = cli.build_parser().parse_args(T2V_FLAGS)
+    cfg = cli.load_t2v_config(args, torch.float32)
+    prompts = ["a corgi running on the beach"]
+    emb, mask = cli.encode_prompts(args, prompts)
+    neg, neg_mask = cli.encode_prompts(args, [args.negative_prompt])
+    ctx = torch.from_numpy(np.concatenate([neg, emb])).float()
+    keep = torch.from_numpy(np.concatenate([neg_mask, mask]))
+    lat, C = cfg.sample_size, cfg.in_channels
+    g = torch.Generator().manual_seed(90)
+
+    # f32 at full width and 2 layers, 4 frames of the CFG batch: card against CPU
+    with torch.device("cuda"):
+        two = fill_random(LatteT2V(cfg.replace(num_layers=2)), 0).eval()
+    x4 = torch.randn(2, 4, C, lat, lat, generator=g)
+    t2 = torch.tensor([999, 999])
+    with torch.no_grad():
+        card = two(x4.cuda(), t2.cuda(), ctx.cuda(), keep.cuda()).cpu()
+        cpu = two.cpu()(x4, t2, ctx, keep)
+    err = rel_norm(card, cpu)
+    print(f"[14b] LatteT2V f32, {cfg.inner_dim} wide, 2 layers, 4 frames, CFG batch: card vs CPU "
+          f"rel err {err:.3e} (bar {DIFF_F32_REL_TOL}); output {tuple(card.shape)}")
+    if not (err <= DIFF_F32_REL_TOL and bool(torch.isfinite(card).all())):
+        raise AssertionError(f"t2v f32 card vs CPU rel err {err:.3e}")
+    del two
+
+    # bf16 against f32 on the card at full depth, 16 frames
+    with torch.device("cuda"):
+        model = fill_random(LatteT2V(cfg), 0).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.randn(2, cfg.video_length, C, lat, lat, generator=g).cuda()
+    t = torch.tensor([999, 999], device="cuda")
+    ctx, keep = ctx.cuda(), keep.cuda()
+    with torch.no_grad():
+        f32 = model(x, t, ctx, keep)
+        bf = served_as(model, BF)
+        err_bf = rel_norm(bf(x, t, ctx, keep), f32)
+    del model
+    print(f"[14b] LatteT2V {cfg.num_layers} x {cfg.inner_dim} ({n_params} parameters), "
+          f"{cfg.video_length} frames of {lat}^2 latents: bf16 vs f32 on the card rel err "
+          f"{err_bf:.3e} (bar {DIFF_BF16_REL_TOL})")
+    if not err_bf <= DIFF_BF16_REL_TOL:
+        raise AssertionError(f"t2v bf16 vs f32 rel err {err_bf:.3e}")
+
+    # mha at the f32 VAE decode's shapes for 16 latent frames: the spatial blocks (16, 8,
+    # 1024, 64) and the causal temporal ones (1024, 8, 16, 64)
+    check_mha("14b", "t2v_decode", g, (cfg.video_length, 8, 1024, 64), torch.float32, False)
+    check_mha("14b", "t2v_decode", g, (1024, 8, cfg.video_length, 64), torch.float32, True)
+
+    # ddim50, CFG 7.5, B=1 prompt in bf16 (2 rows a step), the sample CLI's functions
+    sargs = cli.build_parser().parse_args(T2V_FLAGS + ["--bf16"])
+    diffusion = cli.make_diffusion(sargs)
+    eps = cli.guided_eps(bf, ctx, keep, sargs.guidance_scale, C)
+    shape = (1, cfg.video_length, C, lat, lat)
+    gen = torch.Generator("cuda").manual_seed(91)
+    xs = torch.randn(shape, generator=gen, device="cuda")
+    ts = torch.full((1,), diffusion.num_timesteps - 1, device="cuda")
+
+    def one_step():
+        return diffusion.ddim_sample(eps, xs, ts, clip_denoised=False)
+
+    with torch.inference_mode():
+        step_ms = cuda_ms(one_step, iters=5, warmup=2, queued=False)
+        kernels, busy_ms = kernel_stats(one_step)
+        groups = t2v_profile(one_step)
+    flops = t2v_flops(cfg, 2, cfg.video_length, args.max_token_length)
+    b = bound(flops, n_params * 2 + 3 * xs.numel() * 4, PEAK_BF16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        z = diffusion.ddim_sample_loop(eps, shape, gen, clip_denoised=False, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if any(launch_counts().values()):  # the transformer runs no hand-written kernel
+        raise AssertionError(f"kernels launched while sampling: {launch_counts()}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del bf
+    torch.cuda.empty_cache()
+
+    # the decode through phase 5's f32 VAE: mha's launches, against the VAE's plain route
+    ad = DiffusionVAEAdapter.from_config(imagenet_k600_config(use_vae=True), seed=0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        raw = ad.decode(z.permute(0, 2, 1, 3, 4), is_image=False)
+        torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = launch_counts()
+    frames = 1 + (cfg.video_length - 1) * ad.vae.cfg.temporal_patch_size
+    print(f"[14b] launches in the decode of 1 clip ({frames} frames): {counts}")
+    if counts != T2V_DECODE_LAUNCHES:
+        raise AssertionError(f"decode launches {counts} != {T2V_DECODE_LAUNCHES}")
+    if (tuple(raw.shape) != (1, 3, frames, RES, RES) or not bool(torch.isfinite(z).all())
+            or not bool(torch.isfinite(raw).all())):
+        raise AssertionError(f"bad t2v sample {tuple(z.shape)} / {tuple(raw.shape)}")
+    dec_err = decode_vs_plain("14b", ad, z, True, raw)
+    wall = loop_s + decode_s
+    row = {"path": "t2v", "dtype": "bf16", "batch": 1, "rows_a_step": 2, "steps": T2V_STEPS,
+           "params": n_params, "ms_per_step": step_ms, "loop_ms_per_step": loop_s * 1e3 / T2V_STEPS,
+           "gflop_per_step": flops / 1e9, **b, "clips_per_s": 1 / wall, "wall_s": wall,
+           "decode_s": decode_s, "peak_gib": peak, "kernels_per_step": kernels,
+           "device_busy_ms_per_step": busy_ms, "mha_decode_launches": counts["mha"],
+           "decode_rel_err": dec_err, "f32_card_vs_cpu": err, "bf16_vs_f32": err_bf,
+           "device_ms_by_group": groups}
+    print(f"[14b] bf16 B=1 (2 rows), {T2V_STEPS} DDIM steps: {step_ms:.4f} ms a step (bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}, {flops / 1e9:.1f} GFLOP; "
+          f"{b['bound_ms'] / step_ms:.1%} of it), loop {row['loop_ms_per_step']:.4f} ms a step, "
+          f"{row['clips_per_s']:.4f} clips/s end to end ({wall:.2f} s, the f32 decode "
+          f"{decode_s:.2f} s), peak {peak:.2f} GiB, {kernels} device kernels a step, busy "
+          f"{busy_ms:.4f} ms of a profiled step")
+
+    # the CLI end to end: a 2-layer JAX msgpack --ckpt and the VAE's checkpoint. On a host
+    # without an mp4 encoder (imageio with its ffmpeg or av plugin) the clips go to a stand-in
+    # that writes the uint8 grid save_video_grid would encode, as .npy beside the mp4's name
+    with tempfile.TemporaryDirectory() as root:
+        with torch.device("cuda"):
+            small = fill_random(LatteT2V(cfg.replace(num_layers=2)), 1)
+        mp = os.path.join(root, "t2v.msgpack")
+        write_msgpack(mp, {"params": latte_t2v_state_dict_to_jax(small.state_dict())})
+        vae = os.path.join(root, "vae.pt")
+        save_tokenizer_checkpoint(vae, ad.vae.net, ad.vae.cfg)
+        encoder = any(importlib.util.find_spec(m) for m in ("imageio_ffmpeg", "av"))
+        writer = media.save_video_grid
+        if not (importlib.util.find_spec("imageio") and encoder):
+            media.save_video_grid = lambda video, fname: np.save(
+                fname + ".npy", media.make_video_grid(video))
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(T2V_FLAGS + ["--num_layers", "2", "--ckpt", mp, "--vae_ckpt", vae,
+                                  "--num_sampling_steps", "10", "--save_img_path", root])
+            cli_s = time.perf_counter() - t0
+        finally:
+            media.save_video_grid = writer
+        counts = launch_counts()
+        out = [f for f in os.listdir(root) if f.startswith("a_corgi")]
+    print(f"[14b] latte_t2v_sample.main, 2 layers from a JAX msgpack, 10 DDIM steps, through the "
+          f"f32 VAE: {cli_s:.2f} s, wrote {out}; launches {counts}")
+    if len(out) != 1 or counts != T2V_DECODE_LAUNCHES:
+        raise AssertionError(f"t2v CLI wrote {out}, launches {counts}")
+    row["cli_s"] = cli_s
+    del ad, small, z, raw
+    torch.cuda.empty_cache()
+    print(json.dumps({"t2v": row}))
+    return {"t2v_decode": counts}
+
+
+def phase14_variants_t2v() -> dict:
+    """(a) the tokenizer's variants, (b) LatteT2V; returns their launches."""
+    t0 = time.perf_counter()
+    paths = phase14a_variants()
+    paths.update(phase14b_t2v())
+    print(json.dumps({"variants": {k: v for k, v in SLICE_STATS.items() if k.startswith("14a")}}))
+    print(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="drive the port's paths on one GPU")
+    parser.add_argument("--phases", type=lambda v: {int(x) for x in v.split(",")}, default=None,
+                        help="comma-separated phases after 0 and 1 (the card, the build) to "
+                             "run, for a short run; all of them by default")
+    run = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     smi = phase0_card()
     phase1_build()
-    phase2_kernels()
-    paths = {"vq": phase3_slice()}
-    phase4_small_f32()
-    paths["vae"] = phase5_vae()
-    paths["rel"] = phase6_rel()
-    paths["wide"] = phase7_wide()
-    paths["train"] = phase8_train(smi)
-    paths.update(phase9_eval())
-    paths.update(phase10_lm())
-    paths.update(phase11_diffusion())
-    paths.update(phase12_lm_train())
-    paths.update(phase13_checkpoints())
+    phases = [(2, phase2_kernels), (3, lambda: {"vq": phase3_slice()}), (4, phase4_small_f32),
+              (5, lambda: {"vae": phase5_vae()}), (6, lambda: {"rel": phase6_rel()}),
+              (7, lambda: {"wide": phase7_wide()}), (8, lambda: {"train": phase8_train(smi)}),
+              (9, phase9_eval), (10, phase10_lm), (11, phase11_diffusion),
+              (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v)]
+    paths = {}
+    for n, phase in phases:
+        if run is None or n in run:
+            paths.update(phase() or {})
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
     # ragged row); then a row per training route, `launches` its calls a step
@@ -3145,7 +3631,8 @@ def main() -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    print(f"[done] phases 0-13 in {time.perf_counter() - t0:.1f} s")
+    done = "0-14" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
+    print(f"[done] phases {done} in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -69,7 +69,7 @@ class TokenizerConfig:
     fp32_quant: bool = True
 
     # 'sdpa' drops the rel-bias / AliBi terms as the reference's SDPA path
-    # does; 'einsum' is not ported (ROADMAP)
+    # does; 'einsum' adds them to the logits (its slow path)
     attn_bias_mode: str = "sdpa"
 
     # compute dtype for the transformer stack (params are created f32)

@@ -9,9 +9,15 @@ the flax path joined by dots, with these renames of the last element:
 
     kernel            -> weight, (in, out) transposed to nn.Linear's (out, in);
                          a conv's (*k, in, out) to (out, in, *k)
+    <name>_conv_kernel -> <name>_conv.weight, as it is: the cnn decoder's
+                         ConvTranspose3d, kept in torch's (E, C, kt, p, p)
+    <name>_conv_bias  -> <name>_conv.bias
     <name>_kernel     -> <name>.weight, transposed as a dense kernel
     dsconv_kernel     -> dsconv.weight, (3, 3, 3, 1, d) -> (d, 1, 3, 3, 3)
     dsconv_bias       -> dsconv.bias
+
+The "batch_stats" collection (BatchNorm's running mean and var) fills the
+port's buffers of the same names.
 
 `load_train_state_from_jax` fills a trainer state (training/trainer.py)
 from the JAX trainer's: the generator's params and codebook buffers, the
@@ -106,6 +112,9 @@ def _port_key(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray
         return ".".join(scope + ["dsconv", "weight"]), value.transpose(4, 3, 0, 1, 2)
     if last == "dsconv_bias":
         return ".".join(scope + ["dsconv", "bias"]), value
+    if last.endswith(("_conv_kernel", "_conv_bias")):
+        name, leaf = last.rsplit("_", 1)
+        return ".".join(scope + [name, "weight" if leaf == "kernel" else "bias"]), value
     if last == "kernel" and value.ndim > 2:  # a conv: (*k, in, out) -> (out, in, *k)
         n = value.ndim
         return ".".join(scope + ["weight"]), value.transpose(n - 1, n - 2, *range(n - 2))
@@ -160,10 +169,16 @@ def load_train_state_from_jax(tree: Dict[str, Any], state) -> None:
 def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
     """The inverse of state_dict_from_jax for the tokenizer: `model`'s
     state_dict as the JAX tokenizer's variables {"params": ..., "buffers":
-    ...}. A Linear of an attention or
+    ..., ["batch_stats": ...]}. A Linear of an attention or
     feed-forward block was a raw `<name>_kernel` parameter of its flax
     module (ops/attention.py), any other Linear a Dense `kernel`; PEG's
-    depthwise conv was `dsconv_kernel`, (d, 1, 3, 3, 3) -> (3, 3, 3, 1, d)."""
+    depthwise conv was `dsconv_kernel`, (d, 1, 3, 3, 3) -> (3, 3, 3, 1, d);
+    the cnn embed's conv a Conv `kernel`, (E, C, kt, p, p) -> (kt, p, p, C,
+    E), and the cnn decoder's `<name>_conv_kernel` and `_bias` raw
+    parameters of the Decoder; BatchNorm's running statistics were
+    "batch_stats"."""
+    from .models.discriminator import BatchNorm
+    from .models.tokenizer import PatchConv, PatchUnconv
     from .ops.attention import Attention, FeedForward
 
     buffers = {n for n, _ in model.named_buffers()}
@@ -171,11 +186,17 @@ def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
     for key, value in model.state_dict().items():
         *scope, leaf = key.split(".")
         arr = value.detach().cpu()
-        if key in buffers:
-            flat[("buffers", *scope, leaf)] = _out(arr)
-            continue
         module = model.get_submodule(".".join(scope)) if scope else model
-        if scope and scope[-1] == "dsconv":
+        if key in buffers:
+            collection = "batch_stats" if isinstance(module, BatchNorm) else "buffers"
+            flat[(collection, *scope, leaf)] = _out(arr)
+            continue
+        if isinstance(module, PatchUnconv):
+            path = (*scope[:-1], f"{scope[-1]}_{'kernel' if leaf == 'weight' else 'bias'}")
+        elif isinstance(module, PatchConv):
+            path = (*scope, "kernel" if leaf == "weight" else "bias")
+            arr = arr.permute(2, 3, 4, 1, 0) if leaf == "weight" else arr
+        elif scope and scope[-1] == "dsconv":
             path = (*scope[:-1], f"dsconv_{'kernel' if leaf == 'weight' else 'bias'}")
             arr = arr.permute(2, 3, 4, 1, 0) if leaf == "weight" else arr
         elif isinstance(module, nn.Linear):
@@ -353,6 +374,93 @@ def dit_state_dict_to_jax(sd: Dict[str, torch.Tensor], patch_size: int) -> Dict[
 latte_state_dict_to_jax = dit_state_dict_to_jax
 
 
+# the JAX LatteT2V's scopes -> the port's (the reference's torch) module names
+_T2V_ROOT = {("t_embed", "fc1"): "adaln_single.emb.timestep_embedder.linear_1",
+             ("t_embed", "fc2"): "adaln_single.emb.timestep_embedder.linear_2",
+             ("adaln_linear",): "adaln_single.linear",
+             ("caption_linear_1",): "caption_projection.linear_1",
+             ("caption_linear_2",): "caption_projection.linear_2", ("proj_out",): "proj_out"}
+_T2V_BLOCK = {**{(a, n): f"{a}.{n}" for a in ("attn1", "attn2") for n in ("to_q", "to_k", "to_v")},
+              **{(a, "to_out"): f"{a}.to_out.0" for a in ("attn1", "attn2")},
+              ("ff", "proj_in"): "ff.net.0.proj", ("ff", "proj_out"): "ff.net.2",
+              **{(f"norm{k}", "ln"): f"norm{k}" for k in (1, 2, 3)}}
+_T2V_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_T2V_BLOCKS = {"spatial": "transformer_blocks", "temporal": "temporal_transformer_blocks"}
+
+
+def latte_t2v_state_dict_from_jax(params: Dict[str, Any], patch_size: int
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX LatteT2V's params (nested dicts of numpy arrays, as
+    `omnitokenizer_tpu.models.latte_t2v.convert_latte_t2v_state` makes them)
+    -> the reference-named state_dict of the port's LatteT2V: Dense kernels
+    transposed to nn.Linear's (out, in), the patch kernel's (p*p*C, D) to
+    the conv's (D, C, p, p), LayerNorm scales to weights. A leaf that maps
+    to no port tensor raises; load the result strictly to find a tensor
+    left unfilled."""
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for path, value in _leaves(params):
+        arr, (*scope, leaf) = _t32(value), path
+        scope = tuple(scope)
+        block = re.fullmatch(r"(spatial|temporal)_(\d+)", scope[0]) if scope else None
+        if path == ("pos_embed_proj_kernel",):
+            p = patch_size
+            out["pos_embed.proj.weight"] = _own(arr.reshape(p, p, -1, arr.shape[-1])
+                                                .permute(3, 2, 0, 1))
+            continue
+        if path in (("pos_embed_proj_bias",), ("scale_shift_table",)):
+            key = {"pos_embed_proj_bias": "pos_embed.proj.bias"}.get(leaf, leaf)
+        elif scope in _T2V_ROOT and leaf in ("kernel", "bias"):
+            key = f"{_T2V_ROOT[scope]}.{_T2V_LEAVES[leaf]}"
+        elif block and scope[1:] == () and leaf == "scale_shift_table":
+            key = f"{_T2V_BLOCKS[block.group(1)]}.{block.group(2)}.scale_shift_table"
+        elif block and scope[1:] in _T2V_BLOCK and leaf in _T2V_LEAVES:
+            key = (f"{_T2V_BLOCKS[block.group(1)]}.{block.group(2)}."
+                   f"{_T2V_BLOCK[scope[1:]]}.{_T2V_LEAVES[leaf]}")
+        else:
+            unused.append("/".join(path))
+            continue
+        out[key] = _own(arr.T if leaf == "kernel" else arr)
+    if unused:
+        raise KeyError(f"JAX leaves with no port tensor: {unused}")
+    return out
+
+
+def latte_t2v_state_dict_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of latte_t2v_state_dict_from_jax: a reference-named
+    LatteT2V state_dict as the JAX model's params (the fixed sin-cos buffer
+    pos_embed.pos_embed, where a state_dict holds it, is no param there)."""
+    root = {v: k for k, v in _T2V_ROOT.items()}
+    blocks = {v: k for k, v in _T2V_BLOCK.items()}
+    kinds = {v: k for k, v in _T2V_BLOCKS.items()}
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for key, value in sd.items():
+        arr = torch.as_tensor(value).detach().cpu()
+        if key == "pos_embed.pos_embed":
+            continue
+        if key == "pos_embed.proj.weight":  # (D, C, p, p) -> (p * p * C, D)
+            D, C, p, _ = arr.shape
+            flat[("pos_embed_proj_kernel",)] = _out(arr.permute(2, 3, 1, 0).reshape(p * p * C, D))
+            continue
+        module, _, leaf = key.rpartition(".")
+        m = re.fullmatch(r"(transformer_blocks|temporal_transformer_blocks)\.(\d+)\.?(.*)", module)
+        if key in ("pos_embed.proj.bias", "scale_shift_table"):
+            path = ("pos_embed_proj_bias",) if key == "pos_embed.proj.bias" else (key,)
+        elif module in root:
+            path = root[module] + ("kernel" if leaf == "weight" else "bias",)
+        elif m and m.group(3) == "" and leaf == "scale_shift_table":
+            path = (f"{kinds[m.group(1)]}_{m.group(2)}", "scale_shift_table")
+        elif m and m.group(3) in blocks:
+            scope = blocks[m.group(3)]
+            name = ("scale" if leaf == "weight" else "bias") if scope[1] == "ln" else (
+                "kernel" if leaf == "weight" else "bias")
+            path = (f"{kinds[m.group(1)]}_{m.group(2)}",) + scope + (name,)
+        else:
+            raise KeyError(f"{key}: no JAX LatteT2V leaf")
+        flat[path] = _out(arr.T if path[-1] == "kernel" else arr)
+    return _nest(flat)
+
+
 def load_torch_diffusion_state_dict(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
     """A reference DiT/Latte checkpoint as its state_dict, read as the
     reference's find_model reads it: a raw state_dict, or the train
@@ -399,8 +507,9 @@ def load_diffusion_checkpoint(path: str, patch_size: int, use_ema: bool = True
 
 
 def load_diffusion_state_dict(model: nn.Module, sd: Dict[str, Any]) -> None:
-    """Load a reference-named DiT/Latte state_dict into the port's model,
-    strictly, but for the fixed sin-cos tables (pos_embed, temp_embed),
-    which the model recomputes."""
+    """Load a reference-named DiT/Latte/LatteT2V state_dict into the port's
+    model, strictly, but for the fixed sin-cos tables (pos_embed,
+    temp_embed; LatteT2V's pos_embed.pos_embed), which the model
+    recomputes."""
     model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
-                           if k not in ("pos_embed", "temp_embed")})
+                           if k not in ("pos_embed", "temp_embed", "pos_embed.pos_embed")})

@@ -1,5 +1,5 @@
 """OmniTokenizer spatial-temporal transformer VQGAN/VAE (mirror of
-`omnitokenizer_tpu.models.tokenizer`, linear patch embed).
+`omnitokenizer_tpu.models.tokenizer`).
 
 Everything inside is channels-last (B, T, H, W, C); the channels-first
 layout exists only at the wrapper (models/wrapper.py). The first frame is
@@ -8,9 +8,23 @@ spatial stack over (b t) (h w) d, then the temporal stack over (b h w) t d;
 the decoder mirrors it. PEG sees the original (B, T, H, W) video shape in
 both passes (see ops/peg.py).
 
-Not ported yet (ROADMAP.md): the cnn patch embed, the deferred pools. The
-TPU-only `fast_patchify` fold and `flat_temporal` layout are left
-out on purpose: the plain forms here compute the same function.
+Patch embeds: 'linear' (LayerNorm, Linear, LayerNorm over each patch) or
+'cnn' (the reference's stride-equal-to-kernel Conv3d and its norm, run as
+one matmul over the patches; the to-pixels ConvTranspose3d as a per-token
+Linear and depth-to-space). The cnn norm is inference only: BatchNorm
+reads its running statistics (the trainer refuses a cnn model). The
+deferred pools (linear only, as in the JAX package) embed at half the
+patch sizes and pool after the temporal stack: 2 x 2 average in space,
+the mean of frame pairs after the first frame in time; the decoder
+repeats both back before its stacks.
+
+The decoder takes its grid from the tokens, and its spatial stack's 'n'/'r'
+blocks grow it: the JAX decoder rearranges at a grid shrunk by its up
+blocks, which no token count fits (an einops error), so a dec_block with
+'n' or 'r' runs in the port only.
+
+The TPU-only `fast_patchify` fold and `flat_temporal` layout are left out
+on purpose: the plain forms here compute the same function.
 """
 
 from __future__ import annotations
@@ -31,6 +45,9 @@ from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
 from ..ops.transformer import Transformer
 from ..ops.window import WindowAttention
+from .discriminator import Normalize
+
+PATCH_EMBEDS = ("linear", "cnn")
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -39,15 +56,23 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def _check_supported(cfg: TokenizerConfig) -> None:
-    unsupported = {
-        "patch_embed": cfg.patch_embed != "linear",
-        "defer_temporal_pool": cfg.defer_temporal_pool,
-        "defer_spatial_pool": cfg.defer_spatial_pool,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet (see ROADMAP.md): {bad}")
+def patch_sizes(cfg: TokenizerConfig, decoder: bool = False) -> Tuple[int, int]:
+    """(spatial, temporal) patch size of the embed (or the to-pixels with
+    its gen_upscale); the deferred pools halve them for the linear embed."""
+    if cfg.patch_embed not in PATCH_EMBEDS:
+        raise ValueError(f"patch_embed {cfg.patch_embed!r}: one of {PATCH_EMBEDS}")
+    p = cfg.patch_size * ((cfg.gen_upscale or 1) if decoder else 1)
+    pt = cfg.temporal_patch_size
+    if cfg.patch_embed == "linear":
+        pt = pt // 2 if cfg.defer_temporal_pool else pt
+        p = p // 2 if cfg.defer_spatial_pool else p
+    return p, pt
+
+
+def _deferred(cfg: TokenizerConfig) -> Tuple[bool, bool]:
+    """(temporal, spatial) deferred pools, which apply to the linear embed."""
+    linear = cfg.patch_embed == "linear"
+    return linear and cfg.defer_temporal_pool, linear and cfg.defer_spatial_pool
 
 
 def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) -> Transformer:
@@ -61,72 +86,160 @@ def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) 
         attn_bias_mode=cfg.attn_bias_mode, dtype=cfg.dtype, spatial=spatial)
 
 
+class CnnNormalize(Normalize):
+    """GroupNorm(32, eps 1e-6) or BatchNorm (eps 1e-5, its running
+    statistics) over the channels of a channels-last tensor, in f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x.movedim(-1, 1), train=False).movedim(1, -1)
+
+
+class PatchConv(nn.Module):
+    """The cnn patch embed's Conv3d, kernel equal to its stride (kt, p, p),
+    as one Linear over the flattened (C, kt, p, p) patches: no conv library
+    call, so an f32 embed does not round to TF32. `weight` keeps the torch
+    Conv3d layout (E, C, kt, p, p)."""
+
+    def __init__(self, channels: int, dim: int, kt: int, p: int):
+        super().__init__()
+        self.kt, self.p = kt, p
+        self.weight = nn.Parameter(torch.zeros(dim, channels, kt, p, p))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, T, H, W, C) -> (B, T/kt, H/p, W/p, E)."""
+        x = rearrange(x, "b (t pt) (h p1) (w p2) c -> b t h w (c pt p1 p2)",
+                      pt=self.kt, p1=self.p, p2=self.p)
+        w = self.weight.reshape(self.weight.shape[0], -1)
+        return F.linear(x.to(dtype), w.to(dtype), self.bias.to(dtype))
+
+
+class PatchUnconv(nn.Module):
+    """The cnn to-pixels ConvTranspose3d, kernel equal to its stride, as a
+    per-token Linear to (C, kt, p, p), depth-to-space, then the bias.
+    `weight` keeps the torch ConvTranspose3d layout (E, C, kt, p, p)."""
+
+    def __init__(self, dim: int, channels: int, kt: int, p: int):
+        super().__init__()
+        self.kt, self.p = kt, p
+        self.weight = nn.Parameter(torch.zeros(dim, channels, kt, p, p))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, t, h, w, E) -> (B, t*kt, h*p, w*p, C)."""
+        w = self.weight.reshape(self.weight.shape[0], -1).t()
+        y = F.linear(x.to(dtype), w.to(dtype))
+        y = rearrange(y, "b t h w (c i j l) -> b (t i) (h j) (w l) c",
+                      i=self.kt, j=self.p, l=self.p)
+        return y + self.bias.to(dtype)
+
+
 class Encoder(nn.Module):
-    """Linear patch embed, then the spatial and temporal stacks."""
+    """The patch embed, then the spatial and temporal stacks, then the
+    deferred pools."""
 
     def __init__(self, cfg: TokenizerConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
-        C, p, pt, E = cfg.image_channels, cfg.patch_size, cfg.temporal_patch_size, cfg.embedding_dim
-        self.to_patch_emb_first_frame_norm1 = LayerNorm(C * p * p)
-        self.to_patch_emb_first_frame_proj = nn.Linear(C * p * p, E)
-        self.to_patch_emb_first_frame_norm2 = LayerNorm(E, dtype=cfg.dtype)
-        self.to_patch_emb_norm1 = LayerNorm(C * pt * p * p)
-        self.to_patch_emb_proj = nn.Linear(C * pt * p * p, E)
-        self.to_patch_emb_norm2 = LayerNorm(E, dtype=cfg.dtype)
+        C, E = cfg.image_channels, cfg.embedding_dim
+        p, pt = patch_sizes(cfg)
+        if cfg.patch_embed == "linear":
+            self.to_patch_emb_first_frame_norm1 = LayerNorm(C * p * p)
+            self.to_patch_emb_first_frame_proj = nn.Linear(C * p * p, E)
+            self.to_patch_emb_first_frame_norm2 = LayerNorm(E, dtype=cfg.dtype)
+            self.to_patch_emb_norm1 = LayerNorm(C * pt * p * p)
+            self.to_patch_emb_proj = nn.Linear(C * pt * p * p, E)
+            self.to_patch_emb_norm2 = LayerNorm(E, dtype=cfg.dtype)
+        else:
+            self.to_patch_emb_first_frame_conv = PatchConv(C, E, 1, p)
+            self.to_patch_emb_first_frame_cnorm = CnnNormalize(E, cfg.norm_type)
+            self.to_patch_emb_conv = PatchConv(C, E, pt, p)
+            self.to_patch_emb_cnorm = CnnNormalize(E, cfg.norm_type)
         self.enc_spatial_transformer = _transformer(cfg, cfg.enc_block, False, True)
         self.enc_temporal_transformer = _transformer(
             cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, False)
 
+    def _embed(self, frames: torch.Tensor, first: bool) -> torch.Tensor:
+        cfg = self.cfg
+        name = "to_patch_emb_first_frame" if first else "to_patch_emb"
+        if cfg.patch_embed == "cnn":
+            conv = getattr(self, f"{name}_conv")
+            return getattr(self, f"{name}_cnorm")(conv(frames, cfg.dtype))
+        p, pt = patch_sizes(cfg)
+        f = rearrange(frames, "b (t pt) (h p1) (w p2) c -> b t h w (c pt p1 p2)",
+                      pt=1 if first else pt, p1=p, p2=p)
+        f = dense(getattr(self, f"{name}_norm1")(f), getattr(self, f"{name}_proj"), cfg.dtype)
+        return getattr(self, f"{name}_norm2")(f)
+
     def forward(self, video: torch.Tensor, is_image: bool, training: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        p, pt = cfg.patch_size, cfg.temporal_patch_size
+        _, pt = patch_sizes(cfg)
         T = video.shape[1]
         if (T - 1) % pt:
             raise ValueError(
                 f"frames-1 ({T - 1}) must be divisible by temporal patch size ({pt})")
         video = video.to(cfg.dtype)
-        first, rest = video[:, :1], video[:, 1:]
-
-        ff = rearrange(first, "b t (h p1) (w p2) c -> b t h w (c p1 p2)", p1=p, p2=p)
-        ff = dense(self.to_patch_emb_first_frame_norm1(ff), self.to_patch_emb_first_frame_proj,
-                   cfg.dtype)
-        tokens = self.to_patch_emb_first_frame_norm2(ff)
-        if rest.shape[1] > 0:
-            rf = rearrange(rest, "b (t pt) (h p1) (w p2) c -> b t h w (c pt p1 p2)",
-                           pt=pt, p1=p, p2=p)
-            rf = dense(self.to_patch_emb_norm1(rf), self.to_patch_emb_proj, cfg.dtype)
-            tokens = torch.cat([tokens, self.to_patch_emb_norm2(rf)], dim=1)
+        tokens = self._embed(video[:, :1], True)
+        if T > 1:
+            tokens = torch.cat([tokens, self._embed(video[:, 1:], False)], dim=1)
 
         b, t, h, w, d = tokens.shape
-        video_shape = (b, t, h, w)
-        x = self.enc_spatial_transformer(tokens.reshape(b * t, h * w, d), video_shape,
+        x = self.enc_spatial_transformer(tokens.reshape(b * t, h * w, d), (b, t, h, w),
                                          is_spatial=True, training=training)
-        x = rearrange(x.reshape(b, t, h, w, d), "b t h w d -> (b h w) t d")
-        x = self.enc_temporal_transformer(x, video_shape, is_spatial=False, training=training)
-        return rearrange(x, "(b h w) t d -> b t h w d", b=b, h=h, w=w)
+        nh = nw = int(x.shape[1] ** 0.5)  # the grid after the stack's pools
+        x = rearrange(x.reshape(b, t, nh, nw, d), "b t h w d -> (b h w) t d")
+        x = self.enc_temporal_transformer(x, (b, t, nh, nw), is_spatial=False, training=training)
+        tokens = rearrange(x, "(b h w) t d -> b t h w d", b=b, h=nh, w=nw)
+
+        defer_t, defer_s = _deferred(cfg)
+        if defer_s:  # 2 x 2 average pool (flax avg_pool, VALID)
+            hh, ww = nh // 2, nw // 2
+            tokens = tokens[:, :, :2 * hh, :2 * ww].reshape(b, t, hh, 2, ww, 2, d).mean((3, 5))
+        if t > 1 and defer_t:  # the mean of each pair of frames after the first
+            rest = tokens[:, 1:]
+            rest = rest.reshape(b, rest.shape[1] // 2, 2, *rest.shape[2:]).mean(2)
+            tokens = torch.cat([tokens[:, :1], rest], dim=1)
+        return tokens  # (B, t, h, w, d)
 
 
 class Decoder(nn.Module):
-    """Temporal then spatial stack, then the linear to-pixels projection."""
+    """The deferred pools' repeats, the temporal then spatial stack, then
+    the to-pixels projection."""
 
     def __init__(self, cfg: TokenizerConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
-        C, pt, E = cfg.image_channels, cfg.temporal_patch_size, cfg.embedding_dim
-        p = cfg.patch_size * (cfg.gen_upscale or 1)
+        C, E = cfg.image_channels, cfg.embedding_dim
+        p, pt = patch_sizes(cfg, decoder=True)
         self.dec_temporal_transformer = _transformer(
             cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, False)
         self.dec_spatial_transformer = _transformer(cfg, cfg.dec_block, False, True)
-        self.to_pixels_first_frame = nn.Linear(E, C * p * p)
-        self.to_pixels = nn.Linear(E, C * pt * p * p)
+        if cfg.patch_embed == "linear":
+            self.to_pixels_first_frame = nn.Linear(E, C * p * p)
+            self.to_pixels = nn.Linear(E, C * pt * p * p)
+        else:
+            self.to_pixels_first_frame_conv = PatchUnconv(E, C, 1, p)
+            self.to_pixels_first_frame_conv_cnorm = CnnNormalize(C, cfg.norm_type)
+            self.to_pixels_conv = PatchUnconv(E, C, pt, p)
+            self.to_pixels_conv_cnorm = CnnNormalize(C, cfg.norm_type)
+
+    def _to_pixels(self, x: torch.Tensor, first: bool) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.patch_embed == "cnn":
+            name = "to_pixels_first_frame_conv" if first else "to_pixels_conv"
+            return getattr(self, f"{name}_cnorm")(getattr(self, name)(x, cfg.dtype))
+        p, pt = patch_sizes(cfg, decoder=True)
+        y = dense(x, self.to_pixels_first_frame if first else self.to_pixels, cfg.dtype)
+        return rearrange(y, "b t h w (c pt p1 p2) -> b (t pt) (h p1) (w p2) c",
+                         pt=1 if first else pt, p1=p, p2=p)
 
     def forward(self, tokens: torch.Tensor, is_image: bool, training: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        p = cfg.patch_size * (cfg.gen_upscale or 1)
-        pt = cfg.temporal_patch_size
+        defer_t, defer_s = _deferred(cfg)
+        if tokens.shape[1] > 1 and defer_t:
+            tokens = torch.cat([tokens[:, :1], tokens[:, 1:].repeat_interleave(2, 1)], dim=1)
+        if defer_s:
+            tokens = tokens.repeat_interleave(2, 2).repeat_interleave(2, 3)
         b, t, h, w, _ = tokens.shape
         video_shape = (b, t, h, w)
 
@@ -134,15 +247,16 @@ class Decoder(nn.Module):
         x = self.dec_temporal_transformer(x, video_shape, is_spatial=False, training=training)
         x = rearrange(x, "(b h w) t d -> (b t) (h w) d", b=b, h=h, w=w)
         x = self.dec_spatial_transformer(x, video_shape, is_spatial=True, training=training)
+        for blk in cfg.dec_block:  # the grid after the stack's pools and ups
+            if blk in "nr":
+                h, w = 2 * h, 2 * w
+            elif blk in "aml":
+                h, w = h // 2, w // 2
         x = rearrange(x, "(b t) (h w) d -> b t h w d", b=b, h=h, w=w)
 
-        ff = dense(x[:, :1], self.to_pixels_first_frame, cfg.dtype)
-        recon = rearrange(ff, "b t h w (c p1 p2) -> b t (h p1) (w p2) c", p1=p, p2=p)
+        recon = self._to_pixels(x[:, :1], True)
         if t > 1:
-            rf = dense(x[:, 1:], self.to_pixels, cfg.dtype)
-            rf = rearrange(rf, "b t h w (c pt p1 p2) -> b (t pt) (h p1) (w p2) c",
-                           pt=pt, p1=p, p2=p)
-            recon = torch.cat([recon, rf], dim=1)
+            recon = torch.cat([recon, self._to_pixels(x[:, 1:], False)], dim=1)
         return recon  # (B, T, H, W, C)
 
 
@@ -246,8 +360,9 @@ class OmniTokenizerNet(nn.Module):
 @torch.no_grad()
 def init_weights(net: OmniTokenizerNet, generator: torch.Generator) -> None:
     """Random weights from `generator`, shaped like the JAX init: LeCun-normal
-    dense and PEG kernels, zero biases, unit norms and scales, N(0, 0.02)
-    window bias tables and an N(0, 1) codebook."""
+    dense, PEG and cnn patch kernels, zero biases, unit norms and scales,
+    N(0, 0.02) window bias tables, an N(0, 1) codebook, and BatchNorm's
+    running statistics at mean 0, variance 1."""
     def normal_(t: torch.Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
@@ -256,6 +371,10 @@ def init_weights(net: OmniTokenizerNet, generator: torch.Generator) -> None:
             normal_(m.weight, m.in_features ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, (PatchConv, PatchUnconv)):  # fan-in C kt p p, or E
+            fan_in = m.weight[0].numel() if isinstance(m, PatchConv) else m.weight.shape[0]
+            normal_(m.weight, fan_in ** -0.5)
+            m.bias.zero_()
         elif isinstance(m, PEG):
             normal_(m.dsconv.weight, 27 ** -0.5)
             m.dsconv.bias.zero_()

@@ -1,5 +1,5 @@
-"""Cosine-similarity attention and the GEGLU feed-forward (mirror of
-`omnitokenizer_tpu.ops.attention`).
+"""Cosine-similarity attention, the GEGLU feed-forward and the token-grid
+Pooling/Up blocks (mirror of `omnitokenizer_tpu.ops.attention`).
 
 Gates, as in the JAX package: a bf16 module called with training=False
 takes the fused kernels (ops/kernels); they launch CUDA kernels for a CUDA
@@ -13,6 +13,11 @@ inference, in f32 and bf16 alike, as the JAX package runs `mha_pallas`
 (its training `sdpa` is plain). `prepare_kernels()` caches the kernels'
 bf16 (and padded) weights for serving; without the cache an inference
 call casts the live parameters, and a training call always does.
+
+Under `attn_bias_mode='einsum'` a spatial `rel` call adds its CPB bias and
+a causal call AliBi to the f32 logits. No attention kernel takes a bias
+(the JAX gates refuse one): a biased call projects with `ln_qkv` where its
+gate takes the width, then runs the plain math of `sdpa`.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bias import ContinuousPositionBias
+from .bias import ContinuousPositionBias, alibi_bias
 from .kernel_grad import kernel_fwd_ref_bwd, train_kernel_fwd_ops
 from .kernels.cosine_mha import cosine_mha, cosine_mha_supported
 from .kernels.geglu_ff import geglu_ff, geglu_ff_supported, pad_geglu_weights
@@ -41,12 +46,18 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-         causal: bool = False, training: bool = False) -> torch.Tensor:
-    """softmax(q k^T * scale [bottom-right causal]) v over (B, H, N, D).
-    The `mha` kernel for a CUDA tensor inside its gate at inference, else
-    its plain math (`mha_plain`), as `omnitokenizer_tpu.ops.attention.sdpa`
-    routes between `mha_pallas` and XLA. The kernel's small branch reads the
-    views as they stand; the flash branches take contiguous copies."""
+         causal: bool = False, training: bool = False,
+         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale [+ bias] [bottom-right causal]) v over (B, H,
+    N, D). Without a bias: the `mha` kernel for a CUDA tensor inside its
+    gate at inference, else its plain math (`mha_plain`), as
+    `omnitokenizer_tpu.ops.attention.sdpa` routes between `mha_pallas` and
+    XLA. The kernel's small branch reads the views as they stand; the flash
+    branches take contiguous copies. With a bias (broadcast to (B, H, N,
+    N)): the plain math, the bias added to the f32 logits before the mask,
+    as the JAX `sdpa` does (its kernel gate refuses a bias)."""
+    if bias is not None:
+        return mha_plain(q, k, v, scale, causal, bias)
     n, d = q.shape[-2:]
     if not training and q.is_cuda and mha_supported(n, d, q.dtype):
         if not small_branch(n, d):
@@ -65,9 +76,11 @@ def project(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wkv: torch.T
 
 def attend(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, *,
            heads: int, dim_head: int, scale: float, causal: bool, use_rope: bool,
-           dtype: torch.dtype, training: bool) -> torch.Tensor:
+           dtype: torch.dtype, training: bool,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain math from the projections q (B, N, H*D), kv (B, N, 2*H*D) to
-    the (B, N, H*D) tokens before the out-projection."""
+    the (B, N, H*D) tokens before the out-projection; `bias` is added to
+    the logits (sdpa)."""
     B, N, inner = q.shape
     k, v = kv.chunk(2, dim=-1)
     q, k, v = (t.reshape(B, N, heads, dim_head) for t in (q, k, v))
@@ -77,15 +90,15 @@ def attend(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor, k_scale: to
     k = l2norm(k.float()) * k_scale
     q = q.transpose(1, 2).to(dtype)
     k = k.transpose(1, 2).to(dtype)
-    out = sdpa(q, k, v.transpose(1, 2), scale, causal=causal, training=training)
+    out = sdpa(q, k, v.transpose(1, 2), scale, causal=causal, training=training, bias=bias)
     return out.transpose(1, 2).reshape(B, N, inner)
 
 
 def attention_ref_math(x, gamma, wq, wkv, q_scale, k_scale, *, dtype, heads, dim_head,
                        scale, causal, use_rope) -> torch.Tensor:
     """The plain route from x (B, N, D) and the parameters to the tokens
-    before the out-projection (the JAX `_attention_ref_math`): the
-    recomputed backward of the training route's kernels."""
+    before the out-projection (the JAX `_attention_ref_math`, bias-free):
+    the recomputed backward of the training route's kernels."""
     q, kv = project(x, gamma, wq, wkv, dtype)
     return attend(q, kv, q_scale, k_scale, heads=heads, dim_head=dim_head, scale=scale,
                   causal=causal, use_rope=use_rope, dtype=dtype, training=True)
@@ -98,21 +111,23 @@ class Attention(nn.Module):
     q_scale / k_scale. k/v project the PRE-norm input, only q the normed
     tokens (reference quirk). RoPE applies when spatial_pos='rope' and the
     call is spatial; the causal mask when the block is causal. The
-    'sdpa' bias mode drops the rel-bias and AliBi terms.
+    'sdpa' bias mode drops the rel-bias and AliBi terms; 'einsum' adds the
+    CPB bias to a spatial call under spatial_pos='rel' and AliBi to a
+    causal call, summed where both apply.
 
     `spatial` marks a module of a spatial stack: with spatial_pos='rel' it
     owns the CPB MLP (`spatial_rel_pos_bias`), whose parameters the JAX
-    package creates on a spatial call and whose bias it then drops."""
+    package creates on a spatial call."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
                  causal: bool = False, scale: float = 8.0, spatial_pos: str = "rel",
                  attn_bias_mode: str = "sdpa", dtype: torch.dtype = torch.float32,
                  spatial: bool = False):
         super().__init__()
-        if attn_bias_mode != "sdpa":
-            raise NotImplementedError(
-                f"attn_bias_mode={attn_bias_mode!r} is not ported yet (see ROADMAP.md)")
+        if attn_bias_mode not in ("sdpa", "einsum"):
+            raise ValueError(f"attn_bias_mode {attn_bias_mode!r}: 'sdpa' or 'einsum'")
         self.dim, self.dim_head, self.heads = dim, dim_head, heads
+        self.attn_bias_mode = attn_bias_mode
         self.causal, self.scale, self.spatial_pos, self.dtype = causal, scale, spatial_pos, dtype
         inner = dim_head * heads
         self.norm_gamma = nn.Parameter(torch.ones(dim))
@@ -151,20 +166,42 @@ class Attention(nn.Module):
         return project(x, self.norm_gamma, self.to_q.weight, self.to_kv.weight, self.dtype)
 
     def _attend(self, q: torch.Tensor, kv: torch.Tensor, uses_rope: bool,
-                training: bool) -> torch.Tensor:
+                training: bool, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         return attend(q, kv, self.q_scale, self.k_scale, heads=self.heads,
                       dim_head=self.dim_head, scale=self.scale, causal=self.causal,
-                      use_rope=uses_rope, dtype=self.dtype, training=training)
+                      use_rope=uses_rope, dtype=self.dtype, training=training, bias=bias)
+
+    def needs_bias(self, is_spatial: bool) -> bool:
+        """Whether a call adds a bias to its logits: in 'einsum' mode, a
+        spatial call under spatial_pos='rel' or any causal call."""
+        return self.attn_bias_mode == "einsum" and (
+            (self.spatial_pos == "rel" and is_spatial) or self.causal)
+
+    def bias(self, n: int, is_spatial: bool, device) -> Optional[torch.Tensor]:
+        """The (heads, n, n) f32 bias of a call, or None: the CPB bias of an
+        int(sqrt(n))^2 grid, AliBi, or their sum."""
+        if not self.needs_bias(is_spatial):
+            return None
+        out = None
+        if self.spatial_pos == "rel" and is_spatial:
+            h = int(n ** 0.5)
+            out = self.spatial_rel_pos_bias(h, h)
+        if self.causal:
+            ab = alibi_bias(self.heads, n, n, device)
+            out = ab if out is None else out + ab
+        return out
 
     def train_route(self, n: int, is_spatial: bool) -> Optional[str]:
         """The kernel that a bf16 training call runs under kernel_grad, as
         the JAX gates pick it: 'small' (ln_qkv + small_n_attention) or
         'cosine' (ln_qkv + cosine_mha), or None for the plain math. A
         temporal call of n <= 8 frames is the JAX flat route: the port's
-        contiguous (B', n, D) tensor is the flat rows' memory."""
+        contiguous (B', n, D) tensor is the flat rows' memory. A biased call
+        takes the plain math, as no attention kernel takes a bias."""
         ops = train_kernel_fwd_ops()
         inner = self.dim_head * self.heads
-        if self.dtype != torch.bfloat16 or not ln_qkv_supported(self.dim, inner, 2 * inner):
+        if (self.dtype != torch.bfloat16 or not ln_qkv_supported(self.dim, inner, 2 * inner)
+                or self.needs_bias(is_spatial)):
             return None
         uses_rope = self.spatial_pos == "rope" and is_spatial
         if not is_spatial and "flat" in ops and small_n_supported(n, self.dim_head):
@@ -206,13 +243,15 @@ class Attention(nn.Module):
                 x.to(self.dtype), self.norm_gamma, self.to_q.weight, self.to_kv.weight,
                 self.q_scale, self.k_scale)
             return self._proj_out(out)
+        bias = self.bias(N, is_spatial, x.device)
         if self.dtype != torch.bfloat16 or training:
-            return self._proj_out(self._attend(*self._project(x), uses_rope, training))
+            return self._proj_out(self._attend(*self._project(x), uses_rope, training, bias))
 
         # bf16 inference, as the JAX module dispatches: the projections by
         # ln_qkv inside its gate, else plain; then the attention kernel that
-        # takes (N, dim_head), whatever made q and kv. Weights from the
-        # serving cache where it is built, else cast from the live parameters
+        # takes (N, dim_head), whatever made q and kv, unless a bias applies.
+        # Weights from the serving cache where it is built, else cast from
+        # the live parameters
         proj, qs, ks = self.kernel_weights or self._cast_weights()
         if proj is not None:
             q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), *proj)
@@ -220,7 +259,9 @@ class Attention(nn.Module):
             q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
         else:
             q, kv = self._project(x)
-        if not uses_rope and small_n_supported(N, self.dim_head):
+        if bias is not None:
+            out = self._attend(q, kv, uses_rope, training, bias)
+        elif not uses_rope and small_n_supported(N, self.dim_head):
             out = small_n_attention(q, kv, qs, ks, self.heads, self.dim_head,
                                     self.scale, self.causal)
         elif not self.causal and cosine_mha_supported(N, self.dim_head):
@@ -287,3 +328,45 @@ class FeedForward(nn.Module):
             out = geglu_ff(x.reshape(-1, self.dim).to(self.dtype), *weights)
             return out.view(x.shape)
         return feed_forward_ref_math(x, *self._params(), dtype=self.dtype)
+
+
+class Pooling(nn.Module):
+    """Token-grid downsample of (B, N, C) on an int(sqrt(N))^2 grid: 'a'
+    average and 'm' max over 2 x 2, or 'l' a Linear (`pool`, with bias) of
+    4 consecutive tokens to C."""
+
+    def __init__(self, pool_type: str, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pool_type, self.dtype = pool_type, dtype
+        if pool_type == "l":
+            self.pool = nn.Linear(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        if self.pool_type == "l":
+            x = x.reshape(B, N // 4, 4 * C).to(self.dtype)
+            return F.linear(x, self.pool.weight.to(self.dtype), self.pool.bias.to(self.dtype))
+        h = int(N ** 0.5)
+        g = x.reshape(B, h // 2, 2, h // 2, 2, C)
+        g = g.mean((2, 4)) if self.pool_type == "a" else g.amax((2, 4))
+        return g.reshape(B, (h // 2) ** 2, C)
+
+
+class Up(nn.Module):
+    """Token-grid upsample of (B, N, C) on an int(sqrt(N))^2 grid: 'n'
+    nearest x2, or 'r' nearest x2 then a Linear (`up`, with bias)."""
+
+    def __init__(self, up_type: str, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.up_type, self.dtype = up_type, dtype
+        if up_type == "r":
+            self.up = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        h = int(N ** 0.5)
+        g = x.reshape(B, h, h, C).repeat_interleave(2, 1).repeat_interleave(2, 2)
+        x = g.reshape(B, 4 * N, C)
+        if self.up_type == "r":
+            x = F.linear(x.to(self.dtype), self.up.weight.to(self.dtype), self.up.bias.to(self.dtype))
+        return x

@@ -13,6 +13,7 @@ and `mha_plain` its plain version.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,10 +56,14 @@ def small_branch(n: int, dim_head: int) -> bool:
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-              causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T * scale [bottom-right causal]) v over (B, H, N, D):
-    products of the input dtype with f32 accumulation, softmax in f32."""
+              causal: bool = False, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale [+ bias] [bottom-right causal]) v over (B, H,
+    N, D): products of the input dtype with f32 accumulation, softmax in
+    f32. The kernel takes no bias: the attention module's biased calls
+    (attn_bias_mode='einsum') run this math."""
     sim = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        sim = sim + bias.float()
     if causal:
         i, j = sim.shape[-2:]
         row = torch.arange(i, device=q.device)[:, None]

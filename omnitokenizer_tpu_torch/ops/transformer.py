@@ -1,9 +1,10 @@
 """Block-string transformer (mirror of `omnitokenizer_tpu.ops.transformer`).
 
-Block codes: 't' full attention with PEG in front, 'w' window attention;
-the feed-forward is residual after either, and a gamma-only LayerNorm closes
-the stack. The pooling ('a', 'm', 'l') and upsampling ('n', 'r') codes are
-not ported yet (ROADMAP.md).
+Block codes: 't' full attention with PEG in front, 'w' window attention,
+'a'/'m'/'l' pooling and 'n'/'r' upsampling of the token grid. Attention is
+residual, a pool or up block replaces the tokens, the feed-forward is
+residual after any of them, and a gamma-only LayerNorm closes the stack. A
+pool halves the video shape's grid for the PEGs after it, an up doubles it.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .attention import Attention, FeedForward
+from .attention import Attention, FeedForward, Pooling, Up
 from .norms import LayerNormGamma
 from .peg import PEG
 from .window import WindowAttention
@@ -42,24 +43,31 @@ class Transformer(nn.Module):
                                  dtype=dtype, spatial=spatial)
             elif blk == "w":
                 attn = WindowAttention(dim, window_size=window_size, num_heads=heads, dtype=dtype)
+            elif blk in ("a", "m", "l"):
+                attn = Pooling(blk, dim, dtype=dtype)
+            elif blk in ("n", "r"):
+                attn = Up(blk, dim, dtype=dtype)
             else:
-                raise NotImplementedError(
-                    f"block code {blk!r} (pooling/upsampling) is not ported yet "
-                    "(see ROADMAP.md)")
+                raise ValueError(f"unknown block code {blk!r} in {block!r}")
             self.add_module(f"layers_{i}_attn", attn)
             self.add_module(f"layers_{i}_ff", FeedForward(dim, mult=ff_mult, dtype=dtype))
         self.norm_out = LayerNormGamma(dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
                 is_spatial: bool = True, training: bool = False) -> torch.Tensor:
+        vs = tuple(video_shape)
         for i, blk in enumerate(self.block):
             attn = getattr(self, f"layers_{i}_attn")
             if blk == "t":
                 peg = getattr(self, f"layers_{i}_peg", None)
                 if peg is not None:
-                    x = peg(x, video_shape, residual=True)
+                    x = peg(x, vs, residual=True)
                 x = attn(x, is_spatial=is_spatial, training=training) + x
-            else:
+            elif blk == "w":
                 x = attn(x) + x
+            else:
+                x = attn(x)
+                up = blk in ("n", "r")
+                vs = vs[:2] + tuple(s * 2 if up else s // 2 for s in vs[2:])
             x = getattr(self, f"layers_{i}_ff")(x, training=training) + x
         return self.norm_out(x)

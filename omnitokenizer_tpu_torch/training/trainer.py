@@ -275,6 +275,10 @@ class TokenizerTrainer:
             raise NotImplementedError(
                 "VAE training is not ported: the JAX trainer runs a VAE's generator with "
                 "training=False, the inference route (see ROADMAP.md)")
+        if cfg.patch_embed == "cnn":
+            raise NotImplementedError(
+                "training the cnn patch embed is not ported: its norms serve inference only "
+                "(BatchNorm reads its running statistics; models/tokenizer.py)")
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
         self.cfg, self.loss_cfg, self.train_cfg = cfg, loss_cfg, train_cfg

@@ -33,10 +33,6 @@ import torch
 from ..config import TokenizerConfig
 from ..convert import _port_key, state_dict_from_jax
 
-CNN_NOT_PORTED = ("patch_embed='cnn' is not ported (ROADMAP.md, \"The rest of tokenizer "
-                  "inference\"): the port's tokenizer has only the linear patch embed")
-
-
 # -- reading ------------------------------------------------------------------
 def _split_lightning(ckpt: Dict[str, Any]) -> Tuple[Dict[str, np.ndarray], Any]:
     """A loaded Lightning dict (or a bare state_dict) -> (state_dict as
@@ -103,6 +99,19 @@ def config_from_args(args: Any) -> TokenizerConfig:
 
 
 # -- the key map ---------------------------------------------------------------
+def _map_cnn_norm(base: List[str], leaf: str):
+    """A Normalize (SyncBatchNorm or GroupNorm) of a cnn patch embed or
+    to-pixels Sequential -> the flax path of its `norm`; the running
+    statistics are batch_stats."""
+    if leaf in ("weight", "bias"):
+        return base + ["norm", "scale" if leaf == "weight" else "bias"], None
+    if leaf in ("running_mean", "running_var"):
+        return ["__batch_stats__"] + base + ["norm", leaf[len("running_"):]], None
+    if leaf == "num_batches_tracked":
+        return None, None
+    raise KeyError(f"unmapped cnn-norm leaf {leaf}")
+
+
 def _map_transformer_key(parts: List[str], block_str: str):
     """['layers', i, j, ...rest] inside a Transformer -> (flax path, transform)."""
     i, j, rest = int(parts[1]), parts[2], parts[3:]
@@ -111,8 +120,11 @@ def _map_transformer_key(parts: List[str], block_str: str):
         assert rest[0] == "dsconv"
         leaf = {"weight": "kernel", "bias": "bias"}[rest[1]]
         return [f"layers_{i}_peg", f"dsconv_{leaf}"], "dwconv" if rest[1] == "weight" else None
-    if j == "1":  # self-attention or window attention
+    if j == "1":  # self-attention, window attention, pooling or up
         base = f"layers_{i}_attn"
+        if blk in ("l", "r"):  # the Linear of a pool or up block
+            leaf = {"weight": "kernel", "bias": "bias"}[rest[-1]]
+            return [base, "pool" if blk == "l" else "up", leaf], "T" if leaf == "kernel" else None
         if blk == "t":
             if rest[0] == "norm":
                 return (None, None) if rest[1] == "beta" else ([base, "norm_gamma"], None)
@@ -166,9 +178,20 @@ def map_tokenizer_key(key: str, cfg: TokenizerConfig):
         return [root, leaf], "T" if leaf == "kernel" else None
     if root in ("encoder", "decoder"):
         sub = parts[1]
-        if sub in ("to_patch_emb_first_frame", "to_patch_emb", "to_pixels_first_frame",
-                   "to_pixels") and cfg.patch_embed == "cnn":
-            raise NotImplementedError(CNN_NOT_PORTED)
+        if sub in ("to_patch_emb_first_frame", "to_patch_emb") and cfg.patch_embed == "cnn":
+            idx, leaf = parts[2], parts[3]  # Sequential: 0 Conv3d, 1 Normalize, 2 Rearrange
+            if idx == "0":
+                return ([root, f"{sub}_conv", "kernel" if leaf == "weight" else "bias"],
+                        "conv3d" if leaf == "weight" else None)
+            if idx == "1":
+                return _map_cnn_norm([root, f"{sub}_cnorm"], leaf)
+        if sub in ("to_pixels_first_frame", "to_pixels") and cfg.patch_embed == "cnn":
+            # Sequential: 0 Rearrange, 1 ConvTranspose3d (its torch layout kept), 2 Normalize
+            idx, leaf = parts[2], parts[3]
+            if idx == "1":
+                return [root, f"{sub}_conv_{'kernel' if leaf == 'weight' else 'bias'}"], None
+            if idx == "2":
+                return _map_cnn_norm([root, f"{sub}_conv_cnorm"], leaf)
         if sub in ("to_patch_emb_first_frame", "to_patch_emb"):
             idx, leaf = parts[2], parts[3]
             if idx in ("1", "3"):  # the LayerNorms around the patch Linear
@@ -197,7 +220,7 @@ def _flax_value(val: np.ndarray, tf: Optional[str]) -> np.ndarray:
     """The JAX converter's layout transform of a reference tensor."""
     if tf == "T":
         return val.T
-    if tf == "dwconv":  # (dim, 1, kt, kh, kw) -> (kt, kh, kw, 1, dim)
+    if tf in ("dwconv", "conv3d"):  # (out, in, kt, kh, kw) -> (kt, kh, kw, in, out)
         return np.transpose(val, (2, 3, 4, 1, 0))
     assert tf is None, tf
     return val
@@ -210,7 +233,7 @@ def port_key(key: str, val: np.ndarray, cfg: TokenizerConfig
     path, tf = map_tokenizer_key(key, cfg)
     if path is None:
         return None, None
-    if path[0] == "__buffers__":
+    if path[0] in ("__buffers__", "__batch_stats__"):
         path = path[1:]
     return _port_key(tuple(path), _flax_value(np.asarray(val, np.float32), tf))
 
@@ -243,8 +266,6 @@ def convert_tokenizer_state(sd: Dict[str, np.ndarray], cfg: TokenizerConfig,
     checkpoint lacks keeps its template value (Lightning's strict=False) and
     is named in the returned list; strict=True raises on it and on a
     reference key the map does not know."""
-    if cfg.patch_embed == "cnn":
-        raise NotImplementedError(CNN_NOT_PORTED)
     got: Dict[str, np.ndarray] = {}
     unmapped = []
     for key, val in sd.items():
@@ -308,8 +329,6 @@ def load_tokenizer_checkpoint(path: str, cfg: Optional[TokenizerConfig] = None,
             raise ValueError(f"{path} carries no config (no hparams, no .cfg.json sidecar): "
                              "pass cfg")
         cfg = config_from_args(args)
-    if cfg.patch_embed == "cnn":
-        raise NotImplementedError(CNN_NOT_PORTED)
 
     net = OmniTokenizerNet(cfg)
     init_weights(net, torch.Generator().manual_seed(0))
@@ -338,8 +357,6 @@ def load_jax_tokenizer_checkpoint(path: str, cfg: Optional[TokenizerConfig] = No
     if cfg is None:
         raise ValueError(f"{path}: a JAX msgpack checkpoint without a .cfg.json sidecar "
                          "needs an explicit config (pass cfg)")
-    if cfg.patch_embed == "cnn":
-        raise NotImplementedError(CNN_NOT_PORTED)
     raw = read_msgpack(path)
     if not isinstance(raw, dict):
         raise KeyError(f"{path}: a {type(raw).__name__}, not a tree of variables")

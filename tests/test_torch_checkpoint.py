@@ -4,10 +4,12 @@ tmp_path) loads into the port with every tensor bit-equal to the JAX
 route (its load_tokenizer_checkpoint, then convert.state_dict_from_jax),
 and its f32 round trip gives the JAX indices exactly and pixels within
 2e-4. Also the config from the hparams, the port's own checkpoint files,
-the wrapper's info, the diffusion adapter and the cnn refusal."""
+the wrapper's info, the diffusion adapter, and a cnn tokenizer's .ckpt
+and msgpack (BatchNorm statistics included)."""
 
 import argparse
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -151,16 +153,90 @@ def test_diffusion_adapter_loads_a_vae_checkpoint(tmp_path):
     assert tuple(z.shape) == (1, 8, 8, 8)
 
 
+def cnn_reference_state_dict(cfg, seed: int = 6) -> dict:
+    """The reference's keys of a cnn tokenizer: the linear patch embed's and
+    to-pixels' keys replaced by the Conv3d + Normalize and ConvTranspose3d +
+    Normalize Sequentials, random values, running statistics away from 0
+    and 1."""
+    rng = np.random.RandomState(seed)
+    d, c, p, pt = cfg.embedding_dim, cfg.image_channels, cfg.patch_size, cfg.temporal_patch_size
+    new = {}
+
+    def norm(prefix, n):
+        new[f"{prefix}.weight"] = 1 + 0.1 * rng.standard_normal(n)
+        new[f"{prefix}.bias"] = 0.1 * rng.standard_normal(n)
+        new[f"{prefix}.running_mean"] = 0.1 * rng.standard_normal(n)
+        new[f"{prefix}.running_var"] = rng.uniform(0.5, 1.5, n)
+
+    for sub, kt in (("to_patch_emb_first_frame", 1), ("to_patch_emb", pt)):
+        new[f"encoder.{sub}.0.weight"] = rng.standard_normal((d, c, kt, p, p)) / np.sqrt(c * kt * p * p)
+        new[f"encoder.{sub}.0.bias"] = 0.1 * rng.standard_normal(d)
+        norm(f"encoder.{sub}.1", d)
+    for sub, kt in (("to_pixels_first_frame", 1), ("to_pixels", pt)):
+        new[f"decoder.{sub}.1.weight"] = rng.standard_normal((d, c, kt, p, p)) / np.sqrt(d)
+        new[f"decoder.{sub}.1.bias"] = 0.1 * rng.standard_normal(c)
+        norm(f"decoder.{sub}.2", c)
+    sd = {k: v for k, v in reference_state_dict(cfg).items()
+          if not k.startswith(("encoder.to_patch_emb", "decoder.to_pixels"))}
+    sd.update({k: np.asarray(v, np.float32) for k, v in new.items()})
+    sd["encoder.to_patch_emb.1.num_batches_tracked"] = np.asarray(7, np.int64)
+    return sd
+
+
 def test_cnn_checkpoint_raises(tmp_path):
+    """A cnn tokenizer (BatchNorm) as a reference .ckpt loads with every
+    tensor bit-equal to the JAX route's, running statistics included, and
+    its f32 round trip equals the JAX one's; the same weights as a JAX
+    msgpack with batch_stats load bit-equal in the port and in the JAX
+    package. A strict load raises for a missing running statistic."""
+    from omnitokenizer_tpu.utils.checkpoint import save_tokenizer_checkpoint as jax_save
+    from omnitokenizer_tpu_torch.convert import state_dict_to_jax
+    from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+
+    hp = _hparams(patch_embed="cnn")
+    sd = cnn_reference_state_dict(JaxConfig(**SMALL, patch_embed="cnn"))
     path = tmp_path / "cnn.ckpt"
-    sd = reference_state_dict(JaxConfig(**SMALL))
-    sd["encoder.to_patch_emb_first_frame.0.weight"] = np.zeros((32, 3, 1, 4, 4), np.float32)
-    write_lightning_ckpt(path, sd, **_hparams(patch_embed="cnn"))
-    with pytest.raises(NotImplementedError, match="The rest of tokenizer inference"):
-        OmniTokenizerVQGAN.load_from_checkpoint(str(path), device="cpu")
-    with pytest.raises(NotImplementedError, match="The rest of tokenizer inference"):
-        ck.map_tokenizer_key("encoder.to_patch_emb.0.weight",
-                             TorchConfig(**SMALL, patch_embed="cnn"))
+    write_lightning_ckpt(path, sd, **hp)
+    jcfg, variables = jax_load(str(path), strict=True)
+    model = OmniTokenizerVQGAN.load_from_checkpoint(str(path), device="cpu", strict=True)
+    assert model.cfg.patch_embed == "cnn" and model.unfilled == []
+    want = state_dict_from_jax(to_numpy_tree(variables), OmniTokenizerNet(model.cfg))
+    got = model.net.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    np.testing.assert_array_equal(
+        got["decoder.to_pixels_conv_cnorm.norm.var"].numpy(),
+        sd["decoder.to_pixels.2.running_var"])
+    jm = JaxVQGAN(jcfg, variables)
+    x = np.random.RandomState(1).uniform(-0.5, 0.5, (2, 3, 5, 32, 32)).astype(np.float32)
+    idx_j = np.asarray(jm.encode(x, is_image=False))
+    np.testing.assert_array_equal(model.encode(x, is_image=False).numpy(), idx_j)
+    np.testing.assert_allclose(model.decode(idx_j, is_image=False).numpy(),
+                               np.asarray(jm.decode(idx_j, is_image=False)), **PIX)
+
+    mp = str(tmp_path / "cnn.msgpack")
+    tree = state_dict_to_jax(model.net)
+    assert set(tree) == {"params", "buffers", "batch_stats"}
+    write_msgpack(mp, tree)
+    with open(mp + ".cfg.json", "w") as f:
+        json.dump(ck.config_to_json(model.cfg), f)
+    again = OmniTokenizerVQGAN.load_from_checkpoint(mp, device="cpu")
+    for k, v in got.items():
+        assert torch.equal(again.net.state_dict()[k], v), k
+    _, jax_vars = jax_load(mp)
+    for k, v in state_dict_from_jax(to_numpy_tree(jax_vars), OmniTokenizerNet(model.cfg)).items():
+        assert torch.equal(v, got[k]), k
+    jax_mp = str(tmp_path / "jax_cnn.msgpack")
+    jax_save(jax_mp, variables, jcfg)  # the JAX package's own writer
+    from_jax = OmniTokenizerVQGAN.load_from_checkpoint(jax_mp, device="cpu")
+    for k, v in got.items():
+        assert torch.equal(from_jax.net.state_dict()[k], v), k
+
+    del sd["encoder.to_patch_emb.1.running_var"]
+    write_lightning_ckpt(path, sd, **hp)
+    with pytest.raises(KeyError, match="to_patch_emb_cnorm.norm.var"):
+        OmniTokenizerVQGAN.load_from_checkpoint(str(path), device="cpu", strict=True)
 
 
 def test_cuda_default_raises_without_a_card(ckpt):

@@ -18,7 +18,12 @@ writer, the key maps and their inverses, the loaders, convert_ckpt,
 download, prec_recall, metrics_eval) import and run with jax, flax, optax
 and the msgpack package unimportable: a tokenizer, a GPT and a DiT state
 written in the JAX package's format, read back through the CLIs' loaders
-and convert_ckpt, and metrics_eval over .npz directories."""
+and convert_ckpt, and metrics_eval over .npz directories. The tokenizer's
+variants (einsum biases, cnn, deferred pools, pooling and up blocks) and
+LatteT2V with its sample CLI run with jax, flax, optax, msgpack and
+transformers unimportable: round trips in f32 and bf16, a cnn msgpack with
+its BatchNorm statistics, and the CLI from random weights and from a
+msgpack in bf16."""
 
 import subprocess
 import sys
@@ -332,6 +337,69 @@ print("ok")
 
 def test_interchange_and_metrics_run_without_jax():
     res = subprocess.run([sys.executable, "-c", INTERCHANGE_SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+VARIANTS_SCRIPT = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack", "transformers"):
+    sys.modules[name] = None
+import json, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, TokenizerConfig, convert
+from omnitokenizer_tpu_torch.cli import latte_t2v_sample
+from omnitokenizer_tpu_torch.models.latte_t2v import LatteT2V
+from omnitokenizer_tpu_torch.ops.bias import alibi_bias
+from omnitokenizer_tpu_torch.utils.checkpoint import config_to_json
+from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack
+cfg = TokenizerConfig(embedding_dim=64, n_codes=64, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="ta", dec_block="nt", spatial_depth=2,
+                      temporal_depth=2, heads=2, dim_head=32, spatial_pos="rel")
+video = torch.rand(1, 3, 5, 32, 32, generator=torch.Generator().manual_seed(0)) * 2 - 1
+for kw in (dict(attn_bias_mode="einsum"), dict(patch_embed="cnn", enc_block="tt", dec_block="tt"),
+           dict(defer_temporal_pool=True, defer_spatial_pool=True, enc_block="tt",
+                dec_block="tt"), {}):
+    for dtype in (torch.float32, torch.bfloat16):
+        model = OmniTokenizerVQGAN.from_config(cfg.replace(dtype=dtype, **kw), seed=0,
+                                               device="cpu")
+        recon, aux = model.reconstruct(video, is_image=False)
+        assert recon.shape == video.shape and bool(torch.isfinite(recon.float()).all()), kw
+assert alibi_bias(6, 5, 5).shape == (6, 5, 5)
+with tempfile.TemporaryDirectory() as root:
+    cnn = cfg.replace(patch_embed="cnn", enc_block="tt", dec_block="tt")
+    tok = OmniTokenizerVQGAN.from_config(cnn, seed=0, device="cpu")
+    path = os.path.join(root, "cnn.msgpack")
+    write_msgpack(path, convert.state_dict_to_jax(tok.net))
+    with open(path + ".cfg.json", "w") as f:
+        json.dump(config_to_json(cnn), f)
+    back = OmniTokenizerVQGAN.load_from_checkpoint(path, device="cpu")
+    assert all(torch.equal(back.net.state_dict()[k], v) for k, v in tok.net.state_dict().items())
+    flags = ["--num_layers", "1", "--num_attention_heads", "2", "--attention_head_dim", "8",
+             "--caption_channels", "16", "--image_size", "32", "--video_length", "2",
+             "--num_sampling_steps", "2", "--max_token_length", "6", "--device", "cpu",
+             "--save_img_path", root]
+    z = latte_t2v_sample.main(flags)
+    assert z.shape == (1, 2, 4, 4, 4) and np.isfinite(z).all()
+    model = LatteT2V(latte_t2v_sample.load_t2v_config(
+        latte_t2v_sample.build_parser().parse_args(flags), torch.float32))
+    write_msgpack(os.path.join(root, "t2v.msgpack"),
+                  {"params": convert.latte_t2v_state_dict_to_jax(model.state_dict())})
+    z = latte_t2v_sample.main(flags + ["--ckpt", os.path.join(root, "t2v.msgpack"), "--bf16"])
+    assert np.isfinite(z).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "msgpack",
+                                                              "transformers", "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_variants_and_t2v_run_without_jax():
+    res = subprocess.run([sys.executable, "-c", VARIANTS_SCRIPT], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
