@@ -19,7 +19,8 @@ Phases (any failure raises and exits non-zero):
      module's own plain bf16 route: layer_norm and cuBLAS bf16 F.linear
      for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
      cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
-     for vq_argmin; and the LM's causal flash forward and backward at the
+     for vq_argmin (also at the CNN VQGAN's 16384 x 256 rows against 2048
+     codes); and the LM's causal flash forward and backward at the
      training shape (8, 16, 1025, 96) and at the long-sequence recipes'
      (4, 16, 5121, 96), where they are compute-bound, on the (B, T, H, D)
      projections' views, beside SDPA (is_causal) forward and forward +
@@ -132,7 +133,27 @@ Phases (any failure raises and exits non-zero):
      with CFG 7.5 on one prompt in bf16 (ms a step beside its FLOP bound,
      clips/s, peak, kernels a step, device ms by group), the decode through
      the f32 VAE (mha 8) against its plain route, and
-     latte_t2v_sample.main end to end from a JAX msgpack through the VAE.
+     latte_t2v_sample.main end to end from a JAX msgpack through the VAE;
+ 15. the last tokenizer pieces: (a) the recipe's stage 3 (scripts/recons/
+     train.sh), the f32 VAE finetune of imagenet_k600_config(use_vae=True)
+     with kl_weight 1e-6 and the recipe's losses and schedule, seeded
+     through load_pretrained_into_state (init_vgen keep, init_vdis keep)
+     from a random stage-2 VQ checkpoint in the reference's names: 3 video
+     steps at B=4 x 17x256^2 and 1 image step at B=8 x 256^2 through
+     train_tokenizer on the kernel route (mha as the primal of the
+     generator pass, 6 a step) and on the plain route
+     (OMNITOK_TRAIN_KERNEL_FWD=0, mha 0), ms a step, peak memory, the
+     first step's losses within the f32 card bar of each other and its
+     gradient norms within the training bar, the kernel route's first mha
+     call against mha_plain on its inputs; (b) the CNN VQGAN at
+     load_cnn_vqgan_checkpoint's defaults (240 wide, downsample (4, 4, 4),
+     2048 codes of 256, group norm) on B=4 clips of 16x128^2: launches
+     (vq_argmin 1), indices against vq_argmin_plain on the same latents
+     (near-ties counted), the decodes of both index sets, frames/s and
+     peak, a small one card against CPU; (c) the quantizers at working
+     sizes (16384 rows; VQ of 8192 codes of 256, euclidean and cosine,
+     kmeans held step by step, one training call's EMA; FSQ (8, 8, 8, 5, 5,
+     5); LFQ of 2^14 codes; the residual stacks 4 deep) card against CPU.
 `--phases 14` (any comma list) runs phases 0, 1 and those alone.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
@@ -147,6 +168,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -203,6 +225,13 @@ EXPECTED_LAUNCHES = {
     # one flash backward
     "lm_train": {"geglu_ff": 8, "ln_qkv": 6, "cosine_mha": 2, "small_n_attention": 4,
                  "vq_argmin": 1, "mha": 0, "flash_attn_fwd": 24, "flash_attn_bwd": 24},
+    # a stage-3 VAE training step (phase 15a): the generator pass runs the f32
+    # VAE on the inference route under autograd, so each spatial 't' block
+    # (encoder 2, decoder 4) runs mha as the primal of ops/kernel_grad.py; the
+    # backward recomputes the plain math, and a VAE has no codebook
+    "vae_train": {**{k: 0 for k in KERNELS}, "mha": 6},
+    # the CNN VQGAN's round trip (phase 15b): its codebook's search
+    "cnn_vqgan": {**{k: 0 for k in KERNELS}, "vq_argmin": 1},
 }
 # training-route calls a step (ops/kernel_grad.py): the flat temporal route
 # in the 8 temporal blocks, cosine attention in the 6 spatial 't' blocks,
@@ -582,6 +611,11 @@ def phase2_kernels() -> None:
                          randn(g, B * t, n_sp, 2 * H * Dh, dtype=BF), qs, ks, H, Dh, rope_sp)
         # l2-normalized latents against an N(0, 1) 8192 x 8 codebook
         check_vq("2", path, F.normalize(randn(g, M, 8), dim=-1).contiguous(), emb)
+
+    # the CNN VQGAN's codebook at the loader defaults: B=4 clips of 16 x 128^2 give
+    # 4 x 4 x 32 x 32 rows of width 256 against 2048 codes
+    check_vq("2", "cnn_vqgan", randn(g, CNN_B * (CNN_T // 4) * (CNN_RES // 4) ** 2, 256),
+             randn(g, 2048, 256))
 
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
@@ -1145,7 +1179,7 @@ STAGES = {"g_forward": "_g_losses", "g_backward": "_grads", "g_update": "_g_upda
           "d_backward": "_grads", "d_update": "_d_update"}
 
 
-def profile_train_step(trainer, state, video) -> dict:
+def profile_train_step(trainer, state, video, tag: str = "8") -> dict:
     """One training step timed by stage: CUDA events around each of the
     trainer's stage methods (the device's time from the stage's first
     kernel to its last, gaps included), and the whole step; then one more
@@ -1193,11 +1227,18 @@ def profile_train_step(trainer, state, video) -> dict:
                      key=self_dev, reverse=True)
     ms["busy"] = sum(self_dev(e) for e in kernels)
     route = os.environ.get("OMNITOK_TRAIN_KERNEL_FWD")
-    print(f"[8] step by stage ({route}), device ms: " + ", ".join(f"{k} {v:.2f}"
-                                                                 for k, v in ms.items())
+    print(f"[{tag}] step by stage ({route}), device ms: " + ", ".join(f"{k} {v:.2f}"
+                                                                   for k, v in ms.items())
           + f"; device busy {ms['busy'] / ms['step']:.1%} of the step (profiled step)")
     for e in kernels[:10]:
-        print(f"[8]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+        print(f"[{tag}]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+    if ms["busy"] < 0.5 * ms["step"]:  # the host holds the card back: its own top ops
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in host[:10]:
+            print(f"[{tag}]   host {e.self_cpu_time_total / 1e3:8.2f} ms self {e.count:5d}x "
+                  f"{e.key[:100]}")
     return ms
 
 
@@ -3596,6 +3637,451 @@ def phase14_variants_t2v() -> dict:
     return paths
 
 
+# -- phase 15: VAE training, the CNN VQGAN, the quantizers ------------------------------------
+# The recipe's stage 3 (scripts/recons/train.sh): the f32 VAE finetune from the stage-2 VQ
+# checkpoint, its losses and schedule (grad_accumulates 2, clips 1.0, the disc gate 0.001),
+# 3 video steps at B=4 x 17x256^2 then 1 image step at B=8 x 256^2 (its --batch_size 4 8).
+# Kernel route against plain route from the same start: the first step's losses within the
+# training bar (5e-3, TRAIN_LOSS_REL_TOL) and within the f32 card bar (1e-4) too, the gradient
+# norms within 5e-2; the f32 mha kernel on the step's first spatial q, k, v against mha_plain
+STAGE3_F32_LOSS_REL_TOL = 1e-4
+STAGE3_VIDEO_STEPS, STAGE3_IMAGE_B = 3, 8
+# the CNN VQGAN at load_cnn_vqgan_checkpoint's defaults (n_hiddens 240, downsample (4, 4, 4),
+# 256-wide codes, 2048 of them, group norm) on B=4 clips of 16 x 128^2
+CNN_B, CNN_T, CNN_RES = 4, 16, 128
+CNN_REL_TOL = 1e-4        # f32, whole-tensor relative: card against CPU; decodes of two index sets
+# the quantizers at working sizes, card against CPU: 16384 rows, VQ of 8192 codes of width
+# 256 (kmeans init, 10 Lloyd steps), FSQ levels (8, 8, 8, 5, 5, 5), LFQ of 2^14 codes,
+# residual stacks 4 deep. Indices equal but for f32 near-ties (the two choices' f64 scores
+# within VQ_TIE_TOL), each counted and the codes they touch left out of the state's bar
+Q_ROWS, Q_DIM, Q_CODES, Q_DEPTH = 16384, 256, 8192, 4
+Q_FSQ_LEVELS, Q_LFQ_DIM = (8, 8, 8, 5, 5, 5), 14
+Q_REL_TOL = 1e-5
+
+
+def stage3_trainer(device: str = "cuda"):
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+    from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+    from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+
+    cfg = imagenet_k600_config(use_vae=True).replace(kl_weight=1e-6)
+    return TokenizerTrainer(cfg, LossConfig(), TrainConfig(grad_accumulates=2), device=device)
+
+
+def stage3_data(b_video: int) -> list:
+    """3 batches of b_video clips of 17x256^2, then 1 of 8 images of 256^2,
+    seeded, on the card."""
+    g = torch.Generator().manual_seed(15)
+    shapes = [(b_video, T, RES, RES, 3)] * STAGE3_VIDEO_STEPS + [(STAGE3_IMAGE_B, RES, RES, 3)]
+    return [((torch.rand(*shape, generator=g) - 0.5) * 0.9).cuda() for shape in shapes]
+
+
+def stage3_batches(data: list, stamps: list, counts: list):
+    """The batches; each yield stamps the host clock (synchronized) and the
+    launch counts."""
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts
+
+    for video in data:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        counts.append(launch_counts())
+        yield {"video": video}
+
+
+def stage3_route(trainer, start: str, root: str, ops: str, data: list) -> dict:
+    """The stage-3 run from the `start` checkpoint on one route through
+    train_tokenizer; its steps' ms (from a batch's arrival to the step's
+    end, synchronized: the loop's final checkpoint is not in the last),
+    launches and metrics, and the peak."""
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.training.loop import load_state, train_tokenizer
+
+    state = load_state(start, trainer.init_state(seed=1))
+    stamps, counts, ends = [], [], []
+    real_step = trainer.train_step
+
+    def timed_step(*args, **kw):
+        out = real_step(*args, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer.train_step = timed_step
+    try:
+        with train_kernel_ops(ops):
+            state = train_tokenizer(trainer, stage3_batches(data, stamps, counts), root,
+                                    max_steps=STAGE3_VIDEO_STEPS + 1, img_every=0,
+                                    log_every=1, initial_state=state, resume=False)
+    finally:
+        del trainer.train_step
+    torch.cuda.synchronize()
+    counts.append(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(root, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    steps = [{k: counts[i + 1][k] - counts[i][k] for k in KERNELS}
+             for i in range(STAGE3_VIDEO_STEPS + 1)]
+    ms = [(end - start) * 1e3 for start, end in zip(stamps, ends)]
+    bad = [(r["step"], k) for r in records for k in LOSSES if not abs(r[k]) < float("inf")]
+    if bad or state.step != STAGE3_VIDEO_STEPS + 1:
+        raise AssertionError(f"stage 3 ({ops}): step {state.step}, non-finite {bad}")
+    del state
+    return {"ms": ms, "launches": steps, "peak": peak, "first": records[0]}
+
+
+def stage3_vs_plain(kern: dict, plain: dict) -> list:
+    """The first step's losses and gradient norms, kernel against plain
+    route; returns the readings over their bars."""
+    failed = []
+    for k in LOSSES + ("grad_norm_g", "grad_norm_d"):
+        a, b = kern["first"][k], plain["first"][k]
+        err = abs(a - b) / max(abs(a), abs(b), 0.1)
+        bars = ((TRAIN_GRAD_NORM_REL_TOL,) if k.startswith("grad_norm")
+                else (TRAIN_LOSS_REL_TOL, STAGE3_F32_LOSS_REL_TOL))
+        print(f"[15a] first step {k}: kernel {a:.7g} plain {b:.7g} ({err:.2e}; bar {min(bars)})")
+        failed += [f"{k} {err:.3e} > {bar}" for bar in bars if not err <= bar]
+    return failed
+
+
+def phase15a_stage3(smi: str) -> dict:
+    """Stage 3 at full width (see the module docstring); returns the
+    launches of a video step."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+    from omnitokenizer_tpu_torch.ops import attention as tattn
+    from omnitokenizer_tpu_torch.ops.kernels import mha as mh
+    from omnitokenizer_tpu_torch.training.loop import load_state, save_state
+    from omnitokenizer_tpu_torch.utils.inflate import load_pretrained_into_state
+
+    trainer = stage3_trainer()
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "stage2.ckpt")
+        sd = reference_tokenizer_state(imagenet_k600_config(), seed=0)
+        torch.save({"state_dict": sd}, path)
+        t0 = time.perf_counter()
+        state = load_pretrained_into_state(trainer, path, init_vgen="keep", init_vdis="keep",
+                                           seed=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fresh = trainer.init_state(seed=0)
+        net, init = state.net.state_dict(), fresh.net.state_dict()
+        kept = [k for k in net if torch.equal(net[k], init[k])]
+        if sorted(kept) != ["pre_vq_conv.bias", "pre_vq_conv.weight"] or state.net.codebook:
+            raise AssertionError(f"stage 3's load: tensors at their init values {kept}")
+        if not torch.equal(state.image_disc.model0_conv.weight.cpu(),
+                           sd["image_discriminator.model0.0.weight"]):
+            raise AssertionError("stage 3's load: the image discriminator's first conv")
+        print(f"[15a] a stage-2 VQ .ckpt (reference names, seed 0) loaded into the stage-3 VAE "
+              f"trainer in {load_s:.2f} s (init_vgen keep, init_vdis keep): every tensor but "
+              f"the posterior head pre_vq_conv {tuple(net['pre_vq_conv.weight'].shape)} from "
+              f"the file, no codebook")
+        start = os.path.join(root, "start.pt")
+        save_state(start, state)
+        del state, fresh, net, init
+
+        # the kernel route's first spatial mha call, against its plain math
+        seen, real = [], tattn._mha_kernel
+
+        def spy(q, k, v, scale, causal):
+            if not seen:
+                seen.append(tuple(t.detach().contiguous().clone() for t in (q, k, v))
+                            + (scale, causal))
+            return real(q, k, v, scale, causal)
+
+        def in_turns(b_video: int) -> dict:
+            """kernel, plain, plain, kernel: each route's runs from `start`."""
+            runs, data = {"attn,ff,flat": [], "0": []}, stage3_data(b_video)
+            for i, ops in enumerate(("attn,ff,flat", "0", "0", "attn,ff,flat")):
+                run_root = os.path.join(root, f"run{i}")
+                tattn._mha_kernel = spy
+                try:
+                    runs[ops].append(stage3_route(trainer, start, run_root, ops, data))
+                finally:
+                    tattn._mha_kernel = real
+                    shutil.rmtree(run_root, ignore_errors=True)
+            return runs
+
+        b_video = B
+        try:
+            runs = in_turns(b_video)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            b_video = 2
+            print(f"[15a] a route at B={B} exceeds the card's memory: both routes at "
+                  f"B={b_video}")
+            runs = in_turns(b_video)
+        # one video step of each route by stage, and its device kernels; then
+        # the kernel route's image step
+        data = stage3_data(b_video)
+        for ops, batch in (("attn,ff,flat", data[0]), ("0", data[0]),
+                           ("attn,ff,flat", data[-1][:, None])):
+            st = load_state(start, trainer.init_state(seed=2))
+            with train_kernel_ops(ops):
+                profile_train_step(trainer, st, batch, tag="15a")
+            del st
+        del data
+    q, k, v, scale, causal = seen[0]
+    err = compare("stage 3's first mha call", mh.mha(q, k, v, scale, causal),
+                  mh.mha_plain(q, k, v, scale, causal), MHA_F32_REL_TOL)
+    print(f"[15a] the kernel route's first spatial mha call {tuple(q.shape)} f32 against "
+          f"mha_plain on its inputs: max_abs {err[0]:.3e} max_rel {err[1]:.3e}")
+    want = EXPECTED_LAUNCHES["vae_train"]
+    report = {"batch": b_video}
+    for ops, name, mha_calls in (("attn,ff,flat", "kernel", want["mha"]), ("0", "plain", 0)):
+        expect = {**want, "mha": mha_calls}
+        for run in runs[ops]:
+            if any(step != expect for step in run["launches"]):
+                raise AssertionError(f"stage 3, {name} route: launches a step "
+                                     f"{run['launches']} != {expect}")
+            run["video_ms"] = sum(run["ms"][1:STAGE3_VIDEO_STEPS]) / (STAGE3_VIDEO_STEPS - 1)
+            run["image_ms"] = run["ms"][-1]
+        report[name] = [{k: run[k] for k in ("video_ms", "image_ms", "peak")}
+                        for run in runs[ops]]
+        print(f"[15a] stage 3 f32 {name} route ({smi}), its runs in the order kernel, plain, "
+              f"plain, kernel: video step B={b_video} {T}x{RES}^2 "
+              + ", ".join(f"{r['video_ms']:.2f}" for r in runs[ops])
+              + f" ms (mean of steps 1-{STAGE3_VIDEO_STEPS - 1}; step 0 "
+              + ", ".join(f"{r['ms'][0]:.2f}" for r in runs[ops])
+              + f"); image step B={STAGE3_IMAGE_B} "
+              + ", ".join(f"{r['image_ms']:.2f}" for r in runs[ops])
+              + " ms; peak " + ", ".join(f"{r['peak']:.2f}" for r in runs[ops])
+              + f" GiB; mha launches a step {[s['mha'] for s in runs[ops][0]['launches']]}")
+    failed = stage3_vs_plain(runs["attn,ff,flat"][0], runs["0"][0])
+    if failed:
+        raise AssertionError(f"stage 3, kernel vs plain route: {failed}")
+    print(json.dumps({"stage3": report}))
+    # the image step's spatial calls: (8 images, 8 heads, 32 x 32 tokens, 64)
+    check_mha("15a", "vae_train", torch.Generator().manual_seed(15),
+              (STAGE3_IMAGE_B, 8, (RES // 8) ** 2, 64), torch.float32, False)
+    return {"vae_train": want}
+
+
+def cnn_config():
+    from omnitokenizer_tpu_torch import TokenizerConfig
+
+    return TokenizerConfig(embedding_dim=256, codebook_dim=256, n_codes=2048, norm_type="group")
+
+
+def phase15b_cnn() -> dict:
+    """The CNN VQGAN at the loader's defaults: a round trip's launches, the
+    indices against vq_argmin_plain on the same latents, the decodes of the
+    two index sets, frames/s and peak; a small one card against CPU."""
+    from omnitokenizer_tpu_torch import TokenizerConfig
+    from omnitokenizer_tpu_torch.models.cnn_vqgan import CnnVQGAN, init_cnn_vqgan
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 convs would round to it")
+    model = init_cnn_vqgan(CnnVQGAN(cnn_config(), 240, (4, 4, 4)),
+                           torch.Generator().manual_seed(0)).cuda().eval()
+    g = torch.Generator().manual_seed(16)
+    x = ((torch.rand(CNN_B, CNN_T, CNN_RES, CNN_RES, 3, generator=g) - 0.5)).cuda()
+    with torch.no_grad():
+        reset_launch_counts()
+        recon, out = model(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != EXPECTED_LAUNCHES["cnn_vqgan"] or recon.shape != x.shape:
+            raise AssertionError(f"CNN VQGAN round trip: launches {counts}, {tuple(recon.shape)}")
+        h = model.encode_latent(x)
+        flat, emb = h.reshape(-1, 256).float().contiguous(), model.codebook.embeddings
+        idx_k = out["encodings"]
+        idx_p = vq.vq_argmin_plain(flat, emb).reshape(idx_k.shape)
+        gap = vq_gap("15b", f"CNN VQGAN codebook {tuple(flat.shape)} x {tuple(emb.shape)}",
+                     flat, emb)
+        err = rel_norm(model.decode(idx_k), model.decode(idx_p))
+        if not err <= CNN_REL_TOL:
+            raise AssertionError(f"CNN VQGAN: decodes of the kernel's and plain indices {err:.3e}")
+        print(f"[15b] indices: {int((idx_k != idx_p).sum())} of {idx_k.numel()} differ from "
+              f"vq_argmin_plain (largest distance gap {gap:.3e}); the decodes of both "
+              f"{err:.3e} apart; {len(idx_k.unique())} codes in use")
+        fps, peak = fps_and_peak(lambda: model(x), CNN_B * CNN_T, iters=3)
+        print(f"[15b] CNN VQGAN round trip B={CNN_B} x {CNN_T}x{CNN_RES}^2 f32: {fps:.2f} "
+              f"frames/s, peak {peak:.2f} GiB")
+        SLICE_STATS["15b"] = {"batch": CNN_B, "fps": fps, "peak_gib": peak}
+
+        small = init_cnn_vqgan(CnnVQGAN(TokenizerConfig(embedding_dim=16, codebook_dim=16,
+                                                        n_codes=128, norm_type="group"),
+                                        32, (2, 4, 4)), torch.Generator().manual_seed(1))
+        xs = (torch.rand(1, 4, 32, 32, 3, generator=g) - 0.5)
+        want_idx, want = small.encode(xs), small.decode(small.encode(xs))
+        small.cuda()
+        got_idx = small.encode(xs.cuda())
+        err = rel_norm(small.decode(want_idx.cuda()), want.cuda())
+        if not torch.equal(got_idx.cpu(), want_idx) or not err <= CNN_REL_TOL:
+            raise AssertionError(f"small CNN VQGAN card vs CPU: indices "
+                                 f"{torch.equal(got_idx.cpu(), want_idx)}, decode {err:.3e}")
+        print(f"[15b] small CNN VQGAN (32 wide, 4x32^2) card vs CPU: indices equal, decode "
+              f"{err:.3e}")
+    del model, x, h, flat
+    return {"cnn_vqgan": EXPECTED_LAUNCHES["cnn_vqgan"]}
+
+
+def _tie_rows(tag, rows, got, want, score64) -> torch.Tensor:
+    """Rows whose card index differs from the CPU's: each must be a near-tie
+    of f64 scores (relative gap <= VQ_TIE_TOL); returns them."""
+    bad = (got.cpu() != want).nonzero().flatten()
+    if bad.numel():
+        s_got = score64(rows[bad], got.cpu()[bad].long())
+        s_want = score64(rows[bad], want[bad].long())
+        gap = ((s_got - s_want).abs() / torch.maximum(s_got.abs(), s_want.abs()).clamp_min(1e-12))
+        if not float(gap.max()) <= VQ_TIE_TOL:
+            raise AssertionError(f"{tag}: an index differs by a relative score gap "
+                                 f"{float(gap.max()):.3e}")
+    return bad
+
+
+def _scores(embed64: torch.Tensor, cosine: bool):
+    def score(rows, idx):
+        e = embed64[idx]
+        if cosine:
+            return (rows.double() * e).sum(-1)
+        return (rows.double() - e).square().sum(-1)
+    return score
+
+
+def _close_except(tag, got, want, skip=None):
+    got, want = got.detach().cpu().double(), want.detach().double()
+    if skip is not None and skip.numel():
+        keep = torch.ones(want.shape[0], dtype=torch.bool)
+        keep[skip] = False
+        got, want = got[keep], want[keep]
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+    if not err <= Q_REL_TOL:
+        raise AssertionError(f"{tag}: card vs CPU {err:.3e} > {Q_REL_TOL}")
+    return err
+
+
+def hold_kmeans(tag, samples, idx, cosine) -> torch.Tensor:
+    """kmeans step by step, each card step against the CPU's from the card's
+    previous means; returns the card's means."""
+    from omnitokenizer_tpu_torch.ops import quantizers as Q
+
+    cpu = samples.cpu()
+    means = samples[idx]
+    ties, worst = 0, 0.0
+    for _ in range(10):
+        m_c, a_c = Q.kmeans_step(samples, means, cosine)
+        m_p, a_p = Q.kmeans_step(cpu, means.cpu(), cosine)
+        m64 = means.double().cpu()
+        m64 = m64 / m64.norm(dim=-1, keepdim=True).clamp_min(1e-12) if cosine else m64
+        bad = _tie_rows(tag, cpu, a_c, a_p, _scores(m64, cosine))
+        touched = torch.cat([a_c.cpu()[bad], a_p[bad]]).unique()
+        worst = max(worst, _close_except(f"{tag} kmeans means", m_c, m_p, touched))
+        ties += bad.numel()
+        means = m_c
+    print(f"[15c] {tag}: kmeans, 10 Lloyd steps each held against the CPU's from the same "
+          f"means: {ties} near-tie assignments, means {worst:.2e}")
+    return means
+
+
+def hold_vq_call(tag, vq, z, state, training=True):
+    """One VectorQuantize call on the card against the CPU's on the same
+    input and state: -> the card's outputs and state."""
+    from omnitokenizer_tpu_torch.ops import quantizers as Q
+
+    out_c, st_c = vq(z, state, training=training)
+    out_p, st_p = vq(z.cpu(), Q.VQState(*(t.cpu() for t in state)), training=training)
+    flat = z.reshape(-1, vq.dim).cpu().double()
+    flat = flat / flat.norm(dim=-1, keepdim=True).clamp_min(1e-12) if vq.use_cosine_sim else flat
+    e64 = state.embed.cpu().double()
+    e64 = e64 / e64.norm(dim=-1, keepdim=True).clamp_min(1e-12) if vq.use_cosine_sim else e64
+    bad = _tie_rows(tag, flat, out_c["encodings"].reshape(-1), out_p["encodings"].reshape(-1),
+                    _scores(e64, vq.use_cosine_sim))
+    touched = torch.cat([out_c["encodings"].reshape(-1).cpu()[bad],
+                         out_p["encodings"].reshape(-1)[bad]]).unique().long()
+    errs = [_close_except(f"{tag} embeddings", out_c["embeddings"].reshape(-1, vq.dim),
+                          out_p["embeddings"].reshape(-1, vq.dim), bad),
+            _close_except(f"{tag} loss", out_c["commitment_loss"].reshape(1),
+                          out_p["commitment_loss"].reshape(1))]
+    for name in ("embed", "cluster_size", "embed_avg"):
+        errs.append(_close_except(f"{tag} {name}", getattr(st_c, name), getattr(st_p, name),
+                                  touched))
+    if int(st_c.initialized) != int(st_p.initialized):
+        raise AssertionError(f"{tag}: initialized {int(st_c.initialized)}")
+    print(f"[15c] {tag}: {bad.numel()} near-tie indices of {flat.shape[0]} ({touched.numel()} "
+          f"codes left out of the state's bar); outputs, loss and state within {max(errs):.2e}")
+    return out_c, st_c
+
+
+def phase15c_quantizers() -> None:
+    """The quantizers at working sizes on the card against the CPU."""
+    from omnitokenizer_tpu_torch.ops import quantizers as Q
+
+    g = torch.Generator().manual_seed(17)
+    z = torch.randn(Q_ROWS, Q_DIM, generator=g).cuda()
+    for cosine in (False, True):
+        tag = "VQ cosine" if cosine else "VQ euclidean"
+        vq = Q.VectorQuantize(Q_DIM, Q_CODES, use_cosine_sim=cosine)
+        state = Q.VQState(*(t.cuda() for t in vq.init_state(torch.Generator().manual_seed(18))))
+        idx = torch.randint(0, Q_ROWS, (Q_CODES,), generator=torch.Generator().manual_seed(19))
+        samples = Q._l2norm(z) if cosine else z
+        means = hold_kmeans(tag, samples, idx.cuda(), cosine)
+        held, _ = hold_vq_call(f"{tag} training call", vq, z,
+                               state._replace(embed=means, initialized=torch.ones_like(
+                                   state.initialized)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = vq(z, state, training=True, kmeans_idx=idx)  # the whole path: kmeans inside
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = (out["encodings"] == held["encodings"]).float().mean()
+        if int(st.initialized) != 1 or float(same) != 1.0 or not bool(
+                torch.isfinite(st.embed).all()):
+            raise AssertionError(f"{tag}: the kmeans-init call, {float(same):.4f} of its indices "
+                                 f"equal the held path's")
+        print(f"[15c] {tag}: the first training call (kmeans init + EMA) {ms:.1f} ms on the "
+              f"card; its indices equal the held path's (kmeans is deterministic there)")
+
+    res = Q.ResidualVQ(Q_DIM, Q_CODES, Q_DEPTH)
+    states = [Q.VQState(*(t.cuda() for t in s))
+              for s in res.init_state(torch.Generator().manual_seed(20))]
+    idxs = [torch.randint(0, Q_ROWS, (Q_CODES,), generator=torch.Generator().manual_seed(21 + i))
+            for i in range(Q_DEPTH)]
+    residual, layer_idx = z, []
+    for i, (layer, st) in enumerate(zip(res.layers, states)):
+        means = hold_kmeans(f"ResidualVQ layer {i}", residual, idxs[i].cuda(), False)
+        out, _ = hold_vq_call(f"ResidualVQ layer {i} training call", layer, residual,
+                              st._replace(embed=means, initialized=torch.ones_like(st.initialized)))
+        residual = residual - out["embeddings"]
+        layer_idx.append(out["encodings"])
+    out, new_states = res(z, states, training=True, kmeans_idx=idxs)
+    same = (out["encodings"] == torch.stack(layer_idx, -1)).float().mean()
+    if float(same) != 1.0 or len(new_states) != Q_DEPTH:
+        raise AssertionError(f"ResidualVQ: {float(same):.4f} of its indices equal the held path's")
+    print(f"[15c] ResidualVQ x{Q_DEPTH}: its indices equal the layers' held one by one")
+
+    zf = (torch.randn(Q_ROWS, len(Q_FSQ_LEVELS), generator=g) * 2).cuda()
+    zl = (torch.randn(Q_ROWS, Q_LFQ_DIM, generator=g) * 0.05).cuda()
+    for tag, fn, x in (("FSQ", Q.FSQ(Q_FSQ_LEVELS), zf),
+                       ("ResidualFSQ", Q.ResidualFSQ(Q_FSQ_LEVELS, Q_DEPTH), zf),
+                       ("LFQ", lambda t: Q.LFQ(Q_LFQ_DIM)(t, training=True), zl),
+                       ("ResidualLFQ", lambda t: Q.ResidualLFQ(Q_LFQ_DIM, Q_DEPTH)(
+                           t, training=True), zl)):
+        got, want = fn(x), fn(x.cpu())
+        if not torch.equal(got["encodings"].cpu(), want["encodings"]):
+            raise AssertionError(f"{tag}: indices differ, card vs CPU")
+        errs = [_close_except(f"{tag} embeddings", got["embeddings"], want["embeddings"]),
+                abs(float(got["commitment_loss"]) - float(want["commitment_loss"]))
+                / max(abs(float(want["commitment_loss"])), 1e-12)]
+        if not errs[1] <= Q_REL_TOL:
+            raise AssertionError(f"{tag}: loss card vs CPU {errs[1]:.3e}")
+        print(f"[15c] {tag} on {tuple(x.shape)}: indices equal, card vs CPU {max(errs):.2e}")
+
+
+def phase15_last_pieces(smi: str) -> dict:
+    """(a) stage 3, (b) the CNN VQGAN, (c) the quantizers; returns the launches."""
+    t0 = time.perf_counter()
+    paths = phase15a_stage3(smi)
+    paths.update(phase15b_cnn())
+    phase15c_quantizers()
+    print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3614,7 +4100,8 @@ def main(argv=None) -> int:
               (5, lambda: {"vae": phase5_vae()}), (6, lambda: {"rel": phase6_rel()}),
               (7, lambda: {"wide": phase7_wide()}), (8, lambda: {"train": phase8_train(smi)}),
               (9, phase9_eval), (10, phase10_lm), (11, phase11_diffusion),
-              (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v)]
+              (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v),
+              (15, lambda: phase15_last_pieces(smi))]
     paths = {}
     for n, phase in phases:
         if run is None or n in run:
@@ -3631,7 +4118,7 @@ def main(argv=None) -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    done = "0-14" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
+    done = "0-15" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
     print(f"[done] phases {done} in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,7 +6,11 @@ load with weight inflation, auto-resume, the GAN step over the loader.
         --data_path DIR --train_datalist LIST --default_root_dir RUNS [--device cpu]
 
 Checkpoints land in <default_root_dir>/checkpoints/step_*.pt; a run
-resumes from the newest, and `vqgan_eval --vqgan_ckpt` reads them. One
+resumes from the newest, and `vqgan_eval --vqgan_ckpt` reads them.
+`--pretrained` takes a reference Lightning `.ckpt`, a port `.pt` or a JAX
+package `.msgpack`; with `--use_vae --kl_weight 1e-6 --init_vgen keep
+--init_vdis keep` from a VQ stage it is the recipe's stage 3
+(scripts/recons/train.sh), the VAE finetune. One
 process on one device (the card unless --device cpu); data parallelism is
 not ported (ROADMAP.md).
 """

@@ -338,17 +338,20 @@ class OmniTokenizerNet(nn.Module):
         return self.decode_latent(z, is_image)
 
     def forward(self, x: torch.Tensor, is_image: bool, training: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full autoencode pass; returns (x_recon, aux dict). VAE mode
-        decodes a sample when given a generator, else the mode, and returns
+        decodes a sample when given the N(0, 1) `noise` (the latents' shape)
+        or a generator to draw it from, else the mode, and returns
         dict(commitment_loss, kl_loss, posterior), both losses
         sum(kl) / B * kl_weight. VQ mode with training=True advances the
         codebook, drawing its random rows from `generator`."""
         h = self.encode_latent(x, is_image, training=training)
         if self.cfg.use_vae:
             posterior = DiagonalGaussian.from_params(h)
-            z = posterior.mode() if generator is None else posterior.sample(generator)
+            z = (posterior.mode() if generator is None and noise is None
+                 else posterior.sample(generator, noise))
             recon = self.decode_latent(z, is_image, training=training)
             kl = posterior.kl()
             kl_loss = kl.sum() / kl.shape[0] * self.cfg.kl_weight

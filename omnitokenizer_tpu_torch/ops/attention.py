@@ -10,9 +10,11 @@ recomputed as the backward. f32 calls and the other training calls take
 the plain math, which is the JAX f32 parity path; its softmax core,
 `sdpa`, runs the `mha` kernel on a CUDA tensor inside that kernel's gate at
 inference, in f32 and bf16 alike, as the JAX package runs `mha_pallas`
-(its training `sdpa` is plain). `prepare_kernels()` caches the kernels'
-bf16 (and padded) weights for serving; without the cache an inference
-call casts the live parameters, and a training call always does.
+(its training `sdpa` is plain), and, under the `attn` group, as the primal
+of an inference-route call that autograd records (a VAE's training step).
+`prepare_kernels()` caches the kernels' bf16 (and padded) weights for
+serving; without the cache an inference call casts the live parameters,
+and a training call always does.
 
 Under `attn_bias_mode='einsum'` a spatial `rel` call adds its CPB bias and
 a causal call AliBi to the f32 logits. No attention kernel takes a bias
@@ -45,25 +47,44 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return F.normalize(t, dim=dim, eps=eps)
 
 
+def _mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                causal: bool) -> torch.Tensor:
+    """The `mha` kernel: its small branch reads the views as they stand,
+    the flash branches take contiguous copies."""
+    if not small_branch(*q.shape[-2:]):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return mha(q, k, v, scale, causal)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
          causal: bool = False, training: bool = False,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T * scale [+ bias] [bottom-right causal]) v over (B, H,
-    N, D). Without a bias: the `mha` kernel for a CUDA tensor inside its
-    gate at inference, else its plain math (`mha_plain`), as
+    N, D). Without a bias, a call with training=False inside the `mha` gate
+    runs the kernel for a CUDA tensor, as
     `omnitokenizer_tpu.ops.attention.sdpa` routes between `mha_pallas` and
-    XLA. The kernel's small branch reads the views as they stand; the flash
-    branches take contiguous copies. With a bias (broadcast to (B, H, N,
-    N)): the plain math, the bias added to the f32 logits before the mask,
-    as the JAX `sdpa` does (its kernel gate refuses a bias)."""
+    XLA; a training=True call runs the plain math (`mha_plain`). With a
+    bias (broadcast to (B, H, N, N)): the plain math, the bias added to the
+    f32 logits before the mask, as the JAX `sdpa` does (its kernel gate
+    refuses a bias).
+
+    A training=False call that autograd records (an input requires grad
+    under grad mode: a VAE's generator pass, which runs training=False as
+    the JAX trainer runs it) takes the kernel as the primal and `mha_plain`
+    recomputed as the backward (ops/kernel_grad.py), under the `attn` group
+    of OMNITOK_TRAIN_KERNEL_FWD, and the plain math without it. The kernel
+    has no backward of its own: its output alone would carry no gradient."""
     if bias is not None:
         return mha_plain(q, k, v, scale, causal, bias)
-    n, d = q.shape[-2:]
-    if not training and q.is_cuda and mha_supported(n, d, q.dtype):
-        if not small_branch(n, d):
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        return mha(q, k, v, scale, causal)
-    return mha_plain(q, k, v, scale, causal)
+    if training or not mha_supported(*q.shape[-2:], q.dtype):
+        return mha_plain(q, k, v, scale, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if "attn" not in train_kernel_fwd_ops():
+            return mha_plain(q, k, v, scale, causal)
+        return kernel_fwd_ref_bwd(functools.partial(_mha_kernel, scale=scale, causal=causal),
+                                  functools.partial(mha_plain, scale=scale, causal=causal),
+                                  q, k, v)
+    return _mha_kernel(q, k, v, scale, causal) if q.is_cuda else mha_plain(q, k, v, scale, causal)
 
 
 def project(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wkv: torch.Tensor,

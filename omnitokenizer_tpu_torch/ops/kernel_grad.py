@@ -1,5 +1,7 @@
-"""Kernel forward, recomputed backward: the bf16 kernels in a training step
-(mirror of `omnitokenizer_tpu.ops.kernel_grad`).
+"""Kernel forward, recomputed backward: the kernels in a training step
+(mirror of `omnitokenizer_tpu.ops.kernel_grad`): the bf16 attention and
+feed-forward kernels of a training call, and the `mha` kernel of an
+inference-route call that autograd records (ops/attention.py:sdpa).
 
 The kernels have no backward. `kernel_fwd_ref_bwd(kernel_fn, ref_fn, *args)`
 runs `kernel_fn` as the primal and saves only the inputs; the backward

@@ -12,6 +12,13 @@ checkpoints/step_XXXXXXXX.pt (torch.save of the state's state_dict) every
 step), and images/train/step_XXXXXXXX.png (input above reconstruction, the
 first sample's frames side by side) on a 1, 2, 4, ..., img_every, then
 every img_every schedule. A run resumes from the newest checkpoint.
+
+A VAE run's validation pass and grids decode a sample of the posterior,
+its noise from a generator seeded 0 afresh at each forward, where the JAX
+loop hands its forward `jax.random.PRNGKey(0)`: the same draw every call
+on either side, but not the same numbers (a `torch.Generator` does not
+reproduce `jax.random`). Its log and checkpoints carry what a VAE step
+has: no perplexity or usage, no codebook.
 """
 
 from __future__ import annotations
@@ -136,6 +143,14 @@ def resize_bilinear(video: torch.Tensor, size) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(B, T, h, w, C)
 
 
+def _eval_forward(trainer: TokenizerTrainer, net, video: torch.Tensor):
+    """The net's inference forward; a VAE samples its posterior from a
+    generator seeded 0 (the JAX loop's PRNGKey(0))."""
+    gen = (torch.Generator(device=video.device).manual_seed(0) if trainer.cfg.use_vae
+           else None)
+    return net(video, video.shape[1] == 1, generator=gen)
+
+
 def _video(batch: Dict[str, Any], device: torch.device) -> torch.Tensor:
     video = torch.as_tensor(batch["video"], dtype=torch.float32).to(device)
     return video[:, None] if video.ndim == 4 else video
@@ -185,7 +200,7 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
             with torch.no_grad():
                 for _ in range(val_steps):
                     vv = _video(next(val_it), trainer.device)
-                    recon, aux = net(vv, vv.shape[1] == 1)
+                    recon, aux = _eval_forward(trainer, net, vv)
                     vals.append({"val/recon_loss": float((recon.float() - vv).abs().mean()),
                                  "val/commitment_loss": float(aux["commitment_loss"])})
             agg = {k: float(np.mean([m[k] for m in vals])) for k in vals[0]}
@@ -194,7 +209,7 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
 
         if img_every and should_log_img(step):
             with torch.no_grad():
-                recons, _ = net(video, video.shape[1] == 1)
+                recons, _ = _eval_forward(trainer, net, video)
             dump_recon_grid(root_dir, "train", step, video.cpu().numpy(),
                             recons.float().cpu().numpy())
 

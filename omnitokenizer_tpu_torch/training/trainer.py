@@ -20,6 +20,15 @@ Adam's moments advance on a skipped step; the discriminator's gate is its
 own. Every random draw comes from a `torch.Generator` seeded from (seed,
 step, purpose): a resumed run draws what an unbroken one would.
 
+A VAE (cfg.use_vae) trains as the JAX step trains it (the recipe's stage 3,
+scripts/recons/train.sh): the generator pass runs the net with
+training=False, decoding a sample of the posterior (its noise from the
+"gaussian" stream, or handed to train_step), with the KL term in place of
+the commitment loss; there is no codebook, so no perplexity or usage
+metric and no second codebook advance. On the card that pass reaches the
+`mha` kernel under autograd, which ops/attention.py:sdpa runs as the primal
+with the plain math recomputed as its backward.
+
 The parameters stay f32 and the compute runs in cfg.dtype; a net that
 went through the serving step (`OmniTokenizerVQGAN.serving()`, which casts
 the parameters, or `prepare_kernels()`, which caches detached bf16
@@ -43,7 +52,8 @@ from ..ops.diffaug import diff_augment, diff_augment_video
 from .losses import adopt_weight, hinge_d_loss, l1, l2, logits_laplace, vanilla_d_loss
 
 # one stream a purpose, as the JAX step splits its key
-STREAMS = ("frame", "codebook", "codebook2", "noise1", "noise2", "noise3", "aug_d", "aug_g")
+STREAMS = ("frame", "codebook", "codebook2", "noise1", "noise2", "noise3", "aug_d", "aug_g",
+           "gaussian")
 
 
 # -- schedules and the optimizer chain ---------------------------------------
@@ -271,10 +281,6 @@ class TokenizerTrainer:
     def __init__(self, cfg: TokenizerConfig, loss_cfg: LossConfig = LossConfig(),
                  train_cfg: TrainConfig = TrainConfig(), device: Any = "cuda",
                  lpips_vgg16_path: Optional[str] = None, lpips_lin_path: Optional[str] = None):
-        if cfg.use_vae:
-            raise NotImplementedError(
-                "VAE training is not ported: the JAX trainer runs a VAE's generator with "
-                "training=False, the inference route (see ROADMAP.md)")
         if cfg.patch_embed == "cnn":
             raise NotImplementedError(
                 "training the cnn patch embed is not ported: its norms serve inference only "
@@ -339,9 +345,10 @@ class TokenizerTrainer:
                 torch._foreach_mul_(updates, gate)
                 torch._foreach_add_(params, updates)
 
-    def _g_losses(self, state, video, gen, disc_factor):
+    def _g_losses(self, state, video, gen, disc_factor, posterior_noise=None):
         """The generator's forward: the reconstruction (the codebook
-        advances), then every loss of the generator pass."""
+        advances; a VAE decodes a posterior sample on the inference route,
+        as the JAX step runs it), then every loss of the generator pass."""
         lc = self.loss_cfg
         net, image_disc, video_disc = state.net, state.image_disc, state.video_disc
         B, T = video.shape[:2]
@@ -350,7 +357,11 @@ class TokenizerTrainer:
         frame_idx = torch.randint(0, T, (B,), generator=gen("frame"), device=self.device)
         batch_idx = torch.arange(B, device=self.device)
 
-        x_recon, aux = net(video, is_image, training=True, generator=gen("codebook"))
+        if self.cfg.use_vae:
+            x_recon, aux = net(video, is_image, training=False, generator=gen("gaussian"),
+                               noise=posterior_noise)
+        else:
+            x_recon, aux = net(video, is_image, training=True, generator=gen("codebook"))
         if lc.recon_loss_type == "l1":
             recon_loss = l1(x_recon, video) * lc.l1_weight
         else:
@@ -391,11 +402,13 @@ class TokenizerTrainer:
                 video_feat = video_feat + feat_weights * l1(f, r)
         gan_feat_loss = disc_factor * lc.gan_feat_weight * (image_feat + video_feat)
 
-        commitment_loss = aux["commitment_loss"]
+        commitment_loss = aux["commitment_loss"]  # a VAE's KL term
         g_total = recon_loss + commitment_loss + aeloss + perceptual_loss + gan_feat_loss
         metrics = dict(recon_loss=recon_loss, commitment_loss=commitment_loss, aeloss=aeloss,
                        perceptual_loss=perceptual_loss, gan_feat_loss=gan_feat_loss,
-                       perplexity=aux["perplexity"], avg_usage=aux["avg_usage"], g_total=g_total)
+                       g_total=g_total)
+        if not self.cfg.use_vae:
+            metrics.update(perplexity=aux["perplexity"], avg_usage=aux["avg_usage"])
         return metrics, x_recon, frames, frames_recon
 
     def _d_losses(self, state, video, x_recon, frames, frames_recon, gen, disc_factor):
@@ -463,22 +476,26 @@ class TokenizerTrainer:
         self._apply(state.d_params(), self.opt_d.update(grads, state.opt_d), gate)
         return dict(optim_disc=gate, grad_norm_d=norm)
 
-    def train_step(self, state: TokenizerTrainState, video: torch.Tensor
+    def train_step(self, state: TokenizerTrainState, video: torch.Tensor,
+                   posterior_noise: Optional[torch.Tensor] = None
                    ) -> Tuple[TokenizerTrainState, Dict[str, torch.Tensor]]:
         """One G + D step on `video`, channels-last (B, T, H, W, C), T >= 1.
         Advances `state` in place and returns it with the step's metrics
         (0-d tensors: the JAX step's, and the global norms of both
-        gradients before clipping)."""
+        gradients before clipping). A VAE's posterior sample takes
+        `posterior_noise` (N(0, 1), the latents' shape) where given, else
+        draws it from the step's "gaussian" stream."""
         check_trainable(state.net)
         video = video.to(self.device, torch.float32)
         gen = self.generators(state)
         disc_factor = adopt_weight(state.step, self.loss_cfg.discriminator_iter_start)
 
-        metrics, x_recon, frames, frames_recon = self._g_losses(state, video, gen, disc_factor)
+        metrics, x_recon, frames, frames_recon = self._g_losses(state, video, gen, disc_factor,
+                                                                posterior_noise)
         g_grads = self._grads(metrics["g_total"], state.g_params())
         metrics.update(self._g_update(state, g_grads, metrics))
         del g_grads
-        if self.train_cfg.ema_advances_per_step == 2:
+        if self.train_cfg.ema_advances_per_step == 2 and not self.cfg.use_vae:
             self._codebook_again(state, video, gen)
         metrics.update(self._d_losses(state, video, x_recon, frames, frames_recon, gen,
                                       disc_factor))

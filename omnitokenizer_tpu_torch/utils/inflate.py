@@ -6,7 +6,8 @@ The transforms work on reference-named state_dicts of numpy arrays before
 any conversion, so they stay the reference recipes' byte for byte. A
 discriminator's keys go to the flax names of the JAX converter and from
 there to the port's modules (`convert._port_key`), which carry those
-names.
+names. `load_pretrained_into_state` also reads the port's own `.pt` files
+and the JAX package's `.msgpack` files, without inflation.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..convert import _leaves, _port_key
+from ..convert import _leaves, _np, _port_key
 
 
 def inflate_gen(sd: Dict[str, np.ndarray], temporal_patch_size: int,
@@ -156,7 +157,7 @@ def _merge_partial(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
     (shape-checked); the rest keep their values."""
     want = module.state_dict()
     for path, value in _leaves(tree):
-        key, arr = _port_key(path, np.asarray(value))
+        key, arr = _port_key(path, _np(value))
         if key not in want:
             raise KeyError(f"{'/'.join(path)} has no tensor in {type(module).__name__}")
         if tuple(arr.shape) != tuple(want[key].shape):
@@ -165,32 +166,29 @@ def _merge_partial(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
     module.load_state_dict(want)
 
 
-def load_pretrained_into_state(trainer, path: str, init_vgen: Optional[str] = None,
-                               init_vdis: Optional[str] = None, no_init_idis: bool = False,
-                               seed: int = 0):
-    """A TokenizerTrainState seeded from a (possibly image-stage) reference
-    checkpoint, with the reference's cross-stage surgery:
-      * init_vgen 'average'/'first': inflate the patch-embed and to-pixels
-        weights to the current temporal_patch_size; 'keep': as they are;
-      * init_vdis 'center'/'average'/'first'/'last': inflate the 2D
-        discriminator into the 3D one; 'keep': the checkpoint's video
-        discriminator; None: a fresh one.
-    Tensors the checkpoint lacks keep their init values from `seed`. (The
-    JAX function's VAE case, which drops a VQ-stage pre_vq_conv, is not here:
-    the port's trainer does not train a VAE.)"""
-    from .checkpoint import convert_tokenizer_state, load_torch_state_dict
+def _vq_head_mismatch(cfg, rows: Optional[int]) -> bool:
+    """A VAE's pre-VQ projection has 2 * codebook_dim outputs (the
+    posterior's mean and log-variance); a VQ stage's has codebook_dim, and
+    cannot seed it (the reference's vqgan_train.py:57-59)."""
+    return cfg.use_vae and rows is not None and rows != 2 * cfg.codebook_dim
+
+
+def _load_reference(trainer, state, sd, init_vgen, init_vdis, no_init_idis) -> None:
+    """The reference recipe's load: inflation, the VAE's head, the
+    discriminators, from a reference-named state_dict of numpy arrays."""
+    from .checkpoint import convert_tokenizer_state
 
     cfg = trainer.cfg
-    sd, _ = load_torch_state_dict(path)
     if init_vgen and init_vgen != "keep":
         sd = inflate_gen(sd, cfg.temporal_patch_size, strategy=init_vgen)
     if init_vdis and init_vdis != "keep":
         sd = inflate_dis(sd, strategy=init_vdis)
+    w = sd.get("pre_vq_conv.1.weight")
+    if _vq_head_mismatch(cfg, None if w is None else w.shape[0]):
+        sd = {k: v for k, v in sd.items() if not k.startswith("pre_vq_conv.1.")}
 
-    state = trainer.init_state(seed=seed)
     net_sd, _ = convert_tokenizer_state(sd, cfg, state.net.state_dict(), strict=False)
     state.net.load_state_dict(net_sd)
-
     n_layers = trainer.loss_cfg.disc_layers
     for on, prefix, disc, is_3d in ((not no_init_idis, "image_discriminator",
                                      state.image_disc, False),
@@ -201,4 +199,91 @@ def load_pretrained_into_state(trainer, path: str, init_vgen: Optional[str] = No
             if params:  # the running statistics sit beside the parameters
                 _merge_partial(disc, params)
                 _merge_partial(disc, stats)
+
+
+def _load_port(trainer, state, ckpt, no_init_idis, init_vdis) -> None:
+    """A port checkpoint ({"net": ..., ["image_disc", "video_disc"]}: the
+    training loop's step_*.pt or save_tokenizer_checkpoint's file), in the
+    port's own keys."""
+    from .checkpoint import _fill
+
+    net = {k: v.numpy() for k, v in ckpt["net"].items()}
+    w = net.get("pre_vq_conv.weight")
+    if _vq_head_mismatch(trainer.cfg, None if w is None else w.shape[0]):
+        net = {k: v for k, v in net.items() if not k.startswith("pre_vq_conv.")}
+    state.net.load_state_dict(_fill(state.net.state_dict(), net, strict=False)[0])
+    for on, name in ((not no_init_idis, "image_disc"), (init_vdis is not None, "video_disc")):
+        if on and name in ckpt:
+            getattr(state, name).load_state_dict(ckpt[name])
+
+
+def _load_jax(trainer, state, raw, no_init_idis, init_vdis) -> None:
+    """A JAX package msgpack: a training state (params_g, buffers, params_d,
+    batch_stats_d) or a tokenizer's variables."""
+    if "params_g" in raw:
+        net = {"params": raw["params_g"], "buffers": raw.get("buffers", {})}
+        discs = {w: (raw["params_d"][w], raw["batch_stats_d"].get(w, {}))
+                 for w in ("image", "video")}
+    else:
+        net, discs = raw, {}
+    params = dict(net["params"])
+    head = params.get("pre_vq_conv", {}).get("kernel")
+    if _vq_head_mismatch(trainer.cfg, None if head is None else head.shape[-1]):
+        params.pop("pre_vq_conv")
+    _merge_partial(state.net, params)
+    for collection in ("buffers", "batch_stats"):
+        tree = net.get(collection) or {}
+        if trainer.cfg.use_vae:  # a VQ stage's codebook: a VAE has none
+            tree = {k: v for k, v in tree.items() if k != "codebook"}
+        _merge_partial(state.net, tree)
+    for on, which in ((not no_init_idis, "image"), (init_vdis is not None, "video")):
+        if on and which in discs:
+            params_d, stats_d = discs[which]
+            disc = getattr(state, f"{which}_disc")
+            _merge_partial(disc, params_d)
+            _merge_partial(disc, stats_d)
+
+
+def load_pretrained_into_state(trainer, path: str, init_vgen: Optional[str] = None,
+                               init_vdis: Optional[str] = None, no_init_idis: bool = False,
+                               seed: int = 0):
+    """A TokenizerTrainState seeded from a (possibly image-stage) checkpoint,
+    with the reference's cross-stage surgery:
+      * init_vgen 'average'/'first': inflate the patch-embed and to-pixels
+        weights to the current temporal_patch_size; 'keep': as they are;
+      * init_vdis 'center'/'average'/'first'/'last': inflate the 2D
+        discriminator into the 3D one; 'keep': the checkpoint's video
+        discriminator; None: a fresh one;
+      * a VAE seeded from a VQ stage (the recipe's stage 3): the VQ stage's
+        pre_vq_conv (codebook_dim outputs, not the posterior's
+        2 * codebook_dim) and its codebook are dropped, and the VAE's head
+        keeps its init values.
+    The checkpoint is a reference Lightning `.ckpt` (or a bare reference
+    state_dict), as the JAX package reads it, or, beyond the JAX package, a
+    port `.pt` or a JAX package `.msgpack` (a training state or a
+    tokenizer's variables), whose keys are no reference's: those two take
+    init_vgen and init_vdis None or 'keep' (the inflations read reference
+    names). Tensors the checkpoint lacks keep their init values from
+    `seed`."""
+    from .checkpoint import _split_lightning
+
+    state = trainer.init_state(seed=seed)
+    if path.endswith(".msgpack"):
+        from .msgpack_io import read_msgpack
+
+        ckpt, kind = read_msgpack(path), "jax"
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        kind = "port" if "net" in ckpt else "reference"
+    if kind == "reference":
+        _load_reference(trainer, state, _split_lightning(ckpt)[0], init_vgen, init_vdis,
+                        no_init_idis)
+        return state
+    inflate = [f"{n}={v}" for n, v in (("init_vgen", init_vgen), ("init_vdis", init_vdis))
+               if v not in (None, "keep")]
+    if inflate:
+        raise ValueError(f"{path}: {', '.join(inflate)} inflates a reference-named state_dict "
+                         "(a Lightning .ckpt); a port .pt or a JAX .msgpack takes None or 'keep'")
+    load = _load_jax if kind == "jax" else _load_port
+    load(trainer, state, ckpt, no_init_idis, init_vdis)
     return state

@@ -23,7 +23,10 @@ variants (einsum biases, cnn, deferred pools, pooling and up blocks) and
 LatteT2V with its sample CLI run with jax, flax, optax, msgpack and
 transformers unimportable: round trips in f32 and bf16, a cnn msgpack with
 its BatchNorm statistics, and the CLI from random weights and from a
-msgpack in bf16."""
+msgpack in bf16. VAE training (the trainer's VAE step), the CNN VQGAN (a round trip, a
+Lightning checkpoint through load_cnn_vqgan_checkpoint) and the quantizer
+library (FSQ, LFQ, VectorQuantize with kmeans, the residual stacks) run with
+jax, flax and msgpack unimportable."""
 
 import subprocess
 import sys
@@ -400,6 +403,97 @@ print("ok")
 
 def test_variants_and_t2v_run_without_jax():
     res = subprocess.run([sys.executable, "-c", VARIANTS_SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+LAST_SLICE_SCRIPT = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack"):
+    sys.modules[name] = None
+import argparse, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch import VQGAN, TokenizerConfig, load_cnn_vqgan_checkpoint
+from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+from omnitokenizer_tpu_torch.models.cnn_vqgan import convert_cnn_vqgan_state, init_cnn_vqgan
+from omnitokenizer_tpu_torch.ops import quantizers as Q
+from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+
+cfg = TokenizerConfig(embedding_dim=64, n_codes=64, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="tw", dec_block="tt", spatial_depth=2,
+                      temporal_depth=2, twod_window_size=2, heads=2, dim_head=32,
+                      use_vae=True, kl_weight=1e-6)
+trainer = TokenizerTrainer(cfg, LossConfig(perceptual_weight=1.0, image_gan_weight=1.0,
+                                           disc_layers=2, disc_channels=16),
+                           TrainConfig(warmup_lr_init=1e-5), device="cpu")
+video = torch.rand(1, 5, 32, 32, 3, generator=torch.Generator().manual_seed(0)) - 0.5
+state, metrics = trainer.train_step(trainer.init_state(0), video)
+assert state.step == 1 and state.net.codebook is None and "perplexity" not in metrics
+assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+model = init_cnn_vqgan(VQGAN(TokenizerConfig(embedding_dim=16, codebook_dim=16, n_codes=32,
+                                             norm_type="group"),
+                             n_hiddens=32, downsample=(2, 4, 4)), torch.Generator().manual_seed(0))
+x = torch.rand(1, 4, 16, 16, 3) - 0.5
+with torch.no_grad():
+    idx = model.encode(x)
+    assert idx.shape == (1, 2, 4, 4) and model.decode(idx).shape == x.shape
+with tempfile.TemporaryDirectory() as root:
+    path = os.path.join(root, "cnn.ckpt")
+    ref = {}  # the reference's names for this small model
+    names = {"encoder.conv_first.conv": "encoder.conv_first.conv", "pre_vq_conv.conv": "pre_vq_conv.conv",
+             "post_vq_conv.conv": "post_vq_conv.conv", "decoder.conv_last.conv": "decoder.conv_last.conv",
+             "encoder.final_norm": "encoder.final_block.0", "decoder.final_norm": "decoder.final_block.0"}
+    for i in range(2):
+        names[f"encoder.down{i}.conv"] = f"encoder.conv_blocks.{i}.down.conv"
+        names[f"encoder.res{i}"] = f"encoder.conv_blocks.{i}.res"
+        names[f"decoder.res{i}a"] = f"decoder.conv_blocks.{i}.res1"
+        names[f"decoder.res{i}b"] = f"decoder.conv_blocks.{i}.res2"
+    leaf = {"scale": "weight", "bias": "bias", "weight": "weight"}  # GroupNorm's scale
+    for k, v in model.state_dict().items():
+        if k.startswith("codebook."):
+            if k.split(".")[1] in ("embeddings", "N", "z_avg", "codebook_usage"):
+                ref[k] = v
+            continue
+        if k.startswith("decoder.up"):
+            i, l = k[len("decoder.up"):].split(".")
+            ref[f"decoder.conv_blocks.{i}.up.convt.{l}"] = (
+                v.transpose(0, 1).flip(2, 3, 4) if l == "weight" else v)
+            continue
+        base = max((b for b in names if k.startswith(b + ".")), key=len)
+        ref[names[base] + k[len(base):-len(k.rsplit(".", 1)[1])] + leaf[k.rsplit(".", 1)[1]]] = v
+    torch.save({"state_dict": ref, "hyper_parameters": {"args": argparse.Namespace(
+        n_hiddens=32, downsample=[2, 4, 4], embedding_dim=16, n_codes=32,
+        norm_type="group")}}, path)
+    loaded = load_cnn_vqgan_checkpoint(path, device="cpu")
+    with torch.no_grad():
+        assert torch.equal(loaded.encode(x), idx)
+
+z = torch.randn(256, 8, generator=torch.Generator().manual_seed(1))
+assert Q.FSQ((8, 5, 5, 5))(z[:, :4])["encodings"].shape == (256,)
+assert Q.LFQ(8)(z, training=True)["encodings"].max() < 256
+vq = Q.VectorQuantize(8, 16)
+out, st = vq(z, vq.init_state(torch.Generator().manual_seed(2)), training=True,
+             generator=torch.Generator().manual_seed(3))
+assert int(st.initialized) == 1 and out["encodings"].shape == (256,)
+rvq = Q.ResidualVQ(8, 16, 3, use_cosine_sim=True)
+out, states = rvq(z, rvq.init_state(torch.Generator().manual_seed(4)), training=True,
+                  generators=[torch.Generator().manual_seed(5 + i) for i in range(3)])
+assert out["encodings"].shape == (256, 3) and len(states) == 3
+assert Q.ResidualFSQ((8, 5, 5, 5), 2)(z[:, :4])["encodings"].shape == (256, 2)
+assert Q.ResidualLFQ(8, 2)(z, training=True)["encodings"].shape == (256, 2)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack",
+                "omnitokenizer_tpu") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_vae_training_cnn_vqgan_and_quantizers_run_without_jax():
+    res = subprocess.run([sys.executable, "-c", LAST_SLICE_SCRIPT], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
