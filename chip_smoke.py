@@ -20,7 +20,8 @@ Phases (any failure raises and exits non-zero):
      for ln_qkv and geglu_ff; [RoPE], F.normalize and one SDPA call for
      cosine_mha and small_n_attention; the f32 distance argmin (TF32 off)
      for vq_argmin (also at the CNN VQGAN's 16384 x 256 rows against 2048
-     codes); and the LM's causal flash forward and backward at the
+     codes, and at a ragged 16384 x 100 against 2048 x 100, no path's
+     shape); and the LM's causal flash forward and backward at the
      training shape (8, 16, 1025, 96) and at the long-sequence recipes'
      (4, 16, 5121, 96), where they are compute-bound, on the (B, T, H, D)
      projections' views, beside SDPA (is_causal) forward and forward +
@@ -74,11 +75,15 @@ Phases (any failure raises and exits non-zero):
      the FVD and FID feature extractors with random weights, card against
      CPU, timed; then mha's f32 flash branch and vq_argmin at the eval's
      shapes against their plain versions;
- 10. LM synthesis serving: the flagship LM at 24 x 1536, class-conditional
-     CFG images and K600 frame prediction at scripts/lm_gen/'s flags;
+ 10. LM synthesis serving: the flagship LM's width (1536, 16 heads of 96)
+     at 6 of its 24 layers (a depth cut that keeps the whole run inside its
+     time), class-conditional CFG images and K600 frame prediction at
+     scripts/lm_gen/'s flags;
  11. diffusion synthesis behind the f32 VAE of phase 5 (DiffusionVAEAdapter),
-     random weights from seed 0 with every tensor filled: (a) DiT-XL/2 (B=2)
-     and Latte-XL/2-omnitokenizer (B=1) f32 forwards on the card against the
+     random weights from seed 0 with every tensor filled, DiT and Latte at
+     their XL widths and 8 of their 28 blocks (a depth cut, as phase
+     10's): (a) DiT-XL/2 (B=2) and
+     Latte-XL/2-omnitokenizer (B=1) f32 forwards on the card against the
      CPU, bf16 against f32, and 10 DDIM steps card against CPU; (b) DiT
      class-conditional sampling at the sample CLI's defaults (250 respaced
      DDPM steps, CFG 4.0 on 3 channels, B=8) in f32 and bf16, decoded; (c)
@@ -616,6 +621,8 @@ def phase2_kernels() -> None:
     # 4 x 4 x 32 x 32 rows of width 256 against 2048 codes
     check_vq("2", "cnn_vqgan", randn(g, CNN_B * (CNN_T // 4) * (CNN_RES // 4) ** 2, 256),
              randn(g, 2048, 256))
+    # and at a ragged code width no path runs (its last 16-dim step zero-filled)
+    check_vq("2", "ragged", randn(g, 16384, 100), randn(g, 2048, 100))
 
     # mha at both of its paths' shapes: the f32 VAE's spatial blocks, (b t, H,
     # h w, Dh) non-causal, and the stage-1 tokenizer's causal temporal blocks,
@@ -1919,6 +1926,7 @@ def phase9_eval() -> dict:
 # 1536, vocab 8192 codes + 1000 classes + sos, block 1025; the frame-prediction LM of
 # gen_k600_frame_prediction.sh: unconditional, vocab 8192, block 5120
 LM_LAYERS, LM_HEADS, LM_WIDTH, LM_BLOCK = 24, 16, 1536, 1025
+LM_GEN_LAYERS = 6  # phase 10's depth: a quarter of the flagship's, to keep the run inside its time
 LM_B, LM_FRAME_B = 8, 2
 LM_CACHE_REL_TOL = 2e-2   # bf16 cached prefill + decode vs the full forward, whole-tensor
 LM_WINDOW_REL_TOL = 1e-4  # f32 teacher-forced logits, bucketed windows vs the whole block
@@ -2142,7 +2150,7 @@ def phase10c_frames(tok) -> tuple:
     from omnitokenizer_tpu_torch.ops.int8 import quantize_gpt_decode_params
     from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    gpt = lm_model(8192, 5120, seed=1)
+    gpt = lm_model(8192, 5120, seed=1, layers=LM_GEN_LAYERS)
     n2n = Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, unconditional=True,
                                            first_stage_vocab_size=8192), tok, gpt=gpt)
     lt, hw = tok.cfg.latent_t, tok.cfg.latent_hw
@@ -2199,9 +2207,10 @@ def phase10_lm() -> dict:
     from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
 
     t0 = time.perf_counter()
-    gpt = lm_model(9193, 1025)
+    gpt = lm_model(9193, 1025, layers=LM_GEN_LAYERS)
     print(f"[10] LM: {sum(p.numel() for p in gpt.parameters())} parameters "
-          f"({LM_LAYERS} x {LM_WIDTH}, {LM_HEADS} heads, vocab 9193, block 1025)")
+          f"({LM_GEN_LAYERS} of the flagship's {LM_LAYERS} layers x {LM_WIDTH}, {LM_HEADS} "
+          f"heads, vocab 9193, block 1025)")
     phase10a_lm(gpt)
     tok = OmniTokenizerVQGAN.from_config(imagenet_k600_config().replace(dtype=BF), seed=0,
                                          device="cuda").serving()
@@ -2228,12 +2237,27 @@ DIFF_BF16_REL_TOL = 5e-2  # bf16 vs f32 on the card, whole-tensor
 DIFF_DDIM_REL_TOL = 1e-3  # 10 DDIM steps (eta 0) from one noise, card f32 vs CPU f32
 DIT_B, LATTE_B = 8, 2             # images / clips a sampling batch (CFG doubles the rows)
 DIT_TRAIN_B, LATTE_TRAIN_B = 32, 4  # the reference's global 256 over 8 GPUs; 4 clips
+DIFF_DEPTH = 8            # phase 11's blocks, of XL's 28: to keep the run inside its time
 LATTE_F32_STEPS = 50      # f32 Latte sampling: enough steps to read its ms a step
 # the f32 VAE's mha launches: its decoder's 4 spatial 't' blocks in a decode, its encoder's 2
 # in an encode (the temporal blocks, N = 5, take the plain math)
 DIFF_LAUNCHES = {"decode": {**{k: 0 for k in KERNELS}, "mha": 4},
                  "encode": {**{k: 0 for k in KERNELS}, "mha": 2}}
 SAMPLE_FLAGS = ["--ckpt", "random-weights"]
+
+
+@contextlib.contextmanager
+def diffusion_depth(depth: int):
+    """The diffusion CLIs' models at `depth` blocks inside (their widths as
+    the flags give them): diffusion_common.model_config patched."""
+    from omnitokenizer_tpu_torch.cli import diffusion_common
+
+    full = diffusion_common.model_config
+    diffusion_common.model_config = lambda args, video: full(args, video).replace(depth=depth)
+    try:
+        yield
+    finally:
+        diffusion_common.model_config = full
 
 
 def fill_random(model, seed: int = 0):
@@ -2527,8 +2551,14 @@ def train_run(tag: str, ad, video: bool, batch: int, unit: str) -> dict:
 
 
 def phase11_diffusion() -> dict:
-    """Diffusion synthesis: 11a parity on the card, 11b DiT class-conditional
-    sampling, 11c Latte, 11d the two training steps; returns their launches."""
+    """Diffusion synthesis at DIFF_DEPTH blocks: 11a parity on the card, 11b
+    DiT class-conditional sampling, 11c Latte, 11d the two training steps;
+    returns their launches."""
+    with diffusion_depth(DIFF_DEPTH):
+        return _phase11_diffusion()
+
+
+def _phase11_diffusion() -> dict:
     from omnitokenizer_tpu_torch import DiffusionVAEAdapter, imagenet_k600_config
     from omnitokenizer_tpu_torch.cli import diffusion_common, dit_sample
 
@@ -4105,10 +4135,13 @@ def main(argv=None) -> int:
     paths = {}
     for n, phase in phases:
         if run is None or n in run:
+            t_phase = time.perf_counter()
             paths.update(phase() or {})
+            print(f"[{n}] phase {n} took {time.perf_counter() - t_phase:.1f} s")
     # a row per kernel and path shape; `launches` is that path's round trip
     # (a step for "train"), and null for a shape no path runs (cosine_mha's
-    # ragged row); then a row per training route, `launches` its calls a step
+    # and vq_argmin's ragged rows); then a row per training route,
+    # `launches` its calls a step
     kernels = []
     for row in ROWS:
         src, rep = SOURCES[row["name"]]

@@ -20,7 +20,8 @@ change, parent). Rows, at chip_smoke.py phase 2's shapes:
   vq_argmin at the flagship's 20480 and the stage-1 tokenizer's 36864 rows
     of 8 against an 8192 x 8 codebook, called as the checkout's codebook
     calls it; where that passes squared code norms made ahead, also with
-    the norms left to the wrapper;
+    the norms left to the wrapper; and at the CNN VQGAN's 16384 rows of 256
+    against a 2048 x 256 codebook (N(0, 1) both, phase 2's row);
   where the checkout has it, the LM's causal flash attention at the flagship
     LM's training shape (8, 16, 1025, 96) and at the long-sequence recipes'
     (4, 16, 5121, 96), on (B, H, T, D) views of (B, T, H, D) memory: the
@@ -93,6 +94,8 @@ def main() -> int:
     norms = (vq.code_norms(emb),) if hasattr(vq, "code_norms") else ()
     zs = {m: F.normalize(randn(m, 8, dtype=torch.float32), dim=-1).contiguous()
           for m in (20480, 36864)}
+    z_cnn = randn(16384, 256, dtype=torch.float32)
+    emb_cnn = randn(2048, 256, dtype=torch.float32)
 
     def vq_case(m, args):
         made = ", norms made in the call" if norms and not args else ""
@@ -110,7 +113,9 @@ def main() -> int:
         ("cosine_mha", lambda: cm.cosine_mha(qsp, kvsp, qs, ks, H, Dh, 8.0, True),
          lambda: cm.cosine_mha_plain(qsp, kvsp, qs, ks, H, Dh, 8.0, True)),
         vq_case(20480, norms), vq_case(36864, norms),
-    ] + ([vq_case(20480, ()), vq_case(36864, ())] if norms else [])
+    ] + ([vq_case(20480, ()), vq_case(36864, ())] if norms else []) + [
+        ("vq_argmin, CNN VQGAN 16384 x 256", lambda: vq.vq_argmin(z_cnn, emb_cnn),
+         lambda: vq.vq_argmin_plain(z_cnn, emb_cnn))]
     try:
         from omnitokenizer_tpu_torch.ops.kernels import flash_attn as fa
     except ImportError:  # a checkout from before the LM's training slice

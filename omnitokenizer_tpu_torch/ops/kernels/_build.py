@@ -30,7 +30,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # C entry points: every pointer and the stream are c_void_p, sizes c_int;
 # each returns the cudaError_t of its launch
 SIGNATURES = {
-    "vq_argmin_launch": [P, P, P, P, I, I, I, P],
+    "vq_argmin_launch": [P, P, P, P, P, I, I, I, P],
     "ln_qkv_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
     "geglu_ff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],

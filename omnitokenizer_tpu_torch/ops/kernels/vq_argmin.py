@@ -30,11 +30,13 @@ def vq_argmin(flat: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
     K = embeddings.shape[0]
     _build.check(flat, "flat", torch.float32, (M, D))
     _build.check(embeddings, "embeddings", torch.float32, (K, D))
-    # the code slices' (distance, index) minima, merged by the kernel
+    # the code slices' (distance, index) minima, merged by the kernel; and
+    # for a code dim above 32 the codes' squared norms, summed once a code
     part = torch.empty(M, dtype=torch.int64, device=flat.device)
+    sq = torch.empty(K, dtype=torch.float32, device=flat.device) if D > 32 else None
     out = torch.empty(M, dtype=torch.int32, device=flat.device)
     _build.launch("vq_argmin_launch", flat.data_ptr(), embeddings.data_ptr(), part.data_ptr(),
-                  out.data_ptr(), M, K, D)
+                  0 if sq is None else sq.data_ptr(), out.data_ptr(), M, K, D)
     vq_argmin.launches += 1
     return out
 

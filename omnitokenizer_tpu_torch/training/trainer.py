@@ -378,12 +378,13 @@ class TokenizerTrainer:
             perceptual_loss = state.lpips(frames, frames_recon).mean() * lc.perceptual_weight
 
         noise = self._noise(gen)
+        # in f32, as the losses module reduces (the JAX step keeps a bf16 mean)
         logits_image_fake, pred_image_fake = image_disc(frames_recon, True, noise("noise1"))
-        g_image_loss = -logits_image_fake.mean()
+        g_image_loss = -logits_image_fake.float().mean()
         g_video_loss = zero
         if not is_image:
             logits_video_fake, pred_video_fake = video_disc(x_recon, True, noise("noise1"))
-            g_video_loss = -logits_video_fake.mean()
+            g_video_loss = -logits_video_fake.float().mean()
         aeloss = disc_factor * (lc.image_gan_weight * g_image_loss
                                 + lc.video_gan_weight * g_video_loss)
 

@@ -164,12 +164,16 @@ VQ_TIE_TOL = 1e-5  # relative distance gap allowed for an index mismatch
 
 @pytest.mark.parametrize("M", [1, 1000, 20480 + 33])
 @pytest.mark.parametrize("K", [1, 64, 1000, 8192, 8193])
-@pytest.mark.parametrize("D", [1, 3, 4, 6, 8, 12, 16, 32, 40, 64])
+@pytest.mark.parametrize("D", [1, 3, 4, 6, 8, 12, 16, 32, 33, 37, 40, 64, 256])
 def test_vq_argmin(gen, D, K, M):
     """Every code repeats with a period of 97, so exact ties lie across
-    every chunk and code-slice boundary: the kernel gives the first
-    occurrence (an index below 97), and differs from the plain version only
-    at near-ties between distinct codes."""
+    every chunk, thread, code-tile and code-slice boundary: the kernel gives
+    the first occurrence (an index below 97), and differs from the plain
+    version only at near-ties between distinct codes."""
+    check_period_ties(gen, M, K, D)
+
+
+def check_period_ties(gen, M, K, D):
     period = min(K, 97)
     z = F.normalize(randn(gen, M, D, dtype=torch.float32), dim=-1).contiguous()
     emb = randn(gen, period, D, dtype=torch.float32)[torch.arange(K) % period].contiguous()
@@ -177,6 +181,13 @@ def test_vq_argmin(gen, D, K, M):
     assert got.dtype == torch.int32 and got.shape == (M,)
     assert bool((got >= 0).all()) and bool((got < period).all())
     assert_near_ties_only(z, emb, got, vq.vq_argmin_plain(z, emb))
+
+
+def test_vq_argmin_cnn_vqgan(gen):
+    """The CNN VQGAN's codebook search, (16384, 256) rows against (2048,
+    256) codes: the period-97 ties, then zero codes at every 61st index."""
+    check_period_ties(gen, 16384, 2048, 256)
+    check_zero_codes(gen, 16384, 2048, 256)
 
 
 def assert_near_ties_only(z, emb, got, want):
@@ -191,20 +202,42 @@ def assert_near_ties_only(z, emb, got, want):
 @pytest.mark.parametrize("K", [1, 1000])
 @pytest.mark.parametrize("D", [100, 2049, 4096])
 def test_vq_argmin_wide_code_dims(gen, D, K):
-    """Code dims past any shared-memory slice: the runtime-D kernel reads
-    the codes through the cache, so no code dim is refused."""
+    """Wide code dims: the tiled kernel streams any D through its ring, the
+    last step zero-filled, so no code dim is refused."""
     z = F.normalize(randn(gen, 333, D, dtype=torch.float32), dim=-1).contiguous()
     emb = randn(gen, K, D, dtype=torch.float32)
     assert_near_ties_only(z, emb, vq.vq_argmin(z, emb), vq.vq_argmin_plain(z, emb))
 
 
-@pytest.mark.parametrize("K", [1000, 8192, 8193])
-@pytest.mark.parametrize("D", [3, 8, 40])
+@pytest.mark.parametrize("D", [64, 256])
+def test_vq_argmin_unaligned_rows(gen, D):
+    """Contiguous inputs that start 4 bytes past 16: the tiled kernel's
+    4-byte copies, the same indices as from aligned copies of them."""
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    z = F.normalize(randn(gen, 1000 + 33, D, dtype=torch.float32), dim=-1).contiguous()
+    emb = randn(gen, 2048 + 5, D, dtype=torch.float32)
+    got = vq.vq_argmin(unaligned(z), unaligned(emb))
+    assert torch.equal(got, vq.vq_argmin(z, emb))
+    assert_near_ties_only(z, emb, got, vq.vq_argmin_plain(z, emb))
+
+
+@pytest.mark.parametrize("K", [1000, 2048, 8192, 8193])
+@pytest.mark.parametrize("D", [3, 8, 33, 37, 40, 256])
 def test_vq_argmin_zero_distance_ties(gen, D, K):
     """Zero codes are at distance exactly 0 from every row, and every other
-    code farther: zero codes planted at every 61st index, across chunk and
-    slice boundaries, give the first of them."""
-    z = 1e-3 * F.normalize(randn(gen, 20480 + 33, D, dtype=torch.float32), dim=-1)
+    code farther: zero codes planted at every 61st index, across chunk,
+    thread, tile and slice boundaries, give the first of them."""
+    check_zero_codes(gen, 20480 + 33, K, D)
+
+
+def check_zero_codes(gen, M, K, D):
+    z = 1e-3 * F.normalize(randn(gen, M, D, dtype=torch.float32), dim=-1)
     emb = randn(gen, K, D, dtype=torch.float32)
     emb[61::61] = 0
     assert bool((vq.vq_argmin(z, emb) == 61).all())

@@ -117,6 +117,45 @@ def test_vq_argmin_plain_matches_xla_exactly(D):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("D", [64, 256])
+def test_vq_argmin_plain_matches_xla_and_pallas_wide(D):
+    """At the wide path's code dims, 2048 codes (the CNN VQGAN's codebook
+    size): the plain version's indices equal the JAX XLA search's and the
+    Pallas kernel's, run in interpret mode as tests/test_pallas_kernels.py
+    runs it."""
+    import jax
+    import jax.experimental.pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from omnitokenizer_tpu.ops.pallas import vq_kernel
+
+    rng = np.random.RandomState(D)
+    flat = rng.randn(300, D).astype(np.float32)
+    flat /= np.linalg.norm(flat, axis=1, keepdims=True)
+    emb = rng.randn(2048, D).astype(np.float32)
+    got = vq_argmin_plain(torch.from_numpy(flat), torch.from_numpy(emb)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(vq_argmin_xla(jnp.asarray(flat),
+                                                                jnp.asarray(emb))))
+    m, k, tm = flat.shape[0], emb.shape[0], vq_kernel.TILE_M
+    m_pad = -(-m // tm) * tm
+    x = jnp.pad(jnp.asarray(flat), ((0, m_pad - m), (0, 0)))
+    e = jnp.asarray(emb)
+    esq = jnp.sum(e * e, axis=1)[None, :]
+    out = pl.pallas_call(
+        vq_kernel._vq_kernel,
+        grid=(m_pad // tm,),
+        in_specs=[
+            pl.BlockSpec((tm, D), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((k, D), lambda i: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((tm, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((m_pad, 1), jnp.int32),
+        interpret=True,
+    )(x, e, esq)[:m, 0]
+    np.testing.assert_array_equal(got, np.asarray(out))
+
+
 @pytest.mark.parametrize("dim,end", [(64, 1024), (32, 16), (64, 20)])
 def test_rotary_tables_match_jax(dim, end):
     for got, want in zip(freqs_cis_2d_np(dim, end), _freqs_cis_2d_np(dim, end)):

@@ -1,12 +1,13 @@
 """The port's training pieces against the JAX package's, in f32 on the CPU:
-the loss configs, the GAN losses, DiffAugment given JAX's own draws, the
-2D/3D discriminators (group and batch norm, train and eval, the running
-statistics after two train-mode calls), LPIPS with a random backbone, and
-the codebook's training half (the EMA after one and two calls; the
-data-dependent init and the random restart given JAX's candidate rows).
-Weights and buffers go through convert.state_dict_from_jax; inputs come
-from a numpy seed. Tolerances: 1e-5 relative (losses, diffaug,
-discriminators, statistics), 1e-5 (LPIPS), 1e-6 (codebook buffers)."""
+the loss configs, the GAN losses (and their f32 result on bf16 inputs),
+DiffAugment given JAX's own draws, the 2D/3D discriminators (group and
+batch norm, train and eval, the running statistics after two train-mode
+calls), LPIPS with a random backbone, and the codebook's training half (the
+EMA after one and two calls; the data-dependent init and the random restart
+given JAX's candidate rows). Weights and buffers go through
+convert.state_dict_from_jax; inputs come from a numpy seed. Tolerances:
+1e-5 relative (losses, diffaug, discriminators, statistics), 2^-7 relative
+(losses of bf16 inputs), 1e-5 (LPIPS), 1e-6 (codebook buffers)."""
 
 import dataclasses
 
@@ -56,6 +57,24 @@ def test_losses_match(fn):
     want = getattr(jlosses, fn)(jnp.asarray(a), jnp.asarray(b))
     got = getattr(tlosses, fn)(torch_f32(a), torch_f32(b))
     assert_rel(got.numpy(), want, 1e-5)
+
+
+@pytest.mark.parametrize("fn", ["hinge_d_loss", "vanilla_d_loss", "logits_laplace", "l1", "l2"])
+def test_losses_of_bf16_inputs_are_f32(fn):
+    """bf16 inputs give an f32 loss: the JAX function's bf16 scalar is it
+    rounded, within two bf16 steps (2^-7 relative: the JAX logit losses
+    round each term, then the mean; half a step each at most)."""
+    rng = np.random.RandomState(1)
+    a = (rng.randn(64, 33) * 0.25).astype(np.float32)
+    b = (rng.randn(64, 33) * 0.25).astype(np.float32)
+    ja, jb = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16)
+    want = getattr(jlosses, fn)(ja, jb)
+    ta, tb = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16) for x in (ja, jb))
+    got = getattr(tlosses, fn)(ta, tb)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.float32
+    assert abs(float(got) - float(want)) <= 2 ** -7 * abs(float(got))
+    if fn.endswith("_d_loss"):  # the logits are cast before any arithmetic
+        assert torch.equal(got, getattr(tlosses, fn)(ta.float(), tb.float()))
 
 
 def test_adopt_weight_matches():

@@ -1,14 +1,18 @@
 """The vq_argmin kernel's algorithm emulated on the CPU, and the codebook's
 search.
 
-The kernel (csrc/vq_argmin.cu) sums each staged code's squared norm, then
-computes d = ||e_k||^2 + sum_j (-2 x_j) e_kj, keeps a chunk minimum over
-each 4 codes of its slice, takes the first chunk whose minimum beats the
-running best by strict `<`, rescans that chunk for the first code at the
-best distance, and merges the code slices by the lexicographic minimum of
-(order-preserving distance bits, index), with -0 taken as +0. Here that
-search runs in numpy on distance matrices with exact ties planted across
-chunk and slice boundaries, against torch.argmin (first index of the
+The kernel (csrc/vq_argmin.cu) computes d = ||e_k||^2 + sum_j (-2 x_j) e_kj,
+with ||e_k||^2 summed over j ascending, and merges its code slices by the
+lexicographic minimum of (order-preserving distance bits, index), with -0
+taken as +0. Within a slice its two paths search differently. At code dims
+<= 32 it keeps a chunk minimum over each 4 codes of its slice, takes the
+first chunk whose minimum beats the running best by strict `<`, and rescans
+that chunk for the first code at the best distance. Above 32, in tiles of
+256 codes, each of the 16 threads that share a row keeps a strict-`<`
+running minimum over its codes (64 q + 4 tx + j of each tile, q, j < 4,
+ascending), and the 16 threads merge by the same lexicographic minimum. Here those searches run
+in numpy on distance matrices with exact ties planted across chunk, thread,
+tile and slice boundaries, against torch.argmin (first index of the
 minimum); and a code dim zero-padded as the kernel pads it gives the same
 norms and distances bit for bit."""
 
@@ -23,6 +27,10 @@ torch.set_num_threads(1)
 
 CHUNK = 4             # codes a chunk (csrc/vq_argmin.cu kChunk)
 INSTANCES = (4, 8, 16, 32)  # code dims of the kernel's instances
+TILE = 256            # codes a tile of the wide path (kTileCodes)
+LANES = 16            # threads that share a row of the wide path
+GROUPS = 4            # groups of 4 codes a thread holds, 64 codes apart (kCodeGroups)
+BK = 16               # code dims a step of the wide path, D zero-padded to a multiple (kBK)
 
 
 def kernel_distances(flat: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -102,6 +110,105 @@ def test_kernel_search_zero_distance_ties(K, ks, first):
             dist[m, k] = -first  # the other sign after the first
     want = torch.argmin(torch.from_numpy(dist), dim=1).numpy()
     np.testing.assert_array_equal(kernel_search(dist, ks), want)
+
+
+def tiled_search(dist: np.ndarray, ks: int) -> np.ndarray:
+    """The wide path's argmin (code dims > 32) over a distance matrix with
+    code slices of ks (a multiple of TILE): thread tx of a row runs a
+    strict-< minimum over codes 64 q + 4 tx + j of each tile of its slice,
+    ascending, from (+inf, the slice's first code); the 16 threads' keys
+    merge by their minimum, and the slices' by atomicMin."""
+    assert ks % TILE == 0
+    M, K = dist.shape
+    keys = np.full(M, np.iinfo(np.uint64).max, np.uint64)
+    for k0 in range(0, K, ks):
+        sl = dist[:, k0:k0 + ks]
+        tiles = -(-sl.shape[1] // TILE)
+        # padding codes: their chains start at +inf, never the best
+        sl = np.pad(sl, ((0, 0), (0, tiles * TILE - sl.shape[1])), constant_values=np.inf)
+        # [m, tile, q, tx, j] -> each thread's codes in its order: [m, tx, (tile, q, j)]
+        shape = (tiles, GROUPS, LANES, TILE // GROUPS // LANES)
+        seq = sl.reshape(M, *shape).transpose(0, 3, 1, 2, 4).reshape(M, LANES, -1)
+        codes = np.arange(tiles * TILE).reshape(shape).transpose(2, 0, 1, 3).reshape(LANES, -1)
+        best = np.full((M, LANES), np.inf, np.float32)
+        idx = np.zeros((M, LANES), np.int64)
+        for i in range(seq.shape[2]):
+            better = seq[:, :, i] < best
+            best = np.where(better, seq[:, :, i], best)
+            idx = np.where(better, codes[None, :, i], idx)
+        lane_keys = order_bits(best) << np.uint64(32) | (k0 + idx).astype(np.uint64)
+        keys = np.minimum(keys, lane_keys.min(axis=1))
+    return (keys & 0xFFFFFFFF).astype(np.int32)
+
+
+def plant_ties(dist: np.ndarray, ks: int) -> None:
+    """Exact ties below every other distance, one set a row: across thread
+    boundaries (codes 3 and 4, 63 and 64), inside one thread (j and j + 1,
+    q and q + 1), across a tile boundary, a slice boundary, the two ends,
+    three ways, and with the minimum first reached in a later slice."""
+    K = dist.shape[1]
+    low = dist.min() - 1
+    for m, where in enumerate([(3, 4), (63, 64), (1, 2), (5, 69), (255, 256), (ks - 1, ks),
+                               (0, K - 1), (5, 260, ks + 7), (ks + 1, 2 * ks + 2),
+                               (31, 32, 33), (TILE - 16, TILE + LANES - 1)]):
+        for k in where:
+            if k < K:
+                dist[m, k] = low - m
+
+
+@pytest.mark.parametrize("M,K,ks", [(64, 1, 256), (64, 100, 256), (64, 2048 + 5, 256),
+                                    (64, 2048 + 5, 1024), (64, 2048 + 5, 2304),
+                                    (64, 8193, 4352), (16384 + 33, 2048 + 5, 1024)])
+def test_tiled_search_takes_the_first_index(M, K, ks):
+    rng = np.random.RandomState(K + ks)
+    dist = rng.randn(M, K).astype(np.float32)  # negative distances too
+    plant_ties(dist, ks)
+    dist[40, :] = 2.5  # every code at one distance
+    dist[41, :] = np.inf  # every code at +inf: the first
+    want = torch.argmin(torch.from_numpy(dist), dim=1).numpy()
+    np.testing.assert_array_equal(tiled_search(dist, ks), want)
+
+
+@pytest.mark.parametrize("first", [-0.0, 0.0])
+@pytest.mark.parametrize("K,ks", [(1000, 256), (2048 + 5, 1024), (8193, 4352)])
+def test_tiled_search_zero_distance_ties(K, ks, first):
+    """An exact zero distance, +0 or -0, in one thread, in two threads of a
+    tile, across a tile boundary, a slice boundary and two slices: the
+    lowest index wins whatever the signs."""
+    rng = np.random.RandomState(K)
+    M = 8
+    dist = np.abs(rng.randn(M, K)).astype(np.float32) + 0.5  # all above zero
+    for m, where in enumerate([(1, 2), (3, 67), (3, 4), (TILE - 1, TILE), (ks - 1, ks),
+                               (5, ks + 5), (ks - 2, 2 * ks + 1), (0, K - 1)]):
+        where = [k for k in where if k < K]
+        dist[m, where[0]] = first
+        for k in where[1:]:
+            dist[m, k] = -first  # the other sign after the first
+    want = torch.argmin(torch.from_numpy(dist), dim=1).numpy()
+    np.testing.assert_array_equal(tiled_search(dist, ks), want)
+
+
+@pytest.mark.parametrize("D", [33, 37, 64, 100, 256])
+def test_tiled_search_on_wide_code_dims(D):
+    """Rows against 2048 + 5 codes at a wide code dim: the tiled search over
+    the kernel's distances, padded to a multiple of BK as the kernel pads
+    them, is torch.argmin of the unpadded distances, bit for bit; with
+    duplicate codes (a period of 97) the first occurrence wins."""
+    rng = np.random.RandomState(D)
+    M, K = 1000 + 33, 2048 + 5
+    flat = rng.randn(M, D).astype(np.float32)
+    flat /= np.linalg.norm(flat, axis=1, keepdims=True)
+    emb = rng.randn(97, D).astype(np.float32)[np.arange(K) % 97]
+    flat, emb = torch.from_numpy(flat), torch.from_numpy(emb)
+    pad = torch.nn.functional.pad
+    width = -(-D // BK) * BK
+    d = kernel_distances(flat, emb)
+    d_pad = kernel_distances(pad(flat, (0, width - D)), pad(emb, (0, width - D)))
+    assert torch.equal(d_pad, d)
+    want = torch.argmin(d, dim=1).numpy()
+    assert bool((want < 97).all())
+    for ks in (1024, 2304):
+        np.testing.assert_array_equal(tiled_search(d_pad.numpy(), ks), want)
 
 
 @pytest.mark.parametrize("D", [1, 3, 6, 12, 20])
