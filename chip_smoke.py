@@ -159,6 +159,16 @@ Phases (any failure raises and exits non-zero):
      sizes (16384 rows; VQ of 8192 codes of 256, euclidean and cosine,
      kmeans held step by step, one training call's EMA; FSQ (8, 8, 8, 5, 5,
      5); LFQ of 2^14 codes; the residual stacks 4 deep) card against CPU.
+ 16. parallelism over torch.distributed, in child processes: (a) a world of
+     one over NCCL: the flagship GAN step bit-equal to the step with no
+     group, the codebook step twice bit-equal, the class-CFG decode of
+     transformer_eval's --model_parallel 1 path on CUDA graphs; (b) two
+     ranks, over NCCL one card a rank where the host has two cards or more,
+     else both on the one card over gloo: TP=2 and PP=2 steps of the
+     flagship LM at 4 of its 24 layers, a TP=2 class-CFG decode (CUDA
+     graphs under NCCL, against the eager TP decode and the one-process
+     greedy sampler), vq_argmin_sharded, the DP=2 GAN step with BatchNorm
+     discriminators; each against one process.
 `--phases 14` (any comma list) runs phases 0, 1 and those alone.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio).
@@ -1934,15 +1944,15 @@ LM_INT8_MEAN_REL = 0.1    # int8 vs bf16 logits, mean |diff| / mean |bf16| (test
 LM_GREEDY_STEPS = 128
 
 
-def lm_model(vocab: int, block: int, seed: int = 0, layers: int = LM_LAYERS):
-    """The LM at full width, f32 masters computing in bf16, minGPT's init
+def lm_model(vocab: int, block: int, seed: int = 0, layers: int = LM_LAYERS, dtype=BF):
+    """The LM at full width, f32 masters computing in `dtype` (bf16), minGPT's init
     from `seed` on the card, and the position table N(0, 0.02) (minGPT
     leaves it 0, which would hide a wrong position)."""
     from omnitokenizer_tpu_torch.config import GPTConfig
     from omnitokenizer_tpu_torch.models.gpt import GPT, init_weights
 
     cfg = GPTConfig(vocab_size=vocab, block_size=block, n_layer=layers, n_head=LM_HEADS,
-                    n_embd=LM_WIDTH, dtype=BF)
+                    n_embd=LM_WIDTH, dtype=dtype)
     with torch.device("cuda"):
         gpt = GPT(cfg)
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -4112,6 +4122,446 @@ def phase15_last_pieces(smi: str) -> dict:
     return paths
 
 
+# -- phase 16: parallelism -----------------------------------------------------------------
+# 16a runs in one child process (a world of one over NCCL), 16b in two: over NCCL
+# one card a rank on a host of two cards or more, else both on the one card over
+# gloo (NCCL refuses two ranks on one device; parallel/mesh.py picks the backend),
+# so that no process group outlives its phase; each child writes its readings as JSON.
+PAR_LM_LAYERS = 4          # the TP / PP LM: 4 of the flagship's 24 layers, widths kept
+PAR_VOCAB = 8192 + 1000 + 1
+PAR_RANKS = 2
+
+
+def _gan_trainer(group, cfg=None):
+    """Phase 8's trainer (bench.py's train_gan losses and schedule) over `group`."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+    from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+    from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+
+    cfg = cfg or imagenet_k600_config().replace(dtype=BF)
+    return TokenizerTrainer(
+        cfg, LossConfig(perceptual_weight=1.0, image_gan_weight=1.0, video_gan_weight=1.0,
+                        gan_feat_weight=4.0, discriminator_iter_start=0),
+        TrainConfig(lr=1e-4, warmup_steps=10, max_steps=1000, warmup_lr_init=1e-5,
+                    ema_advances_per_step=2), device="cuda", group=group)
+
+
+def _gan_video() -> torch.Tensor:
+    return (torch.randn(B, T, RES, RES, 3, generator=torch.Generator().manual_seed(5))
+            * 0.2).cuda()
+
+
+def _gan_step(group, video, rows=None) -> dict:
+    """A fresh flagship state (seed 0), one train_step on `rows` of `video`:
+    its metrics, codebook buffers, parameters, ms and launches."""
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.parallel import mesh
+
+    trainer = _gan_trainer(group)
+    state = trainer.init_state(seed=0)
+    x = mesh.rank_rows(video, group) if rows is None else rows
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, x)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launch_counts(),
+           "metrics": {k: float(v) for k, v in m.items()},
+           "codebook": {k: v.clone() for k, v in state.net.codebook.state_dict().items()},
+           "params": [p.detach().clone() for p in state.g_params() + state.d_params()]}
+    del state, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _standin_tokenizer():
+    import types
+
+    return types.SimpleNamespace(device=torch.device("cuda"))
+
+
+def _lm_setup(model_parallel=1, stages=1):
+    """Phase 12's LM at PAR_LM_LAYERS layers (random weights, seed 0) and
+    optimizer, laid out over the world's ranks (model_parallel = stages = 1:
+    this process alone, touching no group)."""
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    gpt = lm_model(PAR_VOCAB, LM_BLOCK, seed=0, layers=PAR_LM_LAYERS)
+    n2n = lm_n2n(gpt, _standin_tokenizer())
+    opt = lm_optimizer(gpt)
+    par = (lm_loop.setup_parallel(n2n, opt, model_parallel, stages, microbatches=2)
+           if max(model_parallel, stages) > 1 else lm_loop.LMParallel())
+    return n2n, opt, par, lm_loop.init_lm_state(n2n, opt)
+
+
+def _lm_batch():
+    g = torch.Generator("cuda").manual_seed(11)
+    hw = RES // 8  # a 256^2 image's 32 x 32 codes: the sequence fills block 1025
+    z = torch.randint(0, 8192, (LM_TRAIN_B, hw * hw), generator=g, device="cuda")
+    return z, torch.randint(0, 1000, (LM_TRAIN_B,), generator=g, device="cuda")
+
+
+def _lm_step(model_parallel=1, stages=1) -> dict:
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.training import lm_loop
+
+    n2n, opt, par, state = _lm_setup(model_parallel, stages)
+    z, labels = _lm_batch()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m = lm_loop.lm_train_step(n2n, opt, state, z, labels, par=par)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "launches": launch_counts(),
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "heads": n2n.gpt.n_local_heads, "blocks": len(n2n.gpt.blocks)}
+    del n2n, opt, par, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def child16a(out_path: str) -> None:
+    """A world of one over NCCL: the flagship GAN step through the
+    data-parallel trainer bit-equal to the step with no group; the codebook
+    step twice bit-equal, its sums' ms against index_add_; the class-CFG
+    decode of transformer_eval's path under the group on CUDA graphs against
+    the greedy CFG sampler."""
+    import torch.distributed as dist
+
+    from omnitokenizer_tpu_torch.models.gpt import make_cfg_sampler
+    from omnitokenizer_tpu_torch.ops.codebook import Codebook, code_sums
+    from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin
+    from omnitokenizer_tpu_torch.parallel import mesh
+
+    # the discriminators' and LPIPS's cuDNN convolutions, deterministic for the bit-equal check
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    group = mesh.init_distributed("cuda", world_of_one=True)
+    mesh.all_reduce_(torch.zeros(1, device="cuda"), group)  # NCCL's communicator, before timing
+    res = {"backend": dist.get_backend(group), "world": mesh.world()}
+    video = _gan_video()
+    with_group = _gan_step(group, video)
+    without = _gan_step(None, video)
+    again = _gan_step(group, video)["ms"]  # in turns: group, none, group
+    res["gan"] = {
+        "ms_group": [with_group["ms"], again], "ms_none": without["ms"],
+        "launches": with_group["launches"],
+        "metrics_equal": with_group["metrics"] == without["metrics"],
+        "metrics": with_group["metrics"],
+        "metric_diffs": {k: with_group["metrics"][k] - without["metrics"][k]
+                         for k in without["metrics"]},
+        "codebook_equal": all(torch.equal(with_group["codebook"][k], without["codebook"][k])
+                              for k in without["codebook"]),
+        "params_equal": sum(torch.equal(a, b) for a, b in zip(with_group["params"],
+                                                                 without["params"])),
+        "params": len(without["params"])}
+    del with_group, without
+
+    # the codebook's EMA step at the flagship's rows, twice from one state
+    g = torch.Generator("cuda").manual_seed(3)
+    z = torch.randn(B, 5, 32, 32, 8, generator=g, device="cuda")
+    codes = torch.randn(8192, 8, generator=g, device="cuda")
+
+    def codebook_step():
+        cb = Codebook(8192, 8).cuda()
+        with torch.no_grad():
+            cb.embeddings.copy_(codes)
+            cb.z_avg.copy_(codes)
+            cb.initialized.fill_(1)
+        cb(z, training=True, generator=torch.Generator("cuda").manual_seed(4))
+        return cb.state_dict()
+
+    a, b = codebook_step(), codebook_step()
+    flat = z.reshape(-1, 8)
+    idx = vq_argmin(flat, codes).long()
+
+    def index_add():
+        return torch.zeros(8192, 8, device="cuda").index_add_(0, idx, flat)
+
+    def segment_sum():  # another deterministic form: a stable sort, then a segment sum
+        order = torch.argsort(idx, stable=True)
+        return torch.segment_reduce(flat[order], "sum", axis=0, unsafe=True,
+                                    lengths=torch.bincount(idx, minlength=8192))
+
+    res["codebook"] = {
+        "buffers_equal": all(torch.equal(a[k], b[k]) for k in a),
+        "segment_ms": cuda_ms(segment_sum),
+        "sums_repeats_equal": bool(torch.equal(code_sums(idx, flat, 8192),
+                                               code_sums(idx, flat, 8192))),
+        "segment_equals_code_sums": bool(torch.equal(segment_sum(), code_sums(idx, flat, 8192))),
+        "rows": flat.shape[0],
+        "code_sums_ms": cuda_ms(lambda: code_sums(idx, flat, 8192)),
+        "index_add_ms": cuda_ms(index_add),
+        "index_add_repeats_equal": bool(torch.equal(index_add(), index_add())),
+        "sums_max_abs_vs_index_add": float((code_sums(idx, flat, 8192) - index_add()).abs().max())}
+
+    # transformer_eval's class split and class-CFG sampler (its --model_parallel 1 path: a
+    # data row of one rank, CUDA graphs) against the greedy CFG sampler, no group
+    from omnitokenizer_tpu_torch.config import Net2NetConfig
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+
+    gpt = lm_model(PAR_VOCAB, LM_BLOCK, seed=0, layers=LM_GEN_LAYERS)
+    grid = mesh.grid(1)
+    classes = torch.arange(1000)[grid.data_rank::grid.data_size][:LM_B].cuda()
+    steps = LM_GREEDY_STEPS
+    ref = make_cfg_sampler(gpt.cfg, steps, cfg_ratio=1.5, class_first=True, scale_cfg=True,
+                           greedy=True, bucket=256)(gpt, classes[:, None], None)
+    n2n = Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, class_cond_dim=1000, starts_with_sos=True,
+                                           class_first=True, first_stage_vocab_size=8192),
+                             _standin_tokenizer(), gpt=gpt)
+    sample = n2n.make_class_conditional_sampler(steps, top_k=1, cfg_ratio=1.5, use_cfg=True,
+                                                scale_cfg=True, bucket=256, cuda_graphs=True)
+    got = sample(classes, torch.Generator("cuda").manual_seed(1234 + grid.data_rank))
+    want = torch.clamp(ref - n2n.z_offset, 0, 8191)
+    res["decode"] = {"tokens_equal": bool(torch.equal(got, want)), "steps": steps,
+                     "batch": len(classes), "graphs": sample.fn.cuda_graphs,
+                     "first_differing_step": int((got != want).any(0).nonzero()[0])
+                     if not torch.equal(got, want) else None}
+    mesh.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _tp_decode(grid) -> dict:
+    """transformer_eval's --model_parallel path at PAR_RANKS: the f32 LM at
+    PAR_LM_LAYERS layers, the greedy class-CFG decode of this data row's
+    classes sharded over `grid.inner` (CUDA graphs where the backend is NCCL:
+    gloo's collectives cannot be captured), against the eager sharded decode
+    and the greedy CFG sampler on the whole model in this process."""
+    from omnitokenizer_tpu_torch.config import Net2NetConfig
+    from omnitokenizer_tpu_torch.models.gpt import make_cfg_sampler
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    gpt = lm_model(PAR_VOCAB, LM_BLOCK, seed=0, layers=PAR_LM_LAYERS, dtype=torch.float32)
+    classes = torch.arange(1000)[grid.data_rank::grid.data_size][:LM_B].cuda()
+    steps = LM_GREEDY_STEPS
+    ref = make_cfg_sampler(gpt.cfg, steps, cfg_ratio=1.5, class_first=True, scale_cfg=True,
+                           greedy=True, bucket=256)(gpt, classes[:, None], None)
+    n2n = Net2NetTransformer(Net2NetConfig(gpt=gpt.cfg, class_cond_dim=1000, starts_with_sos=True,
+                                           class_first=True, first_stage_vocab_size=8192),
+                             _standin_tokenizer(), gpt=gpt)
+    want = torch.clamp(ref - n2n.z_offset, 0, 8191)
+    tp.shard_gpt(n2n.gpt, grid.inner)
+    graphs = torch.distributed.get_backend(grid.inner) != "gloo"
+    toks, ms = {}, {}
+    for g in sorted({graphs, False}, reverse=True):
+        sample = n2n.make_class_conditional_sampler(steps, top_k=1, cfg_ratio=1.5, use_cfg=True,
+                                                    scale_cfg=True, bucket=256, cuda_graphs=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks[g] = sample(classes, torch.Generator("cuda").manual_seed(1234 + grid.data_rank))
+        torch.cuda.synchronize()
+        ms[g] = (time.perf_counter() - t0) * 1e3
+    got = toks[graphs]
+    return {"graphs": graphs, "heads": n2n.gpt.n_local_heads, "batch": len(classes),
+            "steps": steps, "ms": ms[graphs], "eager_ms": ms[False],
+            "graphs_equal_eager": bool(torch.equal(got, toks[False])),
+            "tokens_equal": bool(torch.equal(got, want)),
+            "first_differing_step": int((got != want).any(0).nonzero()[0])
+            if not torch.equal(got, want) else None}
+
+
+def child16b(out_path: str) -> None:
+    """One of two ranks (over NCCL one card a rank, or both on one card over
+    gloo): TP=2 and PP=2 LM steps, the TP=2 decode, the sharded-table argmin,
+    the DP=2 GAN step; rank 0 then runs the one-process steps they are held
+    to."""
+    from omnitokenizer_tpu_torch.ops.codebook import vq_argmin_sharded
+    from omnitokenizer_tpu_torch.ops.kernels import vq_argmin as vq
+    from omnitokenizer_tpu_torch.parallel import mesh
+
+    group = mesh.init_distributed("cuda")
+    rank = mesh.rank()
+    res = {"rank": rank, "world": mesh.world(), "backend": torch.distributed.get_backend(group),
+           "card": torch.cuda.current_device()}
+    res["tp"] = _lm_step(model_parallel=PAR_RANKS)
+    res["pp"] = _lm_step(stages=PAR_RANKS)
+    res["decode"] = _tp_decode(mesh.grid(PAR_RANKS))
+    torch.cuda.empty_cache()
+
+    # the flagship's 20480 x 8 rows against 8192 codes in two slabs, a tie planted across them
+    g = torch.Generator("cuda").manual_seed(9)
+    flat = torch.randn(B * 5 * 32 * 32, 8, generator=g, device="cuda")
+    emb = torch.randn(8192, 8, generator=g, device="cuda")
+    emb[4096 + 100] = emb[100]
+    flat[:64] = emb[100]
+    k = emb.shape[0] // PAR_RANKS
+    slab = emb[rank * k:(rank + 1) * k].contiguous()
+    got = vq_argmin_sharded(flat, slab, group)
+    plain, kern = vq.vq_argmin_plain(flat, emb), vq.vq_argmin(flat, emb)
+    near = kern != got
+    res["vq"] = {"rows": flat.shape[0], "equal_plain": bool(torch.equal(got, plain)),
+                 "tie_rows_ok": bool((got[:64] == 100).all() and (kern[:64] == 100).all()),
+                 "kernel_differs": int(near.sum()),
+                 "ms": cuda_ms(lambda: vq_argmin_sharded(flat, slab, group), iters=5,
+                               queued=False),
+                 "kernel_ms": cuda_ms(lambda: vq.vq_argmin(flat, emb))}
+    if near.any():
+        zz, e64 = flat[near].double(), emb.double()
+        d_k = (zz - e64[kern[near].long()]).square().sum(-1)
+        d_s = (zz - e64[got[near].long()]).square().sum(-1)
+        res["vq"]["kernel_rel_gap"] = float(((d_k - d_s).abs() / d_s.clamp_min(1e-12)).max())
+
+    video = _gan_video()
+    dp = _gan_step(group, video)
+    res["dp"] = {k: dp[k] for k in ("ms", "launches", "metrics")}
+    del dp
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if rank == 0:  # the one-process steps, the other rank's memory given back
+        res["one_lm"] = _lm_step()
+        one = _gan_step(None, video)
+        res["one_gan"] = {k: one[k] for k in ("ms", "launches", "metrics")}
+    mesh.barrier()
+    mesh.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+LAUNCH_VARS = ("OMNITOK_COORD", "OMNITOK_NPROCS", "OMNITOK_PROC_ID", "OMNITOK_NO_DIST",
+               "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK")
+
+
+def _children(role: str, n: int, env: dict, timeout: float = 900.0) -> list:
+    """Run `n` chip_smoke.py --child ROLE processes (rank r of n: OMNITOK_PROC_ID
+    r) in this environment less any launcher's variables, plus `env`; their
+    JSON results."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCH_VARS}
+    outs, procs = [], []
+    with tempfile.TemporaryDirectory() as d:
+        for r in range(n):
+            out = os.path.join(d, f"{role}{r}.json")
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child", role, "--out", out],
+                env=dict(base, **env, **({"OMNITOK_PROC_ID": str(r)} if n > 1 else {}))))
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"phase 16 {role}: child exit codes {rcs}")
+        results = []
+        for out in outs:
+            with open(out) as f:
+                results.append(json.load(f))
+    return results
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(a), abs(b), 0.1)
+
+
+def phase16_parallel(smi: str) -> dict:
+    """(a) a world of one over NCCL, (b) two ranks (over NCCL on two cards, or
+    over gloo on one); returns the launches of a rank's DP GAN step and TP / PP
+    LM steps."""
+    from omnitokenizer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    (a,) = _children("16a", 1, {})
+    print(f"[16a] in {time.perf_counter() - t0:.1f} s")
+    gan, cb, dec = a["gan"], a["codebook"], a["decode"]
+    print(f"[16a] {a['backend']} world of {a['world']}: flagship GAN step (B={B}, {T}x{RES}^2, "
+          f"bf16) with the group {gan['ms_group'][0]:.2f} / {gan['ms_group'][1]:.2f} ms, "
+          f"without {gan['ms_none']:.2f} ms (in turns); "
+          f"metrics bit-equal {gan['metrics_equal']}, codebook buffers bit-equal "
+          f"{gan['codebook_equal']}, parameters bit-equal {gan['params_equal']} of "
+          f"{gan['params']}; launches {gan['launches']} ({smi})")
+    print(f"[16a] codebook step at {cb['rows']} x 8 rows, 8192 codes: two runs bit-equal "
+          f"{cb['buffers_equal']}; code_sums {cb['code_sums_ms']:.4f} ms (two runs bit-equal "
+          f"{cb['sums_repeats_equal']}, equal to a stable-sort segment sum "
+          f"{cb['segment_equals_code_sums']}, {cb['segment_ms']:.4f} ms) against index_add_ "
+          f"{cb['index_add_ms']:.4f} ms (two runs bit-equal {cb['index_add_repeats_equal']}, "
+          f"max |diff| {cb['sums_max_abs_vs_index_add']:.3e})")
+    print(f"[16a] class-CFG decode under the group (CUDA graphs {dec['graphs']}, B={dec['batch']},"
+          f" {dec['steps']} steps, top_k 1) vs the greedy CFG sampler: tokens equal "
+          f"{dec['tokens_equal']}")
+    if not (a["backend"] == "nccl" and gan["metrics_equal"] and gan["codebook_equal"]):
+        raise AssertionError(f"16a: the world of one is not the step with no group: "
+                             f"{gan['metric_diffs']}")
+    if not (cb["buffers_equal"] and cb["sums_repeats_equal"]):
+        raise AssertionError("16a: two codebook steps hold different buffers")
+    if not dec["tokens_equal"]:
+        raise AssertionError(f"16a: decode tokens differ from step {dec['first_differing_step']}")
+
+    port = mesh.free_port()
+    ranks = _children("16b", PAR_RANKS, {"OMNITOK_COORD": f"localhost:{port}",
+                                         "OMNITOK_NPROCS": str(PAR_RANKS)})
+    r0 = ranks[0]
+    one_lm, one_gan = r0["one_lm"], r0["one_gan"]
+    backend = r0["backend"]
+    shared = len({r["card"] for r in ranks}) == 1
+    print(f"[16b] {PAR_RANKS} ranks over {backend} on card(s) {[r['card'] for r in ranks]}")
+    fails = []
+    if backend != ("gloo" if shared else "nccl"):
+        fails.append(f"backend {backend} for ranks on cards {[r['card'] for r in ranks]}")
+    # a TP rank runs every layer once; a stage runs its layers once a microbatch (2)
+    for kind, want_blocks, calls in (("tp", PAR_LM_LAYERS, PAR_LM_LAYERS),
+                                     ("pp", PAR_LM_LAYERS // PAR_RANKS, PAR_LM_LAYERS)):
+        for r in ranks:
+            s = r[kind]
+            f_fwd, f_bwd = s["launches"]["flash_attn_fwd"], s["launches"]["flash_attn_bwd"]
+            print(f"[16b] {kind.upper()}={PAR_RANKS} LM step rank {r['rank']} ({s['blocks']} "
+                  f"layers x {s['heads']} heads of 96, B={LM_TRAIN_B}, block {LM_BLOCK}, bf16): "
+                  f"{s['ms']:.2f} ms, loss {s['loss']:.6f}, grad norm {s['grad_norm']:.6f}; "
+                  f"flash launches {f_fwd}/{f_bwd}")
+            if s["blocks"] != want_blocks or f_fwd != calls or f_bwd != calls:
+                fails.append(f"{kind} rank {r['rank']}: flash launches {f_fwd}/{f_bwd}")
+            if _rel(s["loss"], one_lm["loss"]) > LM_TRAIN_LOSS_REL_TOL:
+                fails.append(f"{kind} loss {s['loss']} vs {one_lm['loss']}")
+            if _rel(s["grad_norm"], one_lm["grad_norm"]) > LM_TRAIN_GRAD_NORM_REL_TOL:
+                fails.append(f"{kind} grad norm {s['grad_norm']} vs {one_lm['grad_norm']}")
+    print(f"[16b] one-process LM step ({PAR_LM_LAYERS} layers x 16 heads): {one_lm['ms']:.2f} ms, "
+          f"loss {one_lm['loss']:.6f}, grad norm {one_lm['grad_norm']:.6f}")
+    for r in ranks:
+        d = r["decode"]
+        print(f"[16b] TP={PAR_RANKS} class-CFG decode rank {r['rank']} (f32, {PAR_LM_LAYERS} layers"
+              f" x {d['heads']} heads of 96, B={d['batch']}, {d['steps']} steps, top_k 1, CUDA "
+              f"graphs {d['graphs']}): {d['ms']:.2f} ms (eager {d['eager_ms']:.2f} ms); tokens "
+              f"equal to the eager TP decode {d['graphs_equal_eager']}, to the one-process greedy "
+              f"CFG sampler {d['tokens_equal']}")
+        if d["graphs"] != (backend == "nccl") or not d["graphs_equal_eager"]:
+            fails.append(f"tp decode rank {r['rank']}: graphs {d['graphs']}, equal to eager "
+                         f"{d['graphs_equal_eager']}")
+        if not d["tokens_equal"]:
+            fails.append(f"tp decode rank {r['rank']}: tokens differ from step "
+                         f"{d['first_differing_step']}")
+    for r in ranks:
+        v = r["vq"]
+        print(f"[16b] vq_argmin_sharded rank {r['rank']}: {v['rows']} rows x 8192 codes in "
+              f"{PAR_RANKS} slabs, {v['ms']:.4f} ms (the kernel, unsharded: "
+              f"{v['kernel_ms']:.4f} ms); equal to the plain search {v['equal_plain']}, planted "
+              f"ties {v['tie_rows_ok']}, {v['kernel_differs']} rows apart from the kernel "
+              f"(near-ties, rel gap {v.get('kernel_rel_gap', 0.0):.3e})")
+        if not (v["equal_plain"] and v["tie_rows_ok"]
+                and v.get("kernel_rel_gap", 0.0) <= VQ_TIE_TOL):
+            fails.append(f"vq_argmin_sharded rank {r['rank']}: {v}")
+    for r in ranks:
+        d = r["dp"]
+        print(f"[16b] DP={PAR_RANKS} GAN step rank {r['rank']} (B={B // PAR_RANKS} a rank, "
+              f"BatchNorm over both): {d['ms']:.2f} ms, launches {d['launches']}")
+        if d["launches"] != EXPECTED_LAUNCHES["train"]:
+            fails.append(f"dp rank {r['rank']} launches {d['launches']}")
+        for k, v in one_gan["metrics"].items():
+            tol = TRAIN_GRAD_NORM_REL_TOL if k.startswith("grad_norm") else TRAIN_LOSS_REL_TOL
+            if _rel(d["metrics"][k], v) > tol:
+                fails.append(f"dp {k} {d['metrics'][k]} vs {v}")
+    worst = max(_rel(ranks[0]["dp"]["metrics"][k], v) for k, v in one_gan["metrics"].items())
+    note = ("Two ranks share one card: their times show no speed-up" if shared
+            else "One card a rank")
+    print(f"[16b] one-process GAN step (B={B}): {one_gan['ms']:.2f} ms; DP metrics' largest "
+          f"relative gap {worst:.3e}. {note} ({smi})")
+    if fails:
+        raise AssertionError("16b: " + "; ".join(fails))
+    print(f"[16] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"dp_train": ranks[0]["dp"]["launches"], "tp_lm_train": ranks[0]["tp"]["launches"],
+            "pp_lm_train": ranks[0]["pp"]["launches"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4119,7 +4569,14 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", type=lambda v: {int(x) for x in v.split(",")}, default=None,
                         help="comma-separated phases after 0 and 1 (the card, the build) to "
                              "run, for a short run; all of them by default")
-    run = parser.parse_args(argv).phases
+    parser.add_argument("--child", choices=["16a", "16b"], default=None,
+                        help="run as one of phase 16's child processes (set by phase 16)")
+    parser.add_argument("--out", default=None, help="a child's JSON result file")
+    parsed = parser.parse_args(argv)
+    run = parsed.phases
+    if parsed.child:
+        {"16a": child16a, "16b": child16b}[parsed.child](parsed.out)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4131,7 +4588,7 @@ def main(argv=None) -> int:
               (7, lambda: {"wide": phase7_wide()}), (8, lambda: {"train": phase8_train(smi)}),
               (9, phase9_eval), (10, phase10_lm), (11, phase11_diffusion),
               (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v),
-              (15, lambda: phase15_last_pieces(smi))]
+              (15, lambda: phase15_last_pieces(smi)), (16, lambda: phase16_parallel(smi))]
     paths = {}
     for n, phase in phases:
         if run is None or n in run:
@@ -4151,7 +4608,7 @@ def main(argv=None) -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    done = "0-15" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
+    done = "0-16" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
     print(f"[done] phases {done} in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,7 +11,10 @@ ema_params, or params with --no_ema). Classifier-free guidance doubles the batch
 null class; respaced DDPM over --num_sampling_steps (or DDIM with --ddim),
 without clipping. With --vae_ckpt the latents decode through the VAE into
 PNGs (mp4s for Latte); without, they are written as .npy, channels-first.
-One process; the JAX CLI's multi-process class sharding is not ported.
+On N processes (torchrun or the OMNITOK_* variables, parallel/mesh.py)
+each rank samples --num_samples as the JAX CLI's process does: its
+generator seeded seed + 1000 * rank, the classes rotated by its rank,
+its rank in each file's name.
 `latte_sample` is `main(video=True)` (CFG on the first 4 channels).
 """
 
@@ -85,31 +88,35 @@ def sample_batch(args, model, diffusion, y_real: torch.Tensor, generator: torch.
 
 def generate(args, model, diffusion, adapter, video: bool) -> int:
     """--num_samples samples in batches of --per_proc_batch_size, cycling
-    through --classes, written under --sample_dir; returns how many."""
+    through --classes (from this rank's offset), written under
+    --sample_dir; returns how many."""
+    from ..parallel import mesh
     from ..utils.media import save_image_grid, save_video_grid
 
     decode = decode_batch_fn(adapter, video) if adapter is not None else None
     os.makedirs(args.sample_dir, exist_ok=True)
     device = next(model.parameters()).device
     classes = args.classes if args.classes is not None else list(range(max(model.cfg.num_classes, 1)))
-    generator = torch.Generator(device).manual_seed(args.seed)
+    rank = mesh.rank()
+    generator = torch.Generator(device).manual_seed(args.seed + 1000 * rank)
     made = 0
     while made < args.num_samples:
         n = min(args.per_proc_batch_size, args.num_samples - made)
-        y_real = torch.tensor([classes[(made + i) % len(classes)] for i in range(n)], device=device)
+        y_real = torch.tensor([classes[(made + i + rank) % len(classes)] for i in range(n)],
+                              device=device)
         z = sample_batch(args, model, diffusion, y_real, generator, video)
         if decode is not None:
             with torch.inference_mode():
                 x = decode(z).float().cpu().numpy()  # channels-first, [-0.5, 0.5]
             x = np.moveaxis(x, 1, -1)  # channels-last: (n, H, W, 3) or (n, T, H, W, 3)
             for i in range(n):
-                tag = os.path.join(args.sample_dir, f"00_{made + i:05d}_c{int(y_real[i])}")
+                tag = os.path.join(args.sample_dir, f"{rank:02d}_{made + i:05d}_c{int(y_real[i])}")
                 if video:
                     save_video_grid(x[i:i + 1], tag + ".mp4")
                 else:
                     save_image_grid(x[i:i + 1], tag + ".png")
         else:
-            np.save(os.path.join(args.sample_dir, f"latents_00_{made:05d}.npy"),
+            np.save(os.path.join(args.sample_dir, f"latents_{rank:02d}_{made:05d}.npy"),
                     z.float().cpu().numpy())
         made += n
         print(f"[sample] {made}/{args.num_samples}")
@@ -118,8 +125,10 @@ def generate(args, model, diffusion, adapter, video: bool) -> int:
 
 def main(argv=None, video: bool = False):
     from ..convert import load_diffusion_checkpoint, load_diffusion_state_dict
+    from ..parallel import mesh
 
     args = build_parser(video).parse_args(argv)
+    mesh.init_distributed(args.device)
     model, cfg = build_model(args, video, init=False)
     load_diffusion_state_dict(model, load_diffusion_checkpoint(args.ckpt, cfg.patch_size,
                                                                args.use_ema))

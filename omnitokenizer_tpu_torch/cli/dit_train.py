@@ -12,8 +12,13 @@ no VAE or data). A run resumes from the newest state_*.pt under
 --results_dir, writes one every --ckpt_every steps and at the end, and
 logs metrics.jsonl. --init_from seeds the parameters from a reference
 DiT/Latte .pt (its EMA), a state_*.pt, or the JAX package's state_*.msgpack
-(its params, as the JAX CLI takes them). One process on one device; data parallelism is not ported.
-`latte_train` is `main(video=True)`.
+(its params, as the JAX CLI takes them). On N processes (torchrun or the
+OMNITOK_* variables, parallel/mesh.py) the run is data-parallel: each rank
+takes global_batch_size / N rows (synthetic latents and the timesteps are
+its rows of the global draw; the loader strides the data by rank), the
+gradients are averaged (training/diffusion_loop.py), so the parameters
+and their EMA stay equal everywhere, and rank 0 logs and writes the
+states. `latte_train` is `main(video=True)`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import re
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from . import args as A
 from .diffusion_common import (add_common_diffusion_args, build_model, encode_batch_fn,
                                load_vae_adapter, synthetic_latents)
@@ -79,7 +85,7 @@ def _forever(batches):
             raise ValueError("the training data yielded no batch")
 
 
-def _next_batch(args, stream, rng, cfg, video, encode, encode_img, step, device):
+def _next_batch(args, stream, rng, cfg, video, encode, encode_img, step, device, group=None):
     """(x0, y, y_image) of one step: the loader's pixels encoded (the
     images of --use_image_num drawn from other rows of the batch, each with
     its source's label), or synthetic latents; all channels-first."""
@@ -93,7 +99,8 @@ def _next_batch(args, stream, rng, cfg, video, encode, encode_img, step, device)
             x0 = np.concatenate([x0, extra], axis=1)
             y_image = rng.randint(0, max(cfg.num_classes, 1), size=(B, use_image_num))
         y = rng.randint(0, max(cfg.num_classes, 1), size=(len(x0),))
-        to = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        def to(a):  # this rank's rows of the global draw
+            return mesh.rank_rows(torch.as_tensor(a, device=device), group)
         return to(x0), to(y), None if y_image is None else to(y_image)
 
     batch = next(stream)
@@ -130,10 +137,13 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
     latents. Returns the final DiffusionTrainState."""
     from ..diffusion import create_diffusion, create_named_schedule_sampler
     from ..training.diffusion_loop import (init_diffusion_state, load_diffusion_state,
-                                           make_diffusion_train_step, save_diffusion_state)
+                                           make_diffusion_train_step, sample_timesteps,
+                                           save_diffusion_state, update_sampler)
     from ..training.loop import MetricsLogger
     from ..training.trainer import OptaxAdam
 
+    group = mesh.world_group()
+    lead = mesh.rank() == 0
     cfg, device = model.cfg, next(model.parameters()).device
     diffusion = create_diffusion(None, noise_schedule=args.noise_schedule,
                                  diffusion_steps=args.diffusion_steps,
@@ -147,19 +157,22 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
     if latest:
         load_diffusion_state(latest, state)
         print(f"[{'latte' if video else 'dit'}_train] resumed from {latest} at step {state.step}")
+    mesh.replicate(state.model, group)  # rank 0's parameters (and EMA) everywhere
+    mesh.replicate(state.ema, group)
 
     use_image_num = getattr(args, "use_image_num", 0) if video else 0
 
-    def loss_model_fn(m, x_t, t, generator, y=None, text_embedding=None, y_image=None):
-        kw = dict(train=True, generator=generator)
+    def loss_model_fn(m, x_t, t, generator, y=None, text_embedding=None, y_image=None,
+                      group=None):
+        kw = dict(train=True, generator=generator, group=group)
         if video and text_embedding is not None:
             kw["text_embedding"] = text_embedding
         if use_image_num:
             kw.update(use_image_num=use_image_num, y_image=y_image)
         return m(x_t, t, y, **kw)
 
-    step_fn = make_diffusion_train_step(loss_model_fn, diffusion, opt, args.ema_decay)
-    logger = MetricsLogger(args.results_dir, log_every=args.log_every)
+    step_fn = make_diffusion_train_step(loss_model_fn, diffusion, opt, args.ema_decay, group)
+    logger = MetricsLogger(args.results_dir, log_every=args.log_every) if lead else None
     rng = np.random.RandomState(args.seed)
     encode = encode_batch_fn(adapter, video) if adapter is not None else None
     # the appended frames of joint training encode as images (one latent frame each)
@@ -169,8 +182,8 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
     step = state.step
     while step < args.max_steps:
         x0, y, y_image = _next_batch(args, stream, rng, cfg, video, encode, encode_img, step,
-                                     device)
-        ts, weights = sampler.sample(len(x0), rng)
+                                     device, group)
+        ts, weights, ts_all = sample_timesteps(sampler, len(x0), rng, group)
         cond = {"y": y} if cfg.num_classes else {}
         if use_image_num and y_image is not None and cfg.num_classes:
             cond["y_image"] = y_image
@@ -178,14 +191,16 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
         state, loss, aux = step_fn(state, x0, torch.as_tensor(ts, device=device),
                                    torch.as_tensor(weights, device=device), gen, cond)
         if args.schedule_sampler == "loss-second-moment":
-            sampler.update_with_all_losses(ts, aux["per_t_loss"].cpu().numpy())
+            update_sampler(sampler, ts_all, aux["per_t_loss"], group)
         step = state.step
-        if step % args.log_every == 0 or step == 1:
+        if lead and (step % args.log_every == 0 or step == 1):
             logger.log(step, {"loss": float(loss), "mse": float(aux.get("mse", loss)),
                               "grad_norm": float(aux["grad_norm"])})
-        if step % args.ckpt_every == 0 or step == args.max_steps:
+        if lead and (step % args.ckpt_every == 0 or step == args.max_steps):
             save_diffusion_state(os.path.join(args.results_dir, f"state_{step:09d}.pt"), state)
-    logger.close()
+    if lead:
+        logger.close()
+    mesh.barrier()
     print(f"[{'latte' if video else 'dit'}_train] done at step {step}")
     return state
 
@@ -194,6 +209,7 @@ def main(argv=None, video: bool = False):
     from ..convert import load_diffusion_checkpoint, load_diffusion_state_dict
 
     args = build_parser(video).parse_args(argv)
+    mesh.init_distributed(args.device)
     model, cfg = build_model(args, video)
     if args.init_from:
         # a JAX state's params (its :119-124), a torch file's EMA
@@ -206,7 +222,8 @@ def main(argv=None, video: bool = False):
     if not args.synthetic_data and args.train_datalist[0] != "none":
         from ..data.loader import VideoData
 
-        batches = VideoData(args, train=True)
+        batches = VideoData(args, train=True, process_index=mesh.rank(),
+                            process_count=mesh.world())
     return train(args, model, adapter, batches, video)
 
 

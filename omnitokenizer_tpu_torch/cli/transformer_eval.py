@@ -15,9 +15,18 @@ frame_prediction: encode the first 2 latent frames of each clip of
 The tokenizer and the GPT load from the reference's checkpoints or the JAX
 package's `.msgpack` files (utils/checkpoint.py, utils/gpt_checkpoint.py);
 the decode runs as CUDA
-graphs on the card unless --device cpu. Classes run in one process: the
-JAX CLI's tensor-parallel decode (--model_parallel) and its multi-process
-class split are not ported (ROADMAP.md, "Parallelism").
+graphs on the card unless --device cpu.
+
+On N processes (torchrun or the OMNITOK_* variables, parallel/mesh.py;
+--distributed alone brings up a world of one) the ranks form a (data,
+model) grid of --model_parallel ranks a row: each data row takes the
+classes classes[row::rows] with a generator seeded seed + row (frame
+prediction: seed + row), as the JAX CLI splits them by process, and its
+first rank writes the files. --model_parallel M decodes with the GPT's
+Megatron shards and head-sharded KV caches (parallel/tp.py; refused with
+--int8, as in JAX). The decode graphs capture NCCL's collectives; gloo's
+cannot be captured, so under gloo a tensor-parallel decode on the card
+runs its steps eagerly.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_list", type=str, default=None,
                    help="frame-prediction clip list (alias of --val_datalist)")
     p.add_argument("--distributed", action="store_true",
-                   help="accepted for recipe compat; the port runs one process")
+                   help="bring up a process group (a world of one without a launcher)")
     p.add_argument("--save", type=str, default="./gen_out")
     p.add_argument("--n_sample", type=int, default=16)
     p.add_argument("--class_cond_dim", type=int, default=1000)
@@ -68,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "t = cfg_ratio * n")
     p.add_argument("--int8", action="store_true", help="int8 W8A8 decode weights (ops/int8.py)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel decode; not ported (only 1)")
+                   help="tensor-parallel decode: ranks of one Megatron group")
     p.add_argument("--decode_bucket", type=int, default=128,
                    help="segmented attention windows for long AR decode, one CUDA graph "
                         "per window (0 = the whole block every step)")
@@ -102,7 +111,7 @@ def build_model(args):
     return Net2NetTransformer(n2n_cfg, tok, gpt=gpt), tok
 
 
-def _frame_prediction(args, n2n, tok) -> int:
+def _frame_prediction(args, n2n, tok, seed: int) -> int:
     from ..data.loader import VideoData
 
     # one finite pass, as the reference's val loader; n_sample may stop it sooner
@@ -110,7 +119,7 @@ def _frame_prediction(args, n2n, tok) -> int:
     sampler = n2n.make_frame_prediction_sampler(
         tok.cfg.latent_t, prefix_latent_frames=2, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, bucket=args.decode_bucket or None, int8=args.int8)
-    gen = torch.Generator(n2n.device).manual_seed(args.seed)
+    gen = torch.Generator(n2n.device).manual_seed(seed)
     done = 0
     for batch in iter(loader):
         if done >= args.n_sample:
@@ -139,10 +148,19 @@ def _save_class(args, pixels: np.ndarray, c: int, is_image: bool) -> None:
 
 
 def main(argv=None) -> int:
+    from ..parallel import mesh, tp
+
     args = A.normalize_precision(build_parser().parse_args(argv))
     if args.model_parallel > 1:
-        raise NotImplementedError("--model_parallel > 1 (tensor-parallel decode) is not ported: "
-                                  "ROADMAP.md, \"Parallelism\"")
+        if args.int8:
+            raise ValueError("--int8 and --model_parallel are mutually exclusive")
+        tp.check_layout(args.n_head, args.n_embd, args.model_parallel)
+    group = mesh.init_distributed(args.device, world_of_one=args.distributed)
+    grid = mesh.grid(args.model_parallel) if group is not None else None
+    if grid is None and args.model_parallel > 1:
+        raise ValueError(f"--model_parallel {args.model_parallel} needs that many processes")
+    row, rows = (grid.data_rank, grid.data_size) if grid else (0, 1)
+    writer = grid is None or grid.inner_rank == 0
     if args.class_cond:
         args.inference_type = "class"
     if args.data_dir:
@@ -154,9 +172,15 @@ def main(argv=None) -> int:
     os.makedirs(args.save, exist_ok=True)
 
     if args.inference_type == "frame_prediction":
-        done = _frame_prediction(args, n2n, tok)
+        done = _frame_prediction(args, n2n, tok, args.seed + mesh.rank())
         print(f"frame-predicted {done} clips to {args.save}")
         return done
+
+    graphs = True
+    if args.model_parallel > 1:
+        tp.shard_gpt(n2n.gpt, grid.inner)
+        # gloo's collectives cannot be captured in a CUDA graph; NCCL's can
+        graphs = torch.distributed.get_backend(grid.inner) != "gloo"
 
     hw, lt = tok.cfg.latent_hw, tok.cfg.latent_t
     is_image = args.sequence_length == 1
@@ -164,10 +188,11 @@ def main(argv=None) -> int:
     sampler = n2n.make_class_conditional_sampler(
         steps, temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         cfg_ratio=args.cfg_ratio, use_cfg=args.starts_with_sos,
-        scale_cfg=not args.no_scale_cfg, bucket=args.decode_bucket or None, int8=args.int8)
-    # one process: rank 0 of 1 takes every class
-    classes = np.arange(args.class_cond_dim)
-    gen = torch.Generator(n2n.device).manual_seed(args.seed)
+        scale_cfg=not args.no_scale_cfg, bucket=args.decode_bucket or None, int8=args.int8,
+        cuda_graphs=graphs)
+    # the JAX CLI's split: data row r of R takes classes r, r + R, ...
+    classes = np.arange(args.class_cond_dim)[row::rows]
+    gen = torch.Generator(n2n.device).manual_seed(args.seed + row)
     done = 0
     n_total = min(args.n_sample, len(classes))
     for start in range(0, n_total, 8):
@@ -175,7 +200,8 @@ def main(argv=None) -> int:
         ids = sampler(torch.as_tensor(cls), gen)
         pixels = n2n.decode_to_pixels(ids, is_image=is_image).float().cpu().numpy()
         for i, c in enumerate(cls):
-            _save_class(args, pixels[i], int(c), is_image)
+            if writer:
+                _save_class(args, pixels[i], int(c), is_image)
             done += 1
     print(f"generated {done} samples to {args.save}")
     return done

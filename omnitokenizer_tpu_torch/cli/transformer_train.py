@@ -11,9 +11,14 @@ checkpoints with auto-resume.
 .msgpack (with its .cfg.json sidecar). Checkpoints land in
 <default_root_dir>/checkpoints/step_*.pt (the GPT's state_dict, the
 optimizer state, the step) every 3000 steps and at the end; a run resumes
-from the newest. One process on one device (the card unless
---device cpu). Not ported, and refused: --pipeline_stages and
---model_parallel above 1 (ROADMAP.md, "Parallelism"), and text and stft
+from the newest, written by rank 0 alone and holding the full model
+(training/lm_loop.py), so a run resumes under any layout. The card unless
+--device cpu. On N processes (torchrun, or OMNITOK_COORD / OMNITOK_NPROCS /
+OMNITOK_PROC_ID; parallel/mesh.py) the run is data-parallel, each process
+loading its strided share of the batches; --model_parallel M puts M ranks
+on a tensor-parallel group (parallel/tp.py) and --pipeline_stages S makes
+S ranks a GPipe pipeline of --microbatches microbatches (parallel/pp.py),
+the data axis taking the rest. Not ported, and refused: text and stft
 conditioning (ROADMAP.md, "The remaining host pieces").
 """
 
@@ -58,11 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--base_lr", type=float, default=4.5e-6)
     p.add_argument("--weight_decay", type=float, default=0.01)
     p.add_argument("--pipeline_stages", type=int, default=1,
-                   help="GPipe pipeline stages; not ported (only 1)")
+                   help="GPipe pipeline stages (ranks of one pipeline)")
     p.add_argument("--microbatches", type=int, default=2,
                    help="GPipe microbatches a step; read only with --pipeline_stages")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor-parallel size; not ported (only 1)")
+                   help="tensor-parallel size (ranks of one Megatron group)")
     return p
 
 
@@ -99,26 +104,37 @@ def build_model(args):
 
 def main(argv=None):
     from ..data.loader import VideoData
-    from ..training.lm_loop import make_lm_optimizer, train_lm
+    from ..parallel import mesh, tp
+    from ..training.lm_loop import make_lm_optimizer, setup_parallel, train_lm
 
     args = A.normalize_precision(build_parser().parse_args(argv))
-    if args.pipeline_stages > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "--pipeline_stages / --model_parallel > 1 are not ported (ROADMAP.md, "
-            "\"Parallelism\"); the port trains in one process on one device")
+    if args.pipeline_stages > 1 and args.model_parallel > 1:
+        raise ValueError("--pipeline_stages and --model_parallel are mutually exclusive")
+    if args.model_parallel > 1:
+        tp.check_layout(args.n_head, args.n_embd, args.model_parallel)
+    if args.pipeline_stages > 1 and args.n_layer % args.pipeline_stages:
+        raise ValueError("n_layer must divide by --pipeline_stages")
     if args.cond_stage_key in ("text", "stft"):
         raise NotImplementedError(
             f"--cond_stage_key {args.cond_stage_key} needs the text/stft datasets, not ported "
             "(ROADMAP.md, \"The remaining host pieces\")")
     torch.backends.cuda.matmul.allow_tf32 = False
+    inner = max(args.model_parallel, args.pipeline_stages)
+    mesh.init_distributed(args.device)
+    if mesh.world() % inner:
+        raise ValueError(f"{mesh.world()} processes do not divide into groups of {inner} "
+                         "(--model_parallel / --pipeline_stages)")
     n2n = build_model(args)
     opt = make_lm_optimizer(n2n.gpt, lr=args.lr, max_steps=args.max_steps,
                             warmup_steps=args.warmup_steps, warmup_lr_init=args.warmup_lr_init,
                             lr_min=args.lr_min, grad_clip_val=args.grad_clip_val,
                             weight_decay=args.weight_decay, accumulates=args.grad_accumulates)
-    loader = VideoData(args, train=True)
+    par = setup_parallel(n2n, opt, args.model_parallel, args.pipeline_stages, args.microbatches)
+    # a data row's ranks read the same batches; the rows stride the stream
+    loader = VideoData(args, train=True, process_index=par.data_rank,
+                       process_count=par.data_size)
     return train_lm(n2n, opt, iter(loader), args.default_root_dir, args.max_steps,
-                    seed=args.seed)
+                    seed=args.seed, par=par)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,13 @@ resumes from the newest, and `vqgan_eval --vqgan_ckpt` reads them.
 `--pretrained` takes a reference Lightning `.ckpt`, a port `.pt` or a JAX
 package `.msgpack`; with `--use_vae --kl_weight 1e-6 --init_vgen keep
 --init_vdis keep` from a VQ stage it is the recipe's stage 3
-(scripts/recons/train.sh), the VAE finetune. One
-process on one device (the card unless --device cpu); data parallelism is
-not ported (ROADMAP.md).
+(scripts/recons/train.sh), the VAE finetune. The card unless --device
+cpu. On N processes (torchrun, or OMNITOK_COORD / OMNITOK_NPROCS /
+OMNITOK_PROC_ID; parallel/mesh.py) the run is data-parallel, as the
+reference's DDP and the JAX CLI's ('data',) mesh: each process loads
+--batch_size clips of its strided share of the data, the step is the
+one-process step on the N processes' batches together
+(training/trainer.py), and rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -34,16 +38,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from ..data.loader import VideoData
+    from ..parallel import mesh
     from ..training.loop import train_tokenizer
     from ..training.trainer import TokenizerTrainer
     from ..utils.inflate import load_pretrained_into_state
 
     args = A.normalize_precision(build_parser().parse_args(argv))
+    mesh.init_distributed(args.device)
     trainer = TokenizerTrainer(A.tokenizer_config_from(args), A.loss_config_from(args),
-                               A.train_config_from(args), device=args.device)
-    loader = VideoData(args, train=True)
+                               A.train_config_from(args), device=args.device,
+                               group=mesh.world_group())
+    rank, world = mesh.rank(), mesh.world()
+    loader = VideoData(args, train=True, process_index=rank, process_count=world)
     try:
-        val_loader = VideoData(args, train=False)
+        val_loader = VideoData(args, train=False, process_index=rank, process_count=world)
     except (ValueError, OSError) as e:
         print(f"no validation loader ({e}); skipping val passes")
         val_loader = None

@@ -210,11 +210,13 @@ class CnnVQGAN(nn.Module):
         return self.decode_latent(self.codebook.lookup(encodings))
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(x_recon, the codebook's dict); training=True advances the
-        codebook, drawing its init and restart rows from `generator`."""
-        vq = self.codebook(self.encode_latent(x), training=training, generator=generator)
+        codebook, drawing its init and restart rows from `generator`, over
+        every rank's rows given a process `group` (JAX threads `axis_name`)."""
+        vq = self.codebook(self.encode_latent(x), training=training, generator=generator,
+                           group=group)
         return self.decode_latent(vq["embeddings"]), vq
 
 

@@ -15,6 +15,12 @@ running statistics, eps 1e-5, and the running variance from the biased
 batch variance E[x^2] - E[x]^2. A train-mode call normalizes with the
 batch's statistics and writes the running ones only when `update_stats`
 is set (the trainer's discriminator pass, not its generator pass).
+
+Given a process group (data parallelism), a train-mode BatchNorm takes the
+statistics of the global batch, each rank's means all-reduced with their
+gradient (the reference's SyncBatchNorm; the JAX BatchNorm under GSPMD),
+and `ApplyNoise` draws this rank's rows of one draw for the global batch.
+Eval mode and GroupNorm are per-sample and unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh
 
 
 def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -37,9 +45,9 @@ def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
 class BatchNorm(nn.Module):
     """flax BatchNorm over the channel axis 1 of a channels-first tensor."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5, group=None):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.group = momentum, eps, group
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -50,7 +58,13 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             dims = [0] + list(range(2, x.ndim))
-            mean, var = _stats(x, dims)
+            # E[x] and E[x^2]; with a group, the global batch's from equal per-rank batches
+            # (one graph either way: a world of one computes the ungrouped step's bits)
+            x32 = x.float()
+            moments = mesh.mean_over(torch.stack([x32.mean(dims), (x32 * x32).mean(dims)]),
+                                     self.group)
+            mean = moments[0].view(shape)
+            var = (moments[1].view(shape) - mean * mean).clamp_min(0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -84,9 +98,10 @@ class GroupNorm(nn.Module):
 class Normalize(nn.Module):
     """GroupNorm(32, eps=1e-6) or BatchNorm (flax semantics) as `norm`."""
 
-    def __init__(self, channels: int, norm_type: str = "group"):
+    def __init__(self, channels: int, norm_type: str = "group", group=None):
         super().__init__()
-        self.norm = GroupNorm(channels) if norm_type == "group" else BatchNorm(channels)
+        self.norm = (GroupNorm(channels) if norm_type == "group"
+                     else BatchNorm(channels, group=group))
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False) -> torch.Tensor:
@@ -97,14 +112,17 @@ class ApplyNoise(nn.Module):
     """x + weight * noise, one N(0, 1) draw a position shared across the
     channels (channels-last x); the identity without a generator."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, group=None):
         super().__init__()
+        self.group = group
         self.weight = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if generator is None:
             return x
-        noise = torch.randn(x.shape[:-1] + (1,), generator=generator, device=x.device)
+        noise = mesh.draw_rows(lambda shape: torch.randn(shape, generator=generator,
+                                                         device=x.device),
+                               x.shape[:-1] + (1,), self.group)
         return x + self.weight * noise.to(x.dtype)
 
 
@@ -125,22 +143,22 @@ class _PatchGAN(nn.Module):
     def __init__(self, input_nc: int = 3, ndf: int = 64, n_layers: int = 3,
                  norm_type: str = "batch", use_sigmoid: bool = False,
                  activation: str = "leaky_relu", apply_noise: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, group=None):
         super().__init__()
         conv_cls = self.conv_module
         self.n_layers, self.use_sigmoid, self.dtype = n_layers, use_sigmoid, dtype
         self.act = _act(activation)
         if apply_noise:
-            self.noise = ApplyNoise(input_nc)
+            self.noise = ApplyNoise(input_nc, group)
         self.model0_conv = conv_cls(input_nc, ndf, 4)
         nf = ndf
         for n in range(1, n_layers + 1):
             nf_prev, nf = nf, min(nf * 2, 512)
             self.add_module(f"model{n}_conv", conv_cls(nf_prev, nf, 4))
-            self.add_module(f"model{n}_norm", Normalize(nf, norm_type))
+            self.add_module(f"model{n}_norm", Normalize(nf, norm_type, group))
         self.add_module(f"model{n_layers + 1}_conv", conv_cls(nf, 1, 4))
         if self.last_norm:
-            self.add_module(f"model{n_layers + 1}_norm", Normalize(1, norm_type))
+            self.add_module(f"model{n_layers + 1}_norm", Normalize(1, norm_type, group))
 
     def _conv(self, n: int, h: torch.Tensor, stride: int) -> torch.Tensor:
         layer = getattr(self, f"model{n}_conv")

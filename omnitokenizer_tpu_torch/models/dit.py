@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 @dataclass(frozen=True)
 class DiTConfig:
@@ -138,7 +140,8 @@ class TimestepEmbedder(nn.Module):
 class LabelEmbedder(nn.Module):
     """Class id -> vector; the null class (num_classes) stands for a dropped
     label, forced by `force_drop_ids == 1` or drawn with probability
-    dropout_prob from `generator` in training."""
+    dropout_prob from `generator` in training (given a process group, this
+    rank's rows of one draw for the global batch)."""
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float):
         super().__init__()
@@ -147,12 +150,13 @@ class LabelEmbedder(nn.Module):
 
     def forward(self, labels: torch.Tensor, dtype: torch.dtype, train: bool = False,
                 force_drop_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, group=None) -> torch.Tensor:
         if force_drop_ids is not None:
             labels = torch.where(force_drop_ids == 1, self.num_classes, labels)
         elif train and self.dropout_prob > 0:
-            drop = torch.rand(labels.shape, generator=generator,
-                              device=labels.device) < self.dropout_prob
+            drop = mesh.draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                           device=labels.device),
+                                  labels.shape, group) < self.dropout_prob
             labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table.weight.to(dtype)[labels]
 
@@ -257,7 +261,7 @@ class DiT(DiffusionTransformer):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None,
                 train: bool = False, force_drop_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, group=None) -> torch.Tensor:
         cfg, dt = self.cfg, self.cfg.dtype
         if tuple(x.shape[1:]) != (cfg.in_channels, cfg.input_size, cfg.input_size):
             raise ValueError(f"expected (B, {cfg.in_channels}, {cfg.input_size}, "
@@ -265,7 +269,7 @@ class DiT(DiffusionTransformer):
         h = self.x_embedder(x, dt) + self.pos_embed.to(dt)
         c = self.t_embedder(t, dt)
         if y is not None and self.y_embedder is not None:
-            c = c + self.y_embedder(y, dt, train, force_drop_ids, generator)
+            c = c + self.y_embedder(y, dt, train, force_drop_ids, generator, group)
         for block in self.blocks:
             h = block(h, c, dt)
         return self._final(h, c)

@@ -31,6 +31,15 @@ kernels (ops/kernels/flash_attn.py), as the JAX package's is the stock TPU
 flash kernel behind the same gate (`_flash_ok`); elsewhere it materializes
 the (B, H, T, T) f32 scores. Serving's cached calls keep the plain math.
 
+Tensor parallelism (parallel/tp.py, the JAX Megatron layout): after
+`tp.shard_gpt(gpt, group)` a rank holds its shards and the forwards say
+the collectives: the column-parallel inputs pass `mesh.copy_to` (their
+gradient summed over the group), the row-parallel partial products are
+summed by `mesh.reduce_from` before their bias, and the C-split embedding
+and the vocabulary-split head gather their outputs. A rank's attention
+runs its n_head / tp heads (through the flash kernels behind `_flash_ok`
+in training), and its KV caches hold those heads.
+
 Sampling is Gumbel-max, as jax.random.categorical is, with the noise drawn
 from the caller's torch.Generator outside the graphs, in chunks: the same
 distribution as the JAX samplers, not the same draws. The eager loop and
@@ -49,6 +58,7 @@ from torch import nn
 from ..config import GPTConfig
 from ..ops.int8 import int8_matmul
 from ..ops.kernels import flash_attn
+from ..parallel import mesh
 
 NEG_INF = -1e9
 NOISE_CHUNK = 64  # decode steps of Gumbel noise drawn at a time
@@ -91,6 +101,7 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.prefix = f"blocks.{index}."
+        self.tp = None  # the tensor-parallel group (parallel/tp.py)
         C = cfg.n_embd
         self.ln1 = nn.LayerNorm(C, eps=1e-5)
         self.ln2 = nn.LayerNorm(C, eps=1e-5)
@@ -105,6 +116,14 @@ class TransformerBlock(nn.Module):
         if qw is not None:
             return (int8_matmul(x, qw.q, qw.s) + qw.b).to(dt)
         return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+    def _row_dense(self, name: str, lin: nn.Linear, x: torch.Tensor, quant) -> torch.Tensor:
+        """A row-parallel Linear under tensor parallelism: the partial
+        products summed over the group, then the (replicated) bias once."""
+        if self.tp is None:
+            return self._dense(name, lin, x, quant)
+        dt = self.cfg.dtype
+        return mesh.reduce_from(F.linear(x, lin.weight.to(dt)), self.tp) + lin.bias.to(dt)
 
     def _norm(self, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
@@ -121,10 +140,10 @@ class TransformerBlock(nn.Module):
         values in place at `slots` (T,) and attends cache[:, :, :kv_window]."""
         cfg = self.cfg
         B, T, C = x.shape
-        H = cfg.n_head
-        hd = C // H
+        hd = C // cfg.n_head
         a = self.attn
-        h = self._norm(self.ln1, x)
+        H = a.query.weight.shape[0] // hd  # this rank's heads
+        h = mesh.copy_to(self._norm(self.ln1, x), self.tp)
         q, k, v = (self._dense("attn." + n, getattr(a, n), h, quant).view(B, T, H, hd)
                    .transpose(1, 2) for n in ("query", "key", "value"))
         if cache is not None:
@@ -142,10 +161,11 @@ class TransformerBlock(nn.Module):
             sim = torch.matmul(q, k.transpose(-1, -2)).float() * scale
             attn = torch.softmax(sim.masked_fill(hidden, NEG_INF), dim=-1).to(cfg.dtype)
             y = torch.matmul(attn, v)
-        y = y.transpose(1, 2).reshape(B, T, C)
-        x = x + self._dense("attn.proj", a.proj, y, quant)
-        h = self._dense("mlp.0", self.mlp[0], self._norm(self.ln2, x), quant)
-        return x + self._dense("mlp.2", self.mlp[2], F.gelu(h), quant)
+        y = y.transpose(1, 2).reshape(B, T, H * hd)
+        x = x + self._row_dense("attn.proj", a.proj, y, quant)
+        h = self._dense("mlp.0", self.mlp[0], mesh.copy_to(self._norm(self.ln2, x), self.tp),
+                        quant)
+        return x + self._row_dense("mlp.2", self.mlp[2], F.gelu(h), quant)
 
 
 class GPT(nn.Module):
@@ -167,6 +187,24 @@ class GPT(nn.Module):
         self.blocks = nn.ModuleList(TransformerBlock(cfg, i) for i in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(C, eps=1e-5)
         self.head = nn.Linear(C, cfg.vocab_size, bias=False)
+        self.tp, self.tp_dims = None, None  # set by parallel.tp.shard_gpt
+
+    def set_tensor_parallel(self, group, dims) -> None:
+        """The tensor-parallel group and each parameter's split dimension
+        (parallel.tp.shard_gpt, which cut the parameters)."""
+        self.tp, self.tp_dims = group, dims
+        for block in self.blocks:
+            block.tp = group
+
+    @property
+    def n_local_heads(self) -> int:
+        """The attention heads this rank computes (and caches)."""
+        if not len(self.blocks):
+            return self.cfg.n_head
+        return self.blocks[0].attn.query.weight.shape[0] // (self.cfg.n_embd // self.cfg.n_head)
+
+    def _split(self, name: str) -> bool:
+        return self.tp is not None and self.tp_dims.get(name) is not None
 
     def _vtokens(self, cbox: torch.Tensor) -> torch.Tensor:
         """(B, 4) [y0, y1, x0, x1] boxes -> (B, seq * crop * crop, C) crops of
@@ -199,6 +237,8 @@ class GPT(nn.Module):
         B, T = idx.shape
         dev = idx.device
         x = F.embedding(idx, self.tok_emb.weight.to(dt))
+        if self._split("tok_emb.weight"):  # this rank's slice of C: gather the rest
+            x = mesh.gather_from(x, -1, self.tp)
         if cache is None:
             positions = None
             x = x + self.pos_emb[:, :T].to(dt)
@@ -224,16 +264,19 @@ class GPT(nn.Module):
         qw = quant.get("head") if (cfg.int8_decode and quant) else None
         if qw is not None:
             logits = int8_matmul(x, qw.q, qw.s)
+        elif self._split("head.weight"):  # this rank's slice of the vocabulary
+            logits = mesh.gather_from(F.linear(mesh.copy_to(x, self.tp), self.head.weight.to(dt)),
+                                      -1, self.tp)
         else:
             logits = F.linear(x, self.head.weight.to(dt))
         return logits.float(), cache
 
 
-def init_cache(cfg: GPTConfig, batch: int, device="cuda") -> Cache:
+def init_cache(cfg: GPTConfig, batch: int, device="cuda", heads: Optional[int] = None) -> Cache:
     """Per-layer (k, v), each (B, H, block, hd) in cfg.dtype, written in
-    place by the cached forward."""
+    place by the cached forward; `heads` a tensor-parallel rank's H."""
     hd = cfg.n_embd // cfg.n_head
-    shape = (batch, cfg.n_head, cfg.block_size, hd)
+    shape = (batch, heads or cfg.n_head, cfg.block_size, hd)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
              torch.zeros(shape, dtype=cfg.dtype, device=device)) for _ in range(cfg.n_layer)]
 
@@ -302,6 +345,10 @@ def _cast_params_once(gpt: GPT, cfg: GPTConfig) -> GPT:
         return gpt
     with torch.device("meta"):
         served = GPT(cfg, *gpt.vtokens)
+    if gpt.tp is not None:
+        from ..parallel.tp import shard_gpt
+
+        shard_gpt(served, gpt.tp)
     served.load_state_dict({k: v.to(cfg.dtype) if v.is_floating_point() else v
                             for k, v in gpt.state_dict().items()}, assign=True)
     return served.eval()
@@ -456,7 +503,7 @@ def make_sampler(cfg: GPTConfig, steps: int, temperature: float = 1.0,
         gpt = _cast_params_once(gpt, cfg)
         B, L = cond.shape
         _check_length(L, steps, cfg.block_size)
-        caches = init_cache(cfg, B, cond.device)
+        caches = init_cache(cfg, B, cond.device, gpt.n_local_heads)
         logits, _ = gpt(cond, caches, 0, quant=quant)
 
         def step_logits(tok, i, win):
@@ -509,7 +556,7 @@ def make_cfg_sampler(cfg: GPTConfig, steps: int, temperature: float = 1.0,
         prefix, sos = _class_prefix(cls, class_first)
         L = prefix.shape[1]
         _check_length(L, steps, cfg.block_size)
-        caches = init_cache(cfg, 2 * B, dev)
+        caches = init_cache(cfg, 2 * B, dev, gpt.n_local_heads)
         lc, _ = gpt(prefix, [(k[:B], v[:B]) for k, v in caches], 0, quant=quant)
         lu, _ = gpt(sos, [(k[B:], v[B:]) for k, v in caches], 0, quant=quant)
         blend = _cfg_blend(cfg_ratio, temperature, scale_cfg, dev)
@@ -546,7 +593,8 @@ def make_hardcfg_sampler(cfg: GPTConfig, steps: int, temperature: float = 1.0,
         prefix, sos = _class_prefix(cls, class_first)
         L = prefix.shape[1]
         _check_length(L, steps, cfg.block_size)
-        cc, cu = init_cache(cfg, B, dev), init_cache(cfg, B, dev)
+        cc, cu = (init_cache(cfg, B, dev, gpt.n_local_heads),
+                  init_cache(cfg, B, dev, gpt.n_local_heads))
         lc, _ = gpt(prefix, cc, 0, quant=quant)
         lu, _ = gpt(sos, cu, 0, quant=quant)
         blend = _cfg_blend(cfg_ratio, temperature, True, dev)

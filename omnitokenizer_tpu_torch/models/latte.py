@@ -76,7 +76,7 @@ class Latte(DiffusionTransformer):
                 text_embedding: Optional[torch.Tensor] = None, train: bool = False,
                 force_drop_ids: Optional[torch.Tensor] = None,
                 y_image: Optional[torch.Tensor] = None, use_image_num: int = 0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, group=None) -> torch.Tensor:
         cfg, dt = self.cfg, self.cfg.dtype
         B, Fr, C, H, W = x.shape
         Fv = Fr - use_image_num  # the video frames
@@ -86,10 +86,11 @@ class Latte(DiffusionTransformer):
         t_emb = self.t_embedder(t, dt)  # (B, D)
         cond, cond_spatial = None, None
         if cfg.extras == 2:
-            cond = self.y_embedder(y, dt, train, force_drop_ids, generator)
+            cond = self.y_embedder(y, dt, train, force_drop_ids, generator, group)
             if use_image_num and y_image is not None:
                 # each frame's label: the video's for its Fv frames, then each image's own
-                y_img = self.y_embedder(y_image.reshape(-1), dt, train, force_drop_ids, generator)
+                y_img = self.y_embedder(y_image.reshape(-1), dt, train, force_drop_ids,
+                                        generator, group)
                 cond_spatial = torch.cat([cond[:, None].expand(B, Fv, -1),
                                           y_img.reshape(B, use_image_num, -1)], 1)
                 cond_spatial = cond_spatial.reshape(B * Fr, -1)

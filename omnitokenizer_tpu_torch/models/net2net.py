@@ -137,14 +137,26 @@ class Net2NetTransformer:
         draws given (`draw_pkeep`), each offset id whose `keep` is False is
         replaced by its `rand_ids` entry; as in the JAX loss, the corrupted
         ids are the targets too."""
+        inputs, target, prefix = self.loss_inputs(z_ids, labels, keep, rand_ids)
+        logits, _ = self.gpt(inputs)
+        return self.loss_from_logits(logits, target, prefix)
+
+    def loss_inputs(self, z_ids: torch.Tensor, labels, keep: Optional[torch.Tensor] = None,
+                    rand_ids: Optional[torch.Tensor] = None):
+        """(the GPT's input tokens (B, T), the targets, the prefix length)
+        of loss_fn, the pkeep corruption applied."""
         off = self.z_offset
         z_in = z_ids
         if keep is not None and self.cfg.pkeep < 1.0:
             z_in = torch.where(keep, z_ids.long() + off, rand_ids.long()) - off
         cz, target, prefix = self.build_sequence(z_in, labels)
-        logits, _ = self.gpt(cz[:, :-1])
+        return cz[:, :-1], target, prefix
+
+    def loss_from_logits(self, logits: torch.Tensor, target: torch.Tensor, prefix: int
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """loss_fn's loss and metrics from the GPT's logits (B, T, V)."""
         logits = logits[:, prefix:]
-        target = target.long() + off
+        target = target.long() + self.z_offset
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), target.reshape(-1))
         with torch.no_grad():
             acc1 = (logits.argmax(-1) == target).float().mean() * 100

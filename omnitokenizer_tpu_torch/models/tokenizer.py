@@ -40,6 +40,7 @@ from torch import nn
 from ..config import TokenizerConfig
 from ..ops.attention import Attention, FeedForward, l2norm
 from ..ops.codebook import Codebook
+from ..parallel import mesh
 from ..ops.gaussian import DiagonalGaussian
 from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
@@ -296,12 +297,13 @@ class OmniTokenizerNet(nn.Module):
         return dense(h, self.pre_vq_conv, self.vq_dtype)
 
     def quantize(self, h: torch.Tensor, training: bool = False,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                 generator: Optional[torch.Generator] = None,
+                 group=None) -> Dict[str, torch.Tensor]:
         """training=True advances the codebook (its init and restart rows
-        drawn from `generator`)."""
+        drawn from `generator`; over every rank's rows given a `group`)."""
         if self.cfg.l2_code:
             h = l2norm(h)
-        return self.codebook(h, training=training, generator=generator)
+        return self.codebook(h, training=training, generator=generator, group=group)
 
     def decode_latent(self, z: torch.Tensor, is_image: bool,
                       training: bool = False) -> torch.Tensor:
@@ -339,24 +341,29 @@ class OmniTokenizerNet(nn.Module):
 
     def forward(self, x: torch.Tensor, is_image: bool, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None
+                noise: Optional[torch.Tensor] = None, group=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full autoencode pass; returns (x_recon, aux dict). VAE mode
         decodes a sample when given the N(0, 1) `noise` (the latents' shape)
         or a generator to draw it from, else the mode, and returns
         dict(commitment_loss, kl_loss, posterior), both losses
         sum(kl) / B * kl_weight. VQ mode with training=True advances the
-        codebook, drawing its random rows from `generator`."""
+        codebook, drawing its random rows from `generator`. Given a process
+        group (data parallelism), the codebook's statistics are the group's
+        and a posterior draw is this rank's rows of one draw for the group."""
         h = self.encode_latent(x, is_image, training=training)
         if self.cfg.use_vae:
             posterior = DiagonalGaussian.from_params(h)
+            if noise is None and generator is not None and group is not None:
+                noise = mesh.draw_rows(lambda shape: torch.randn(
+                    shape, generator=generator, device=h.device), posterior.mean.shape, group)
             z = (posterior.mode() if generator is None and noise is None
                  else posterior.sample(generator, noise))
             recon = self.decode_latent(z, is_image, training=training)
             kl = posterior.kl()
             kl_loss = kl.sum() / kl.shape[0] * self.cfg.kl_weight
             return recon, dict(commitment_loss=kl_loss, kl_loss=kl_loss, posterior=posterior)
-        vq = self.quantize(h, training=training, generator=generator)
+        vq = self.quantize(h, training=training, generator=generator, group=group)
         return self.decode_latent(vq["embeddings"], is_image, training=training), vq
 
 

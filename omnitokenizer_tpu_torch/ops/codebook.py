@@ -7,8 +7,19 @@ the data-dependent init from the first training batch (gated on
 `initialized`), the EMA of the code counts `N` and sums `z_avg` with
 decay 0.99, the Laplace-smoothed weight normalization, the optional random
 restart of dead codes, and the usage EMA (its first call takes the batch's
-usage). Counts and sums are scatter-adds (`index_add_`), no one-hot.
-Random rows come from the caller's `torch.Generator`.
+usage). Counts are an integer histogram and the code sums a sorted
+accumulation (`code_sums`): no one-hot, and no float atomics, so a card
+run is deterministic. Random rows come from the
+caller's `torch.Generator`.
+
+Data parallelism (the JAX `axis_name` path, ops/codebook.py:124-220): a
+training call given a process group holds this rank's rows; the counts
+and sums are all-reduced, the usage and perplexity come from the global
+counts, the commitment loss is the global mean, and the init and restart
+rows are drawn from every rank's rows gathered in rank order with the
+generator every rank shares, so N ranks hold the codebook one call on the
+concatenated rows would. `vq_argmin_sharded` searches a table split over
+a group (JAX `make_vq_argmin_sharded`).
 """
 
 from __future__ import annotations
@@ -18,7 +29,37 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .kernels.vq_argmin import vq_argmin
+
+
+def code_sums(idx: torch.Tensor, rows: torch.Tensor, n_codes: int) -> torch.Tensor:
+    """(n_codes, D) f32 sums of `rows` by code `idx`, without float atomics.
+    On the card an accumulating index_put_: it sorts the indices and sums
+    each code's rows in their order (two runs bit-equal, chip_smoke.py phase
+    16a), where index_add_ adds with atomics in any order. On the CPU
+    index_add_, which adds in row order."""
+    out = torch.zeros(n_codes, rows.shape[1], device=rows.device)
+    if rows.is_cuda:
+        return out.index_put_((idx,), rows.float(), accumulate=True)
+    return out.index_add_(0, idx, rows.float())
+
+
+def vq_argmin_sharded(flat: torch.Tensor, emb_shard: torch.Tensor, group) -> torch.Tensor:
+    """Nearest-code indices with the code table split over `group` (JAX
+    ops/codebook.py:54-79): rank r holds codes r*K/S .. (r+1)*K/S - 1 and
+    scans them as a plain product (||e||^2 - 2 x.e, the row term left out
+    as vq_argmin leaves it), then an all-gather of the per-slab (min
+    distance, global index) pairs picks the winner, ties to the lowest
+    index. `flat` (M, D) is the same on every rank; returns (M,) int32."""
+    x, e = flat.float(), emb_shard.float()
+    d = (e * e).sum(1)[None, :] - 2.0 * (x @ e.t())
+    ld, li = torch.min(d, dim=1)  # the first minimum: the lowest index in the slab
+    gi = li.to(torch.int32) + mesh.rank_in(group) * e.shape[0]
+    lds = torch.stack(mesh.all_gather(ld.contiguous(), group))  # (S, M)
+    gis = torch.stack(mesh.all_gather(gi.contiguous(), group))
+    win = torch.argmin(lds, dim=0)  # the lowest slab among equal minima
+    return torch.gather(gis, 0, win[None, :])[0]
 
 
 def tile_to_codes(flat: torch.Tensor, n_codes: int,
@@ -56,17 +97,23 @@ class Codebook(nn.Module):
         return self.embeddings[encodings.long()]
 
     def forward(self, z: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                group=None) -> Dict[str, torch.Tensor]:
         """z (B, T, H, W, D) channels-last latents -> dict(embeddings,
         encodings, commitment_loss, perplexity, avg_usage, batch_usage).
         training=True searches the (initialized) codes and then advances
-        the buffers; `generator` draws the init and restart rows."""
+        the buffers; `generator` draws the init and restart rows; `group`
+        makes the statistics and the advance those of every rank's rows."""
         bshape = z.shape[:-1]
         flat = z.reshape(-1, self.embedding_dim).float()
         emb = self.embeddings
+        if not training:
+            group = None
+        all_rows = None
         if training:
             # the first training batch initializes the codes from its rows
-            cand = tile_to_codes(flat.detach(), self.n_codes, generator)
+            all_rows = torch.cat(mesh.all_gather(flat.detach(), group)) if group else flat.detach()
+            cand = tile_to_codes(all_rows, self.n_codes, generator)
             fresh = self.initialized == 0
             emb = torch.where(fresh, cand, emb)
             z_avg = torch.where(fresh, cand, self.z_avg)
@@ -77,17 +124,16 @@ class Codebook(nn.Module):
         quantized = emb[idx].reshape(z.shape).float()
 
         z32 = z.float()
-        commitment_loss = 0.25 * (z32 - quantized).square().mean()
-        counts = torch.zeros(self.n_codes, device=z.device).index_add_(
-            0, idx, torch.ones_like(idx, dtype=torch.float32))
-        avg_probs = counts / indices.shape[0]
+        commitment_loss = mesh.mean_over(0.25 * (z32 - quantized).square().mean(), group)
+        counts = mesh.all_reduce_(torch.bincount(idx, minlength=self.n_codes).float(), group)
+        avg_probs = counts / (indices.shape[0] * mesh.size_of(group))
         perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
 
         usage = self.codebook_usage
         if training:
             with torch.no_grad():
                 usage = self._advance(flat.detach(), idx, counts, avg_probs, n_state, z_avg,
-                                      generator)
+                                      generator, group, all_rows)
         avg_usage = (usage > 1.0 / self.n_codes).float().mean()
         # straight-through form, kept for its rounding: z + (q - z)
         embeddings_st = z32 + (quantized - z32).detach()
@@ -100,18 +146,18 @@ class Codebook(nn.Module):
             batch_usage=avg_probs,
         )
 
-    def _advance(self, flat, idx, counts, batch_usage, n_state, z_avg, generator) -> torch.Tensor:
+    def _advance(self, flat, idx, counts, batch_usage, n_state, z_avg, generator, group,
+                 all_rows) -> torch.Tensor:
         """The EMA step, written into the buffers; returns the new usage."""
         decay = self.DECAY
-        encode_sum = torch.zeros(self.n_codes, self.embedding_dim,
-                                 device=flat.device).index_add_(0, idx, flat)
+        encode_sum = mesh.all_reduce_(code_sums(idx, flat, self.n_codes), group)
         new_n = n_state * decay + counts * (1.0 - decay)
         new_z_avg = z_avg * decay + encode_sum * (1.0 - decay)
         n = new_n.sum()
         weights = (new_n + 1e-7) / (n + self.n_codes * 1e-7) * n
         new_emb = new_z_avg / weights[:, None]
         if not self.no_random_restart:
-            k_rand = tile_to_codes(flat, self.n_codes, generator)
+            k_rand = tile_to_codes(all_rows, self.n_codes, generator)
             live = (new_n[:, None] >= self.restart_thres).float()
             new_emb = new_emb * live + k_rand * (1.0 - live)
         sigma = self.USAGE_SIGMA

@@ -14,6 +14,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel import mesh
+
 
 def _extent(size: int, ratio: float) -> int:
     return int(size * ratio + 0.5)
@@ -68,13 +70,18 @@ def apply_augment(x: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tens
     return x * (1.0 - (inx & iny).to(x.dtype))[..., None]
 
 
-def diff_augment(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Augment frames (B, H, W, C) with draws from `generator`."""
+def diff_augment(x: torch.Tensor, generator: Optional[torch.Generator],
+                 group=None) -> torch.Tensor:
+    """Augment frames (B, H, W, C) with draws from `generator`; given a
+    process group, this rank's rows of the draws for the global batch."""
     B, H, W, _ = x.shape
-    return apply_augment(x, augment_draws(B, H, W, generator, x.device))
+    n = mesh.size_of(group)
+    draws = augment_draws(B * n, H, W, generator, x.device)
+    return apply_augment(x, {k: mesh.rank_rows(v, group) for k, v in draws.items()})
 
 
-def diff_augment_video(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+def diff_augment_video(x: torch.Tensor, generator: Optional[torch.Generator],
+                       group=None) -> torch.Tensor:
     """(B, T, H, W, C): every frame augmented on its own, as (B*T) images."""
     B, T, H, W, C = x.shape
-    return diff_augment(x.reshape(B * T, H, W, C), generator).reshape(B, T, H, W, C)
+    return diff_augment(x.reshape(B * T, H, W, C), generator, group).reshape(B, T, H, W, C)

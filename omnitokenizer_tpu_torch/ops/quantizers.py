@@ -22,6 +22,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
+from .codebook import code_sums
+
 
 def _st(raw: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
     """The straight-through estimator: raw's gradient, quantized's value."""
@@ -35,11 +38,7 @@ def _l2norm(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def _all_reduce(t: torch.Tensor, group: Any) -> torch.Tensor:
-    if group is not None:
-        import torch.distributed as dist
-
-        dist.all_reduce(t, group=group)
-    return t
+    return mesh.all_reduce_(t, group)
 
 
 # -- FSQ ------------------------------------------------------------------------------------
@@ -237,9 +236,10 @@ class VectorQuantize:
         new_state = state
         if training:
             with torch.no_grad():
-                counts = _all_reduce(torch.zeros(self.codebook_size, device=z.device).index_add_(
-                    0, indices, torch.ones_like(indices, dtype=torch.float32)), group)
-                sums = _all_reduce(torch.zeros_like(embed).index_add_(0, indices, flat_n), group)
+                # no float atomics: the sums are deterministic on the card too
+                counts = _all_reduce(torch.bincount(indices, minlength=self.codebook_size)
+                                     .float(), group)
+                sums = _all_reduce(code_sums(indices, flat_n, self.codebook_size), group)
                 cs = state.cluster_size * self.decay + counts * (1 - self.decay)
                 ea = state.embed_avg * self.decay + sums * (1 - self.decay)
                 n = cs.sum()

@@ -1,0 +1,138 @@
+"""Megatron tensor parallelism of the GPT (mirror of
+`omnitokenizer_tpu.parallel.tp`, its :39-100), on the port's torch names.
+
+The JAX package declares PartitionSpecs and lets GSPMD insert the
+collectives; here each rank of a tensor-parallel group holds its shards
+and `models/gpt.py` says the collectives (`parallel.mesh` copy_to /
+reduce_from / gather_from):
+
+  * attn.query/key/value and mlp.0 are column-parallel: their weights'
+    output rows (and their biases) are split, so a rank computes its
+    n_head / tp heads and its 4 C / tp hidden units;
+  * attn.proj and mlp.2 are row-parallel: their weights' input columns are
+    split, the partial products are all-reduced and the bias (replicated)
+    is added once, after the sum;
+  * tok_emb is split on C (its lookups are gathered), the head on the
+    vocabulary (the logits are gathered);
+  * everything else is replicated, and so is any of the above whose split
+    dimension does not divide by the group's size (`shard_params`'s
+    fallback: the canonical odd vocabulary 9193 keeps a replicated head).
+
+The activations between the blocks are replicated, so every rank computes
+the same loss, and a replicated parameter's gradient is the same on every
+rank. The optimizer's moments are zeros like the local shards (the
+optimizer's init over this rank's parameters, as JAX's `sharded_opt_init`
+inherits the params' shardings), and the clip's global norm counts a
+sharded gradient's squares over the group and a replicated one's once
+(`global_norm`). `shard_state_dict` cuts a full state_dict (a checkpoint,
+or `convert.gpt_state_dict_from_jax`'s carry-over) to a rank's shards;
+`gather_state_dict` puts the shards back together for a checkpoint.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from . import mesh
+
+# the column-parallel weights and biases (their output dimension, torch's dim 0)
+_COL_PARALLEL = re.compile(r"(attn\.(query|key|value)|mlp\.0)\.(weight|bias)$")
+# the row-parallel weights (their input dimension, torch's dim 1); their biases replicate
+_ROW_PARALLEL = re.compile(r"(attn\.proj|mlp\.2)\.weight$")
+
+
+def gpt_param_dims(shapes: Dict[str, torch.Size], n: int) -> Dict[str, Optional[int]]:
+    """The dimension each GPT tensor is split on over n ranks (None:
+    replicated), the JAX `gpt_param_specs` in torch's (out, in) layout,
+    with `shard_params`'s fallback where a dimension does not divide."""
+    dims = {}
+    for name, shape in shapes.items():
+        d = None
+        if _COL_PARALLEL.search(name):
+            d = 0
+        elif _ROW_PARALLEL.search(name):
+            d = 1
+        elif name == "tok_emb.weight":  # (V, C): split on C
+            d = 1
+        elif name == "head.weight":  # (V, C): split on the vocabulary
+            d = 0
+        if d is not None and shape[d] % n:
+            d = None
+        dims[name] = d
+    return dims
+
+
+def _shard(t: torch.Tensor, dim: Optional[int], rank: int, n: int) -> torch.Tensor:
+    if dim is None or n == 1:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, rank * size, size)
+
+
+def check_layout(n_head: int, n_embd: int, n: int) -> None:
+    """The JAX CLI's checks: head-aligned shards, n_embd and 4 n_embd divide."""
+    if n_head % n:
+        raise ValueError(f"n_head {n_head} must divide by --model_parallel {n} "
+                         "(head-aligned tensor-parallel shards)")
+    if n_embd % n or (4 * n_embd) % n:
+        raise ValueError(f"n_embd {n_embd} and 4*n_embd must divide by --model_parallel {n}")
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], rank: int, n: int) -> Dict[str, torch.Tensor]:
+    """A full GPT state_dict -> rank `rank`'s shards of it (copies)."""
+    dims = gpt_param_dims({k: v.shape for k, v in sd.items()}, n)
+    return {k: _shard(v, dims[k], rank, n).clone() for k, v in sd.items()}
+
+
+def shard_gpt(gpt: nn.Module, group: Any) -> nn.Module:
+    """Cut a full GPT's parameters to this rank's shards, in place (on any
+    device, the meta device too), and wire the group into its forward.
+    A group of one leaves the GPT as it is."""
+    n, r = mesh.size_of(group), mesh.rank_in(group)
+    if n == 1:
+        return gpt
+    cfg = gpt.cfg
+    check_layout(cfg.n_head, cfg.n_embd, n)
+    if cfg.int8_decode:
+        raise ValueError("int8 decode and tensor parallelism are mutually exclusive")
+    dims = gpt_param_dims({k: p.shape for k, p in gpt.named_parameters()}, n)
+    for name, p in list(gpt.named_parameters()):
+        if dims[name] is None:
+            continue
+        owner = gpt.get_submodule(name.rsplit(".", 1)[0]) if "." in name else gpt
+        leaf = name.rsplit(".", 1)[-1]
+        with torch.no_grad():
+            setattr(owner, leaf, nn.Parameter(_shard(p.detach(), dims[name], r, n).clone(),
+                                              requires_grad=p.requires_grad))
+    gpt.set_tensor_parallel(group, dims)
+    return gpt
+
+
+def sharded_mask(gpt: nn.Module) -> List[bool]:
+    """Whether each parameter (in gpt.parameters() order) is split."""
+    dims = getattr(gpt, "tp_dims", None) or {}
+    return [dims.get(n) is not None for n, _ in gpt.named_parameters()]
+
+
+def global_norm(grads: List[torch.Tensor], mask: List[bool], group: Any) -> torch.Tensor:
+    """The global norm of the whole (unsharded) gradient: the split
+    gradients' squares summed over the group, the replicated ones' once."""
+    sq = torch.stack([g.float().square().sum() for g in grads])
+    m = torch.tensor(mask, device=sq.device)
+    split = mesh.all_reduce_(torch.where(m, sq, torch.zeros_like(sq)).sum(), group)
+    return (split + torch.where(m, torch.zeros_like(sq), sq).sum()).sqrt()
+
+
+def gather_state_dict(tensors: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
+                      group: Any) -> Dict[str, torch.Tensor]:
+    """Every rank's shards of `tensors` (named as in `dims`) put back
+    together along their split dimension; replicated ones as they are."""
+    out = {}
+    for k, v in tensors.items():
+        d = dims.get(k)
+        out[k] = v if d is None else torch.cat(mesh.all_gather(v.detach(), group), dim=d)
+    return out

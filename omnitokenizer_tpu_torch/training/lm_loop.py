@@ -19,6 +19,17 @@ optimizer state and the step; step_N resumes at step N) every `ckpt_every`
 steps and at the end, and resumes from the newest. A resumed run skips the
 batches the steps before it consumed, so a deterministic batch stream gives
 what an unbroken run would.
+
+Parallelism (`LMParallel`, the JAX CLI's --model_parallel and
+--pipeline_stages): the ranks form a (data, model) grid, the model axis a
+tensor-parallel group (parallel/tp.py) or a pipeline's stages
+(parallel/pp.py). A data row's ranks take the same rows; the data rows
+split the global batch, their losses are the global mean and their
+gradients are averaged, and the pkeep draws are a row's rows of the one
+draw for the global batch. The clip's global norm is the whole model's.
+Checkpoints hold the full GPT and the full optimizer state (the shards
+put back together), written by rank 0 alone; every rank reads them and
+takes its shards, so a run resumes under any layout.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch
 
 from ..models.gpt import GPT
 from ..models.net2net import Net2NetTransformer
-from .loop import MetricsLogger, find_latest_checkpoint, save_state
+from ..parallel import mesh, tp
+from ..parallel.pp import PipelineGPT
+from .loop import MetricsLogger, find_latest_checkpoint
 from .trainer import OptaxAdam, OptState, warmup_cosine_decay
 
 STEP_SEED = 1_000_003  # (seed, step) -> the step's generator seed
@@ -82,8 +95,123 @@ class LMTrainState:
         self.step, self.seed = int(sd["step"]), int(sd["seed"])
 
 
+@dataclasses.dataclass
+class LMParallel:
+    """Where this rank sits: its data row (`data` groups the ranks at its
+    model position across rows) and its tensor-parallel group (`model`) or
+    pipeline stage (`pipe`). The default is one process."""
+
+    data: Any = None
+    data_rank: int = 0
+    data_size: int = 1
+    model: Any = None
+    pipe: Optional[PipelineGPT] = None
+
+    def param_names(self, gpt: GPT) -> List[str]:
+        """The full GPT's name of each of this rank's parameters."""
+        if self.pipe is not None:
+            return [n for n, _ in self.pipe.named_parameters()]
+        return [n for n, _ in gpt.named_parameters()]
+
+
+def setup_parallel(n2n: Net2NetTransformer, opt: OptaxAdam, model_parallel: int = 1,
+                   pipeline_stages: int = 1, microbatches: int = 2) -> LMParallel:
+    """Lay the world out as (data, model) with model_parallel or
+    pipeline_stages ranks on the model axis, make every rank's GPT rank 0's,
+    and cut it to this rank's shards or stage; the optimizer's norm becomes
+    the whole model's. Without a process group: one process (both 1)."""
+    if model_parallel > 1 and pipeline_stages > 1:
+        raise ValueError("--pipeline_stages and --model_parallel are mutually exclusive")
+    gpt = n2n.gpt
+    if model_parallel > 1:
+        tp.check_layout(gpt.cfg.n_head, gpt.cfg.n_embd, model_parallel)
+    if mesh.world() == 1 and max(model_parallel, pipeline_stages) == 1:
+        return LMParallel()
+    inner = max(model_parallel, pipeline_stages)
+    g = mesh.grid(inner)
+    mesh.replicate(gpt, mesh.world_group())
+    par = LMParallel(data=g.data if g.data_size > 1 else None, data_rank=g.data_rank,
+                     data_size=g.data_size)
+    if model_parallel > 1:
+        tp.shard_gpt(gpt, g.inner)
+        par.model = g.inner
+        mask = tp.sharded_mask(gpt)
+        opt.norm_fn = lambda grads: tp.global_norm(grads, mask, g.inner)
+    elif pipeline_stages > 1:
+        if gpt.cfg.n_layer % pipeline_stages:
+            raise ValueError("n_layer must divide by --pipeline_stages")
+        par.pipe = PipelineGPT(gpt, g.inner, microbatches)
+        mask = par.pipe.block_mask()
+        opt.norm_fn = lambda grads: tp.global_norm(grads, mask, g.inner)
+    if opt.decay_mask is not None:  # the mask follows this rank's parameters
+        names = par.param_names(gpt)
+        opt.decay_mask = [decays(n) for n in names]
+    return par
+
+
 def init_lm_state(n2n: Net2NetTransformer, opt: OptaxAdam, seed: int = 0) -> LMTrainState:
     return LMTrainState(n2n.gpt, opt.init(list(n2n.gpt.parameters())), 0, seed)
+
+
+def full_state_dict(state: LMTrainState, par: LMParallel) -> Dict[str, Any]:
+    """The checkpoint of a one-process run: the full GPT's state_dict and
+    the optimizer's moments in the full GPT's parameter order (shards put
+    back together, stages gathered). Every rank of the layout calls it."""
+    if par.model is None and par.pipe is None:
+        return state.state_dict()
+    gpt, names = state.gpt, par.param_names(state.gpt)
+    opt = state.opt.state_dict()
+    moments = {k: dict(zip(names, opt[k])) for k in ("mu", "nu", "acc") if opt[k] is not None}
+    if par.model is not None:
+        full = tp.gather_state_dict(gpt.state_dict(), gpt.tp_dims, par.model)
+        moments = {k: tp.gather_state_dict(v, gpt.tp_dims, par.model) for k, v in moments.items()}
+    else:
+        full = par.pipe.full_state_dict()
+        moments = {k: _merge(v, par.pipe.group) for k, v in moments.items()}
+    with torch.device("meta"):
+        order = list(GPT(gpt.cfg).state_dict())  # a one-process GPT's: parameters alone
+    for k, v in moments.items():
+        opt[k] = [v[n].cpu() for n in order]
+    return {"gpt": {k: full[k].cpu() for k in order}, "opt": opt, "step": state.step,
+            "seed": state.seed}
+
+
+def _merge(named: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    import torch.distributed as dist
+
+    parts = [None] * mesh.size_of(group)
+    dist.all_gather_object(parts, {k: v.cpu() for k, v in named.items()}, group=group)
+    out = {}
+    for p in parts:
+        out.update(p)
+    return out
+
+
+def load_full_state_dict(state: LMTrainState, sd: Dict[str, Any], par: LMParallel) -> None:
+    """Load a full (one-process) checkpoint into this rank's shards or stage."""
+    if par.model is None and par.pipe is None:
+        state.load_state_dict(sd)
+        return
+    gpt = state.gpt
+    with torch.device("meta"):
+        order = [n for n, _ in GPT(gpt.cfg).named_parameters()]
+    names = par.param_names(gpt)
+    opt = dict(sd["opt"])
+    for k in ("mu", "nu", "acc"):
+        if opt.get(k) is not None:
+            by_name = dict(zip(order, opt[k]))
+            opt[k] = [by_name[n] for n in names]
+    if par.model is not None:
+        n, r = mesh.size_of(par.model), mesh.rank_in(par.model)
+        gpt.load_state_dict(tp.shard_state_dict(sd["gpt"], r, n))
+        for k in ("mu", "nu", "acc"):
+            if opt.get(k) is not None:
+                shards = tp.shard_state_dict(dict(zip(names, opt[k])), r, n)
+                opt[k] = [shards[x] for x in names]
+    else:
+        par.pipe.load_full_state_dict(sd["gpt"])
+    state.opt.load_state_dict(opt)
+    state.step, state.seed = int(sd["step"]), int(sd["seed"])
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -92,24 +220,38 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def lm_train_step(n2n: Net2NetTransformer, opt: OptaxAdam, state: LMTrainState,
                   z_ids: torch.Tensor, labels, keep: Optional[torch.Tensor] = None,
-                  rand_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                  rand_ids: Optional[torch.Tensor] = None,
+                  par: Optional[LMParallel] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step of the GPT on codebook ids z_ids (B, N) and their
-    condition; with cfg.pkeep < 1 and no draws given, the step draws them
-    from its (seed, step) generator. Returns the loss's metrics and the
-    gradients' global norm; `state` advances in place."""
+    condition (under `par`, this data row's rows of the global batch); with
+    cfg.pkeep < 1 and no draws given, the step draws them from its (seed,
+    step) generator. Returns the loss's metrics and the gradients' global
+    norm; `state` advances in place."""
+    par = par or LMParallel()
     if keep is None and n2n.cfg.pkeep < 1.0:
-        keep, rand_ids = n2n.draw_pkeep(tuple(z_ids.shape),
-                                        step_generator(state.seed, state.step, z_ids.device),
-                                        z_ids.device)
+        shape = (z_ids.shape[0] * par.data_size,) + tuple(z_ids.shape[1:])
+        keep, rand_ids = n2n.draw_pkeep(shape, step_generator(state.seed, state.step,
+                                                              z_ids.device), z_ids.device)
+        keep, rand_ids = mesh.rank_rows(keep, par.data), mesh.rank_rows(rand_ids, par.data)
     params = state.params()
-    loss, metrics = n2n.loss_fn(z_ids, labels, keep, rand_ids)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    if par.pipe is not None:
+        inputs, target, prefix = n2n.loss_inputs(z_ids, labels, keep, rand_ids)
+        metrics = par.pipe.forward_backward(
+            inputs, lambda logits: n2n.loss_from_logits(logits, target, prefix))
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        for p in params:
+            p.grad = None
+    else:
+        loss, metrics = n2n.loss_fn(z_ids, labels, keep, rand_ids)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    mesh.average_grads_(grads, par.data)
+    metrics = {k: mesh.mean_over(v, par.data) for k, v in metrics.items()}
     updates = opt.update(grads, state.opt, params)
     if updates is not None:
         with torch.no_grad():
             torch._foreach_add_(params, updates)
-    metrics["grad_norm"] = OptaxAdam.global_norm(grads)
+    metrics["grad_norm"] = (opt.norm_fn or OptaxAdam.global_norm)(grads)
     state.step += 1
     return metrics
 
@@ -129,33 +271,48 @@ def encode_batch(n2n: Net2NetTransformer, batch: Dict[str, Any]):
 
 def train_lm(n2n: Net2NetTransformer, opt: OptaxAdam, batches: Iterable[Dict[str, Any]],
              root_dir: str, max_steps: int, ckpt_every: int = 3000, log_every: int = 50,
-             resume: bool = True, seed: int = 0) -> LMTrainState:
-    """Train the GPT over a batch stream up to `max_steps` (or the stream's
-    end); returns the final state."""
+             resume: bool = True, seed: int = 0,
+             par: Optional[LMParallel] = None) -> LMTrainState:
+    """Train the GPT over a batch stream (this data row's, under `par`) up
+    to `max_steps` (or the stream's end); returns the final state. Rank 0
+    alone logs and writes the checkpoints."""
+    par = par or LMParallel()
     state = init_lm_state(n2n, opt, seed)
     ckpt = find_latest_checkpoint(root_dir) if resume else None
     it = iter(batches)
     if ckpt:
-        state.load_state_dict(torch.load(ckpt, map_location=n2n.device))
+        load_full_state_dict(state, torch.load(ckpt, map_location=n2n.device), par)
         print(f"auto-resumed from {ckpt} at step {state.step}")
         for _ in range(state.step):  # the batches the steps before consumed
             next(it, None)
-    logger = MetricsLogger(root_dir, log_every)
+    lead = mesh.rank() == 0
+    logger = MetricsLogger(root_dir, log_every) if lead else None
 
     def ckpt_path() -> str:
         return os.path.join(root_dir, "checkpoints", f"step_{state.step:08d}.pt")
+
+    def write() -> None:
+        sd = full_state_dict(state, par)  # a collective under a layout: every rank
+        if lead:
+            os.makedirs(os.path.dirname(ckpt_path()), exist_ok=True)
+            tmp = ckpt_path() + ".tmp"
+            torch.save(sd, tmp)
+            os.replace(tmp, ckpt_path())
+        mesh.barrier()
 
     while state.step < max_steps:
         batch = next(it, None)
         if batch is None:
             break
         z_ids, labels = encode_batch(n2n, batch)
-        metrics = lm_train_step(n2n, opt, state, z_ids, labels)
-        logger.log(state.step - 1, metrics)
+        metrics = lm_train_step(n2n, opt, state, z_ids, labels, par=par)
+        if lead:
+            logger.log(state.step - 1, metrics)
         if state.step % ckpt_every == 0:
-            save_state(ckpt_path(), state)
+            write()
     # a final checkpoint, so a run whose max_steps is off the cadence resumes
-    if state.step > 0 and not os.path.exists(ckpt_path()):
-        save_state(ckpt_path(), state)
-    logger.close()
+    if state.step > 0 and not mesh.broadcast_object(os.path.exists(ckpt_path())):
+        write()
+    if lead:
+        logger.close()
     return state

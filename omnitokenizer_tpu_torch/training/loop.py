@@ -19,6 +19,12 @@ loop hands its forward `jax.random.PRNGKey(0)`: the same draw every call
 on either side, but not the same numbers (a `torch.Generator` does not
 reproduce `jax.random`). Its log and checkpoints carry what a VAE step
 has: no perplexity or usage, no codebook.
+
+Under data parallelism (a trainer built with a process group) each rank
+passes its own batches (the loader strides the data by rank); the state is
+rank 0's on every rank at the start and after a resume (broadcast), and
+rank 0 alone logs, dumps grids, runs the validation pass and writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from .trainer import TokenizerTrainState, TokenizerTrainer
 
 
@@ -165,15 +172,23 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
     """Run the GAN step over a batch stream up to `max_steps`; returns the
     final state."""
     state = initial_state if initial_state is not None else trainer.init_state(seed=seed)
+    group = trainer.group
+    lead = mesh.rank_in(group) == 0
     ckpt = find_latest_checkpoint(root_dir) if resume else None
     if ckpt:
         print(f"auto-resuming from {ckpt}")
         load_state(ckpt, state)
+    if group is not None:  # rank 0's state everywhere
+        for m in state.MODULES:
+            mesh.replicate(getattr(state, m), group)
+        mesh.replicate(state.opt_g.mu + state.opt_g.nu + state.opt_d.mu + state.opt_d.nu, group)
 
     def write_ckpt(step_label: int) -> None:
-        save_state(os.path.join(root_dir, "checkpoints", f"step_{step_label:08d}.pt"), state)
+        if lead:
+            save_state(os.path.join(root_dir, "checkpoints", f"step_{step_label:08d}.pt"), state)
+        mesh.barrier(group)
 
-    logger = MetricsLogger(root_dir, log_every)
+    logger = MetricsLogger(root_dir, log_every) if lead else None
     # multi-resolution training: a random scale a step, bilinear resize
     res_scales = list(trainer.train_cfg.resolution_scale or [])
     res_rng = np.random.RandomState(seed + 17)
@@ -190,11 +205,14 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
             if s != 1.0:
                 video = resize_bilinear(video, int(video.shape[2] * s))
         state, metrics = trainer.train_step(state, video)
-        logger.log(step, metrics)
+        if lead:
+            logger.log(step, metrics)
 
         if step % ckpt_every == 0 and step > start:
             write_ckpt(step)
 
+        if not lead:
+            continue
         if val_it is not None and step > start and step % val_every == 0:
             vals = []
             with torch.no_grad():
@@ -214,5 +232,6 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
                             recons.float().cpu().numpy())
 
     write_ckpt(state.step)
-    logger.close()
+    if lead:
+        logger.close()
     return state

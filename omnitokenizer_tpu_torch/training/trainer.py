@@ -29,6 +29,18 @@ metric and no second codebook advance. On the card that pass reaches the
 `mha` kernel under autograd, which ops/attention.py:sdpa runs as the primal
 with the plain math recomputed as its backward.
 
+Data parallelism (`group`, a torch.distributed process group; the JAX
+trainer's GSPMD step over a ('data',) mesh): each rank holds its rows of
+the global batch, and N ranks take the step one process takes on the
+concatenated batch. Every loss is the global mean (the ranks' means
+all-reduced, their gradients summed back), both gradients are averaged
+over the ranks before the optimizer's global-norm clip, the codebook's
+statistics and its second advance are the group's, the discriminators'
+BatchNorm takes the global batch's statistics, and every draw (the frame
+index, the discriminator noise, DiffAugment, the posterior sample) is this
+rank's rows of the one draw for the global batch. The state must start
+equal on every rank (`parallel.mesh.replicate`).
+
 The parameters stay f32 and the compute runs in cfg.dtype; a net that
 went through the serving step (`OmniTokenizerVQGAN.serving()`, which casts
 the parameters, or `prepare_kernels()`, which caches detached bf16
@@ -49,6 +61,7 @@ from ..models.lpips import LPIPS, load_lpips_variables
 from ..models.tokenizer import OmniTokenizerNet, init_weights
 from ..ops.attention import Attention, FeedForward
 from ..ops.diffaug import diff_augment, diff_augment_video
+from ..parallel import mesh
 from .losses import adopt_weight, hinge_d_loss, l1, l2, logits_laplace, vanilla_d_loss
 
 # one stream a purpose, as the JAX step splits its key
@@ -134,12 +147,15 @@ class OptaxAdam:
     0.9)); with weight_decay it is optax.adamw (the diffusion trainer's), and
     `decay_mask` (a bool a parameter, in the order `update` gets them) is
     adamw's mask: the weight decay reaches only the parameters marked True
-    (the LM trainer's)."""
+    (the LM trainer's). `norm_fn` stands in for the clip's global norm
+    where a rank holds shards of the parameters (parallel/tp.py)."""
 
     def __init__(self, schedule: Callable[[int], float], clip: Optional[float],
                  accumulates: int = 1, b1: float = 0.5, b2: float = 0.9, eps: float = 1e-8,
-                 weight_decay: float = 0.0, decay_mask: Optional[List[bool]] = None):
+                 weight_decay: float = 0.0, decay_mask: Optional[List[bool]] = None,
+                 norm_fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None):
         self.schedule, self.clip, self.k = schedule, clip, accumulates
+        self.norm_fn = norm_fn
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.decay_mask = None if decay_mask is None else list(decay_mask)
 
@@ -155,7 +171,7 @@ class OptaxAdam:
     def _chain(self, grads: List[torch.Tensor], st: OptState,
                params: Optional[List[torch.Tensor]]) -> List[torch.Tensor]:
         if self.clip is not None:
-            norm = self.global_norm(grads)
+            norm = (self.norm_fn or self.global_norm)(grads)
             factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
             grads = torch._foreach_mul(grads, factor)
         torch._foreach_mul_(st.mu, self.b1)
@@ -276,11 +292,13 @@ class TokenizerTrainer:
     """Builds the state and runs the GAN step for a config triple, on the
     card unless `device` says otherwise. `lpips_vgg16_path` and
     `lpips_lin_path` name the perceptual net's weights (see
-    models.lpips.load_lpips_variables)."""
+    models.lpips.load_lpips_variables); `group` is the data-parallel
+    process group (None: one process)."""
 
     def __init__(self, cfg: TokenizerConfig, loss_cfg: LossConfig = LossConfig(),
                  train_cfg: TrainConfig = TrainConfig(), device: Any = "cuda",
-                 lpips_vgg16_path: Optional[str] = None, lpips_lin_path: Optional[str] = None):
+                 lpips_vgg16_path: Optional[str] = None, lpips_lin_path: Optional[str] = None,
+                 group=None):
         if cfg.patch_embed == "cnn":
             raise NotImplementedError(
                 "training the cnn patch embed is not ported: its norms serve inference only "
@@ -289,6 +307,7 @@ class TokenizerTrainer:
             raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
         self.cfg, self.loss_cfg, self.train_cfg = cfg, loss_cfg, train_cfg
         self.device = torch.device(device)
+        self.group = group
         self.lpips_paths = dict(vgg16_torch_path=lpips_vgg16_path, lin_path=lpips_lin_path)
         self.lpips_pretrained: Optional[bool] = None
         self.opt_g = OptaxAdam(g_schedule(train_cfg), train_cfg.grad_clip_val,
@@ -302,7 +321,7 @@ class TokenizerTrainer:
         kw = dict(input_nc=cfg.image_channels, ndf=lc.disc_channels, n_layers=lc.disc_layers,
                   norm_type=cfg.norm_type, use_sigmoid=lc.sigmoid_in_disc,
                   activation=lc.activation_in_disc, apply_noise=lc.apply_noise,
-                  dtype=cfg.dtype)
+                  dtype=cfg.dtype, group=self.group)
         return NLayerDiscriminator(**kw), NLayerDiscriminator3D(**kw)
 
     def init_state(self, seed: int = 0, net: Optional[OmniTokenizerNet] = None
@@ -351,22 +370,26 @@ class TokenizerTrainer:
         as the JAX step runs it), then every loss of the generator pass."""
         lc = self.loss_cfg
         net, image_disc, video_disc = state.net, state.image_disc, state.video_disc
+        group = self.group
+        gm = self._global_mean
         B, T = video.shape[:2]
         is_image = T == 1
         zero = torch.zeros((), device=self.device)
-        frame_idx = torch.randint(0, T, (B,), generator=gen("frame"), device=self.device)
+        frame_idx = mesh.draw_rows(lambda shape: torch.randint(
+            0, T, shape, generator=gen("frame"), device=self.device), (B,), group)
         batch_idx = torch.arange(B, device=self.device)
 
         if self.cfg.use_vae:
             x_recon, aux = net(video, is_image, training=False, generator=gen("gaussian"),
-                               noise=posterior_noise)
+                               noise=posterior_noise, group=group)
         else:
-            x_recon, aux = net(video, is_image, training=True, generator=gen("codebook"))
+            x_recon, aux = net(video, is_image, training=True, generator=gen("codebook"),
+                               group=group)
         if lc.recon_loss_type == "l1":
-            recon_loss = l1(x_recon, video) * lc.l1_weight
+            recon_loss = gm(l1(x_recon, video)) * lc.l1_weight
         else:
-            recon_loss = l2(x_recon, video) * lc.l1_weight
-            recon_loss = recon_loss + logits_laplace(video, x_recon) * lc.logitslaplace_weight
+            recon_loss = gm(l2(x_recon, video)) * lc.l1_weight
+            recon_loss = recon_loss + gm(logits_laplace(video, x_recon)) * lc.logitslaplace_weight
 
         frames, frames_recon = video[batch_idx, frame_idx], x_recon[batch_idx, frame_idx]
         if lc.apply_allframes:
@@ -375,16 +398,16 @@ class TokenizerTrainer:
 
         perceptual_loss = zero
         if lc.perceptual_weight > 0:
-            perceptual_loss = state.lpips(frames, frames_recon).mean() * lc.perceptual_weight
+            perceptual_loss = gm(state.lpips(frames, frames_recon).mean()) * lc.perceptual_weight
 
         noise = self._noise(gen)
         # in f32, as the losses module reduces (the JAX step keeps a bf16 mean)
         logits_image_fake, pred_image_fake = image_disc(frames_recon, True, noise("noise1"))
-        g_image_loss = -logits_image_fake.float().mean()
+        g_image_loss = -gm(logits_image_fake.float().mean())
         g_video_loss = zero
         if not is_image:
             logits_video_fake, pred_video_fake = video_disc(x_recon, True, noise("noise1"))
-            g_video_loss = -logits_video_fake.float().mean()
+            g_video_loss = -gm(logits_video_fake.float().mean())
         aeloss = disc_factor * (lc.image_gan_weight * g_image_loss
                                 + lc.video_gan_weight * g_video_loss)
 
@@ -395,15 +418,17 @@ class TokenizerTrainer:
             with torch.no_grad():
                 _, pred_image_real = image_disc(frames, True, noise("noise1"))
             for f, r in zip(pred_image_fake[:-1], pred_image_real[:-1]):
-                image_feat = image_feat + feat_weights * l1(f, r)
+                image_feat = image_feat + feat_weights * gm(l1(f, r))
         if lc.video_gan_weight > 0 and not is_image:
             with torch.no_grad():
                 _, pred_video_real = video_disc(video, True, noise("noise1"))
             for f, r in zip(pred_video_fake[:-1], pred_video_real[:-1]):
-                video_feat = video_feat + feat_weights * l1(f, r)
+                video_feat = video_feat + feat_weights * gm(l1(f, r))
         gan_feat_loss = disc_factor * lc.gan_feat_weight * (image_feat + video_feat)
 
-        commitment_loss = aux["commitment_loss"]  # a VAE's KL term
+        # the codebook's is the global mean already; a VAE's KL term is this rank's
+        commitment_loss = (gm(aux["commitment_loss"]) if self.cfg.use_vae
+                           else aux["commitment_loss"])
         g_total = recon_loss + commitment_loss + aeloss + perceptual_loss + gan_feat_loss
         metrics = dict(recon_loss=recon_loss, commitment_loss=commitment_loss, aeloss=aeloss,
                        perceptual_loss=perceptual_loss, gan_feat_loss=gan_feat_loss,
@@ -418,25 +443,30 @@ class TokenizerTrainer:
         lc = self.loss_cfg
         image_disc, video_disc = state.image_disc, state.video_disc
         noise = self._noise(gen)
+        gm = self._global_mean
 
         def prep(x, name, fn):
-            return fn(x.detach(), gen(name)) if lc.apply_diffaug else x.detach()
+            return fn(x.detach(), gen(name), self.group) if lc.apply_diffaug else x.detach()
 
         lr_real, _ = image_disc(prep(frames, "aug_d", diff_augment), True,
                                noise("noise2"), update_stats=True)
         lr_fake, _ = image_disc(prep(frames_recon, "aug_g", diff_augment), True,
                                noise("noise3"), update_stats=True)
-        d_image_loss = self._d_loss(lr_real, lr_fake)
+        d_image_loss = gm(self._d_loss(lr_real, lr_fake))
         d_video_loss = torch.zeros((), device=self.device)
         if video.shape[1] > 1:
             lv_real, _ = video_disc(prep(video, "aug_d", diff_augment_video), True,
                                     noise("noise2"), update_stats=True)
             lv_fake, _ = video_disc(prep(x_recon, "aug_g", diff_augment_video), True,
                                     noise("noise3"), update_stats=True)
-            d_video_loss = self._d_loss(lv_real, lv_fake)
+            d_video_loss = gm(self._d_loss(lv_real, lv_fake))
         discloss = disc_factor * (lc.image_gan_weight * d_image_loss
                                   + lc.video_gan_weight * d_video_loss)
         return dict(discloss=discloss, d_image_loss=d_image_loss, d_video_loss=d_video_loss)
+
+    def _global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's mean of its rows -> the global batch's (t without a group)."""
+        return mesh.mean_over(t, self.group)
 
     def _noise(self, gen):
         return lambda name: gen(name) if self.loss_cfg.apply_noise else None
@@ -450,6 +480,7 @@ class TokenizerTrainer:
                 gate = gate * (1 - (metrics["recon_loss"] > tc.recloss_check_thres).float())
             if tc.perloss_check_thres is not None:
                 gate = gate * (1 - (metrics["perceptual_loss"] > tc.perloss_check_thres).float())
+        mesh.average_grads_(grads, self.group)
         torch._foreach_div_(grads, tc.grad_accumulates)
         if tc.freeze_trans:
             for (name, _), g in zip(state.net.named_parameters(), grads):
@@ -464,7 +495,7 @@ class TokenizerTrainer:
         route), which advances the codebook a second time."""
         with torch.no_grad():
             h = state.net.encode_latent(video, video.shape[1] == 1)
-            state.net.quantize(h, training=True, generator=gen("codebook2"))
+            state.net.quantize(h, training=True, generator=gen("codebook2"), group=self.group)
 
     def _d_update(self, state, grads, metrics) -> Dict[str, torch.Tensor]:
         """The discriminator's own gate and optimizer step."""
@@ -472,6 +503,7 @@ class TokenizerTrainer:
         gate = torch.ones((), device=self.device)
         if tc.disloss_check_thres is not None:
             gate = 1 - (metrics["discloss"] < tc.disloss_check_thres).float()
+        mesh.average_grads_(grads, self.group)
         torch._foreach_div_(grads, tc.grad_accumulates)
         norm = OptaxAdam.global_norm(grads)
         self._apply(state.d_params(), self.opt_d.update(grads, state.opt_d), gate)
@@ -480,7 +512,8 @@ class TokenizerTrainer:
     def train_step(self, state: TokenizerTrainState, video: torch.Tensor,
                    posterior_noise: Optional[torch.Tensor] = None
                    ) -> Tuple[TokenizerTrainState, Dict[str, torch.Tensor]]:
-        """One G + D step on `video`, channels-last (B, T, H, W, C), T >= 1.
+        """One G + D step on `video`, channels-last (B, T, H, W, C), T >= 1
+        (with a group: this rank's rows of the global batch).
         Advances `state` in place and returns it with the step's metrics
         (0-d tensors: the JAX step's, and the global norms of both
         gradients before clipping). A VAE's posterior sample takes

@@ -13,8 +13,10 @@ The JAX package's own `.msgpack` GPT files (transformer_train's
 `step_*.msgpack`, the tuple (params, opt_state, step), stored as a dict
 keyed '0', '1', '2') are read without flax (`utils.msgpack_io`): the
 params, entry '0', through `convert.gpt_state_dict_from_jax`. The
-optimizer state is not read. The pipeline-parallel layout {"stacked",
-"rest"} is not read, as the JAX package's transformer_eval does not read it.
+optimizer state is not read. A pipeline-parallel run's params (the JAX
+CLI's --pipeline_stages) are {"stacked": the blocks' tree with a leading
+(n_layer,) axis on every leaf, "rest": the embeddings, ln_f and head}:
+they are unstacked into block0 .. block{n_layer - 1} first.
 """
 
 from __future__ import annotations
@@ -54,8 +56,7 @@ def gpt_state_dict_from_msgpack(path: str) -> Dict[str, torch.Tensor]:
     raw = read_msgpack(path)
     params = raw.get("0") if isinstance(raw, dict) else None
     if isinstance(params, dict) and {"stacked", "rest"} <= set(params):
-        raise NotImplementedError(f"{path}: the pipeline-parallel GPT layout (stacked, rest) "
-                                  "is not read (ROADMAP.md, \"Parallelism\")")
+        params = unstack_jax_pipeline(params["stacked"], params["rest"])
     if not isinstance(params, dict):
         have = sorted(raw) if isinstance(raw, dict) else type(raw).__name__
         raise KeyError(f"{path}: not the JAX LM's (params, opt_state, step) tuple: entry '0' "
@@ -64,6 +65,21 @@ def gpt_state_dict_from_msgpack(path: str) -> Dict[str, torch.Tensor]:
         return gpt_state_dict_from_jax(params)
     except KeyError as e:
         raise KeyError(f"{path}: {e}") from None
+
+
+def unstack_jax_pipeline(stacked: Dict, rest: Dict) -> Dict:
+    """The JAX pipeline layout -> the plain JAX GPT tree (block{i} = every
+    stacked leaf's row i, beside the rest), as pp.unstack_block_params."""
+    def leaves(t):
+        return [x for v in t.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    def row(t, i):
+        return {k: row(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    n_layer = len(leaves(stacked)[0])
+    out = dict(rest)
+    out.update({f"block{i}": row(stacked, i) for i in range(n_layer)})
+    return out
 
 
 def load_gpt_checkpoint(path: str) -> Dict[str, torch.Tensor]:

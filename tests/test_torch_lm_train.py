@@ -298,11 +298,19 @@ def test_flag_set_matches_jax():
 
 def test_cli_refuses_what_it_does_not_port(lm_data, tmp_path):
     base = _cli_flags(lm_data, tmp_path / "run") + ["--device", "cpu", "--max_steps", "1"]
-    for extra, match in ((["--model_parallel", "2"], "Parallelism"),
-                         (["--pipeline_stages", "2"], "Parallelism"),
-                         (["--cond_stage_key", "text"], "The remaining host pieces"),
+    for extra, match in ((["--cond_stage_key", "text"], "The remaining host pieces"),
                          (["--cond_stage_key", "stft"], "The remaining host pieces")):
         with pytest.raises(NotImplementedError, match=match):
+            transformer_train.main(base + extra)
+    # tensor and pipeline parallelism run over processes (tests/test_torch_parallel_tp.py,
+    # _pp.py); one process is no group of 2, and the JAX CLI's layout checks hold
+    for extra, match in ((["--model_parallel", "2"], "groups of 2"),
+                         (["--pipeline_stages", "2"], "groups of 2"),
+                         (["--model_parallel", "2", "--pipeline_stages", "2"],
+                          "mutually exclusive"),
+                         (["--model_parallel", "3"], "n_head"),
+                         (["--pipeline_stages", "3"], "n_layer")):
+        with pytest.raises(ValueError, match=match):
             transformer_train.main(base + extra)
     # a JAX .msgpack tokenizer is read (tests/test_torch_msgpack_cli.py); without its
     # .cfg.json sidecar it raises as the JAX package's loader does

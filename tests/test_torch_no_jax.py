@@ -497,3 +497,50 @@ def test_vae_training_cnn_vqgan_and_quantizers_run_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+PARALLEL_SCRIPT = r"""
+import sys
+for m in ("jax", "flax", "optax"):
+    sys.modules[m] = None
+import torch
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch.parallel import dryrun, mesh, pp, tp
+from omnitokenizer_tpu_torch.ops.codebook import Codebook, vq_argmin_sharded
+from omnitokenizer_tpu_torch.ops.kernels.vq_argmin import vq_argmin_plain
+from omnitokenizer_tpu_torch.training import lm_loop
+group = mesh.init_distributed("cpu", world_of_one=True)
+assert group is not None and mesh.world() == 1 and mesh.rank() == 0
+g = torch.Generator().manual_seed(0)
+flat, emb = torch.randn(64, 8, generator=g), torch.randn(32, 8, generator=g)
+assert torch.equal(vq_argmin_sharded(flat, emb, group), vq_argmin_plain(flat, emb))
+z = torch.randn(2, 2, 4, 4, 8, generator=g)
+a, b = Codebook(32, 8), Codebook(32, 8)
+b.load_state_dict(a.state_dict())
+out_a = a(z, training=True, generator=torch.Generator().manual_seed(1), group=group)
+out_b = b(z, training=True, generator=torch.Generator().manual_seed(1))
+assert torch.equal(out_a["encodings"], out_b["encodings"])
+assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+sd = {f"blocks.{i}.w": torch.full((2,), float(i)) for i in range(4)}
+stacked, rest = pp.stack_block_params(sd, 4)
+assert torch.equal(pp.unstack_block_params(stacked, rest, 4)["blocks.3.w"], sd["blocks.3.w"])
+assert tp.gpt_param_dims({"head.weight": (9193, 8)}, 2)["head.weight"] is None
+mesh.shutdown()
+assert callable(dryrun.dryrun_multichip)  # run over 2 processes: tests/test_torch_parallel_dp.py
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax",
+                                                             "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_parallel_runs_without_jax():
+    """parallel/ (mesh, tp, pp, dryrun) and the grouped codebook import and run
+    with jax, flax and optax unimportable: a world of one over gloo (the
+    grouped codebook bit-equal to the ungrouped one, the sharded argmin equal
+    to the plain search). (The dry run's ranks import the port alone.)"""
+    res = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -147,8 +147,13 @@ def test_class_generation_npz_and_refusals(ckpts, tmp_path):
     assert len(files) == 3
     img = np.load(files[0])["image"]
     assert img.shape == (3, 16, 16) and np.isfinite(img).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tensor-parallel decode runs over processes (tests/test_torch_parallel_tp.py); as in
+    # the JAX CLI it is refused with --int8, and one process is no group of 2
+    with pytest.raises(ValueError, match="mutually exclusive"):
         transformer_eval.main(flags + ["--model_parallel", "2"])
+    no_int8 = [f for f in flags if f != "--int8"]
+    with pytest.raises(ValueError, match="needs that many processes"):
+        transformer_eval.main(no_int8 + ["--model_parallel", "2"])
     # a JAX .msgpack LM is read (tests/test_torch_msgpack_cli.py); one that is not the
     # JAX CLI's (params, opt_state, step) tuple raises, naming what it holds
     from omnitokenizer_tpu_torch.utils.msgpack_io import write_msgpack

@@ -218,3 +218,43 @@ def reference_diffusion_state_dict(cfg, latte: bool = False, seed: int = 0) -> d
             v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
         sd[k] = np.asarray(v, np.float32)
     return sd
+
+
+def run_world(suite: str, world: int, workdir, timeout: float = 600.0) -> list:
+    """Start `world` gloo ranks of tests/torch_parallel_worker.py's SUITE on
+    the CPU and return each rank's results ({check: {"ok": ...} or
+    {"error": traceback}}); a rank that exits non-zero fails the caller."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "OMNITOK_COORD"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_parallel_worker.py"),
+                               suite, str(r), str(world), str(port), str(workdir)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rcs = [p.returncode for p in procs]
+    assert not any(rcs), f"ranks exited {rcs}:\n" + "\n".join(o[-3000:] for o in outs)
+    return [torch.load(os.path.join(str(workdir), f"{suite}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def check_result(results: list, check: str, rank: int = 0):
+    """One check's values on one rank; raises with the rank's traceback if
+    the check raised there."""
+    res = results[rank][check]
+    assert "error" not in res, res.get("error")
+    return res["ok"]
