@@ -22,8 +22,9 @@ Phases (any failure raises and exits non-zero):
      for vq_argmin (also at the CNN VQGAN's 16384 x 256 rows against 2048
      codes, and at a ragged 16384 x 100 against 2048 x 100, no path's
      shape); and the LM's causal flash forward and backward at the
-     training shape (8, 16, 1025, 96) and at the long-sequence recipes'
-     (4, 16, 5121, 96), where they are compute-bound, on the (B, T, H, D)
+     training shape (8, 16, 1025, 96), at the long-sequence recipes'
+     (4, 16, 5121, 96), where they are compute-bound, and at phase 17b's
+     text-conditioned shape (4, 16, 5376, 96), on the (B, T, H, D)
      projections' views, beside SDPA (is_causal) forward and forward +
      backward, two backward runs bitwise equal (where the plain twins' f32
      scores do not fit, they are held and timed on batch 0);
@@ -169,9 +170,27 @@ Phases (any failure raises and exits non-zero):
      graphs under NCCL, against the eager TP decode and the one-process
      greedy sampler), vq_argmin_sharded, the DP=2 GAN step with BatchNorm
      discriminators; each against one process.
+ 17. the host pieces: (a) each special dataset family (HDF5 clips, HDF5
+     captions, smap pairs, vtokens code grids, frame folders, stft pairs,
+     CoinRun with auto-captions) written at the flagship's input size
+     (17 x 256^2 uint8; vtokens at its 5 x 32 x 32 code grid) and 32 clips
+     read through the port's VideoData, timed (the HDF5 families where the
+     host has h5py); (b) text-conditioned LM training through
+     transformer_train.main on the card over a CoinRun directory it writes
+     (game JSONs, sprites, a BPE merge table, auto-captions): B=4 clips of
+     17 x 256^2 encoded by the bf16 flagship tokenizer (random weights,
+     seed 0), captions of 256 BPE ids, the LM at train_ucf.sh's widths
+     (1536, 16 heads of 96, block 5377 = sos + 256 + 5120 codes) at 6 of
+     its 24 layers, --bf16; launches a step (flash 6 + 6 and the encode's),
+     the caption ids in the sequence after sos, finite losses and gradient
+     norms, ms a step after 2 warm-up steps, tokens/s, peak memory, the
+     share of the FLOP bound; the same step on the first batch with no
+     loader thread running, and one profiled; then the first step's batch
+     and weights at 2 of the layers, kernel route against plain route
+     (loss and per-layer gradient norms at phase 12's bars).
 `--phases 14` (any comma list) runs phases 0, 1 and those alone.
 Phase 0 also prints which host data backends load (the native normalize,
-the libav decoder, PIL, imageio).
+the libav decoder, PIL, imageio) and whether h5py is importable.
 The line before the last is a JSON object with a row per kernel and shape
 (and one per training route); the last line is {"ok": true, "device": {...}}.
 """
@@ -410,8 +429,14 @@ def phase0_card() -> str:
     from omnitokenizer_tpu_torch.native import build as native
 
     print(f"[0] host data backends (native normalize and libav video decoder built here; "
-          f"PIL, imageio importable): {native.backends()}")
+          f"PIL, imageio importable): {native.backends()}; h5py importable: {has_h5py()}")
     return smi
+
+
+def has_h5py() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
 
 
 def phase1_build() -> None:
@@ -646,6 +671,9 @@ def phase2_kernels() -> None:
     # of 96; no phase drives it, so its launches are null)
     check_flash("2", "lm_train", LM_TRAIN_B, LM_HEADS, LM_BLOCK, LM_WIDTH // LM_HEADS)
     check_flash("2", "lm_train_ucf", 4, LM_HEADS, 5121, LM_WIDTH // LM_HEADS)
+    # phase 17b's text-conditioned step: sos + 256 caption ids + 5120 codes, less the last
+    check_flash("2", "text_lm_train", TEXT_LM_B, LM_HEADS, TEXT_LM_BLOCK - 1,
+                LM_WIDTH // LM_HEADS)
 
 
 def check_mha(tag, path, g, shape, dtype, causal) -> None:
@@ -2702,7 +2730,7 @@ def lm_timed_steps(n2n, opt, state, batches) -> tuple:
             [float(x) for x in losses])
 
 
-def lm_profile(n2n, opt, state, batch) -> dict:
+def lm_profile(n2n, opt, state, batch, tag: str = "12") -> dict:
     """One kernel-route step (encode included) under torch.profiler: the
     device's busy ms and the ms of each group of kernels (the flash kernels,
     the GEMMs, the optimizer's foreach passes, the tokenizer's kernels, the
@@ -2735,10 +2763,10 @@ def lm_profile(n2n, opt, state, batch) -> dict:
     for e in kernels:
         ms[group(e.key)] += self_dev(e)
     ms["busy"] = sum(self_dev(e) for e in kernels)
-    print("[12] profiled kernel-route step, device ms by group: "
+    print(f"[{tag}] profiled kernel-route step, device ms by group: "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
     for e in kernels[:10]:
-        print(f"[12]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
+        print(f"[{tag}]   {self_dev(e):8.2f} ms {e.count:5d}x {e.key[:110]}")
     return ms
 
 
@@ -4562,6 +4590,385 @@ def phase16_parallel(smi: str) -> dict:
             "pp_lm_train": ranks[0]["pp"]["launches"]}
 
 
+# -- phase 17: the host pieces ----------------------------------------------------------------
+# (a) the special dataset families at the flagship's input size; (b) text-conditioned LM
+# training through transformer_train on CoinRun captions, at train_ucf.sh's widths
+FAMILY_CLIPS = 32
+FAMILY_VIDEOS, FAMILY_FRAMES = 8, 24   # videos a file, frames a video (a 17-frame window each)
+TEXT_LM_B, TEXT_LEN, TEXT_LM_LAYERS = 4, 256, 6  # train_ucf.sh's batch; 6 of its 24 layers
+TEXT_LM_BLOCK = 1 + TEXT_LEN + 5 * 32 * 32       # sos + the caption + the codes: 5377
+TEXT_LM_VOCAB = 8192 + 49408 + 1                 # codes + CLIP's vocabulary + sos
+TEXT_LM_WARMUP, TEXT_LM_TIMED = 2, 2  # 2 timed steps: phase 17 aims at 45 s
+TEXT_LM_COMPARE_LAYERS = 2                       # the kernel-vs-plain check's depth
+CAPTION_WORDS = ("mugen runs to the right left and jumps climbs a ladder collects coin coins "
+                 "is in power up mode kills monster gets killed stays place")
+# the encode of 4 clips (the encoder's 2 spatial 't' blocks, 4 temporal blocks at n = 5,
+# the codebook's search), then one flash forward and one backward in each of the 6 layers
+TEXT_LM_LAUNCHES = {**EXPECTED_LAUNCHES["lm_train"], "flash_attn_fwd": TEXT_LM_LAYERS,
+                    "flash_attn_bwd": TEXT_LM_LAYERS}
+
+
+def write_merge_table(path: str) -> str:
+    """A CLIP-format BPE merge table over the caption words: each word's
+    symbols merged left to right, in the order the words come."""
+    merges = []
+    for word in CAPTION_WORDS.split():
+        syms = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(syms) > 1:
+            if (syms[0], syms[1]) not in merges:
+                merges.append((syms[0], syms[1]))
+            syms = [syms[0] + syms[1]] + syms[2:]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return path
+
+
+def coinrun_trace(seed: int, frames: int) -> dict:
+    """A CoinRun game trace (game.py's asdict format) from a seed: a maze of
+    every tile kind, an agent that runs, jumps, climbs, eats coins and dies
+    at the end, three monsters, one dying."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    maze = [list("." * 64) for _ in range(13)]
+    maze[0], maze[1] = list("A" * 64), list("S" * 64)
+    for x in range(2, 64, 3):
+        maze[2 + rng.randint(0, 6)][x] = "S1a2b#$&%^|="[rng.randint(0, 12)]
+    coins = [[x, y] for y in range(13) for x in range(64) if maze[y][x] in "12"]
+    trace = []
+    for i in range(frames):
+        trace.append({
+            "agent": {"x": 4.0 + 0.5 * i, "y": 2.0 + (i % 4 == 1), "vx": 0.5,
+                      "vy": 0.3 * (i % 4 == 1), "time_alive": i, "ladder": i % 7 == 3,
+                      "is_killed": i >= frames - 2, "killed_animation_frame_cnt": i % 3},
+            "coins_eaten": coins[:i // 4],
+            "monsters": [{"m_id": m, "x": 10.0 + 3 * m - 0.2 * i, "y": 2.0, "vx": -0.2,
+                          "theme": m, "time": i, "is_dead": m == 0 and i > frames // 2,
+                          "monster_dying_frame_cnt": 1} for m in range(3)]})
+    return {"zoom": 5.5, "bgzoom": 0.4, "world_theme_n": seed % 2, "agent_theme_n": 0,
+            "background_themes": ["backgrounds/a.png", "backgrounds/b.png"],
+            "ground_themes": ["Grass", "Planet"], "agent_themes": ["Beige"],
+            "monster_names": {"ground": ["slimeBlock"], "walking": ["snail"], "flying": ["bee"]},
+            "maze_w": 64, "maze_h": 13, "maze": ["".join(r) for r in maze], "frames": trace}
+
+
+def write_coinrun_dir(root: str, games: int, frames: int) -> None:
+    """Game JSONs under root and their sprites under root/assets: a random
+    RGBA PNG at every path data/coinrun.py's asset_paths names (tiles 70^2,
+    the alien 128 x 256, monsters 64^2, backgrounds 512^2, as kenney's)."""
+    import numpy as np
+    from PIL import Image
+
+    from omnitokenizer_tpu_torch.data.coinrun import Game, asset_paths
+
+    rng = np.random.RandomState(171)
+    os.makedirs(root, exist_ok=True)
+    rels = {}
+    for i in range(games):
+        trace = coinrun_trace(i, frames)
+        with open(os.path.join(root, f"level{i:03d}.json"), "w") as f:
+            json.dump(trace, f)
+        paths = asset_paths(Game(**trace))
+        rels[paths["background"]] = (512, 512)
+        rels.update({r: (70, 70) for r in paths["world"].values()})
+        rels.update({r: (256, 128) for r in paths["alien"].values()})
+        rels.update({r.replace(".png", s + ".png"): (64, 64) for r in paths["monster"].values()
+                     for s in ("", "_move", "_dead")})
+    for rel, hw in rels.items():
+        p = os.path.join(root, "assets", rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        rgba = rng.randint(0, 256, hw + (4,)).astype(np.uint8)
+        rgba[..., 3] = np.where(rng.rand(*hw) < 0.4, 0, 255)
+        Image.fromarray(rgba, "RGBA").save(p)
+
+
+def write_families(root: str) -> dict:
+    """Each family's files at the flagship's input size, FAMILY_VIDEOS videos
+    of FAMILY_FRAMES frames of 256^2 (vtokens: code grids of 32^2); the
+    VideoData flags of each."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(170)
+    n = FAMILY_VIDEOS * FAMILY_FRAMES
+    idx = np.arange(FAMILY_VIDEOS + 1) * FAMILY_FRAMES
+    out = {}
+    if has_h5py():
+        import h5py
+
+        def h5(name, data, **extra):
+            path = os.path.join(root, name)
+            with h5py.File(path, "w") as f:
+                f["train_data"], f["train_idx"] = data, idx
+                for k, v in extra.items():
+                    f.create_dataset(k, data=v, dtype=h5py.string_dtype())
+            return path
+
+        clips = rng.randint(0, 256, (n, RES, RES, 3)).astype(np.uint8)
+        caps = [f"clip {i} of a dog walking on grass" for i in range(FAMILY_VIDEOS)]
+        out["hdf5"] = dict(data_path=[h5("clips.h5", clips)])
+        out["text"] = dict(data_path=[h5("text.h5", clips, train_text=caps)], text_cond=True)
+        out["smap"] = dict(data_path=[out["hdf5"]["data_path"][0]], smap_cond=1,
+                           data_path2=h5("smap.h5", rng.randint(0, 20, (n, RES, RES))
+                                         .astype(np.uint8)))
+        out["vtokens"] = dict(data_path=[h5("vtokens.h5", rng.randint(0, 8192, (n, 32, 32)))],
+                              vtokens=True, resolution=32, spatial_length=32, sequence_length=5)
+    frames = os.path.join(root, "frames")
+    for v in range(FAMILY_VIDEOS):
+        os.makedirs(os.path.join(frames, f"v{v}"))
+        for t in range(T):
+            Image.fromarray(rng.randint(0, 256, (RES, RES, 3), np.uint8)).save(
+                os.path.join(frames, f"v{v}", f"{t:03d}.png"))
+    out["frames"] = dict(data_path=[frames], image_folder=True)
+    stft = os.path.join(root, "stft")
+    os.makedirs(stft)
+    for v in range(FAMILY_VIDEOS):
+        np.savez(os.path.join(stft, f"v{v}.npz"), stft=rng.randn(FAMILY_FRAMES, 128)
+                 .astype(np.float32), video=rng.randint(0, 256, (FAMILY_FRAMES, RES, RES, 3))
+                 .astype(np.uint8))
+    out["stft"] = dict(data_path=[stft], stft_data=True)
+    write_coinrun_dir(os.path.join(root, "coinrun"), FAMILY_VIDEOS, FAMILY_FRAMES)
+    out["coinrun"] = dict(data_path=[os.path.join(root, "coinrun")], text_cond=True)
+    return out
+
+
+def phase17a_families() -> dict:
+    """32 clips of each family through VideoData (B=4, 4 decode threads),
+    timed from the loader's construction to the 8th batch."""
+    import argparse
+
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.data import loader, text_tokenizer
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        families = write_families(root)
+        vocab_dir = text_tokenizer.VOCAB_DIR
+        text_tokenizer.VOCAB_DIR = os.path.dirname(
+            write_merge_table(os.path.join(root, "vocab", text_tokenizer.VOCAB_NAME)))
+        print(f"[17a] wrote the families' files in {time.perf_counter() - t0:.1f} s")
+        if not has_h5py():
+            print("[17a] h5py is not importable on this host: the HDF5 families (clips, "
+                  "captions, smap, vtokens) did not run here")
+        try:
+            for name, flags in families.items():
+                args = argparse.Namespace(**{
+                    "train_datalist": ["none"], "val_datalist": ["none"], "batch_size": [B],
+                    "resolution": RES, "sequence_length": T, "num_workers": 4, **flags})
+                assert loader.special_family(args) is not None, name
+                t1 = time.perf_counter()
+                it = iter(loader.VideoData(args, train=True))
+                batches = [next(it) for _ in range(FAMILY_CLIPS // B)]
+                ms = (time.perf_counter() - t1) * 1e3
+                it.close()
+                video = np.stack([b["video"] for b in batches])
+                want = ((B, 5, 32, 32) if name == "vtokens" else (B, T, RES, RES, 3))
+                if video.shape[1:] != want or not np.isfinite(video).all():
+                    raise AssertionError(f"{name}: clips {video.shape[1:]} != {want}")
+                if name != "vtokens" and not (-0.5 <= video.min() and video.max() <= 0.5):
+                    raise AssertionError(f"{name}: pixels outside [-0.5, 0.5]")
+                extra = {k: tuple(batches[0][k].shape) for k in ("text", "stft", "smap", "cbox")
+                         if k in batches[0]}
+                rows[name] = {"ms_32_clips": ms, "ms_a_clip": ms / FAMILY_CLIPS, **extra}
+                print(f"[17a] {name}: {FAMILY_CLIPS} clips {tuple(video.shape[2:])} in "
+                      f"{ms:.1f} ms ({ms / FAMILY_CLIPS:.2f} ms a clip) {extra}")
+        finally:
+            text_tokenizer.VOCAB_DIR = vocab_dir
+    return rows
+
+
+def phase17b_text_lm() -> dict:
+    """transformer_train.main on the card over a CoinRun directory with
+    auto-captions: the launches a step, the caption column, finite losses
+    and gradient norms, ms a step; then the first step at 2 of the layers,
+    kernel route against plain route."""
+    import types
+
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+    from omnitokenizer_tpu_torch.cli import transformer_train
+    from omnitokenizer_tpu_torch.config import GPTConfig, Net2NetConfig
+    from omnitokenizer_tpu_torch.data import text_tokenizer
+    from omnitokenizer_tpu_torch.models.gpt import GPT
+    from omnitokenizer_tpu_torch.models.net2net import Net2NetTransformer
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.training import lm_loop
+    from omnitokenizer_tpu_torch.utils.checkpoint import save_tokenizer_checkpoint
+
+    steps = TEXT_LM_WARMUP + TEXT_LM_TIMED
+    marks, first, losses, norms = [], {}, [], []
+    real_encode, real_step = lm_loop.encode_batch, lm_loop.lm_train_step
+
+    def encode(n2n, batch):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append([ev])
+        first.setdefault("batch", batch)
+        return real_encode(n2n, batch)
+
+    def step(n2n, opt, state, z_ids, labels, **kw):
+        if "z" not in first:  # the first step's batch, sequence and weights (2 layers)
+            inputs, _, _ = n2n.loss_inputs(z_ids, labels)
+            first.update(z=z_ids.clone(), text=labels.clone(), inputs=inputs[:, :1 + TEXT_LEN]
+                         .clone(), cfg=n2n.cfg, sd={
+                k: v.detach().clone() for k, v in n2n.gpt.state_dict().items()
+                if not k.startswith("blocks.") or int(k.split(".")[1]) < TEXT_LM_COMPARE_LAYERS},
+                         run=(n2n, opt, state))
+        metrics = real_step(n2n, opt, state, z_ids, labels, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append(ev)
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+        return metrics
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    vocab_dir = text_tokenizer.VOCAB_DIR
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "coinrun_train")
+        write_coinrun_dir(data, 2 * TEXT_LM_B, T + 3)
+        text_tokenizer.VOCAB_DIR = os.path.dirname(
+            write_merge_table(os.path.join(root, "vocab", text_tokenizer.VOCAB_NAME)))
+        cfg = imagenet_k600_config().replace(dtype=BF)
+        tok = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cuda")
+        save_tokenizer_checkpoint(os.path.join(root, "tok.pt"), tok.net, cfg)
+        del tok
+        argv = ["--vqvae", os.path.join(root, "tok.pt"), "--data_path", data,
+                "--train_datalist", "none", "--default_root_dir", os.path.join(root, "run"),
+                "--batch_size", str(TEXT_LM_B), "--num_workers", "4", "--resolution", str(RES),
+                "--sequence_length", str(T), "--text_cond", "--cond_stage_key", "text",
+                "--text_seq_len", str(TEXT_LEN), "--class_cond_dim", "49408",
+                "--starts_with_sos", "--block_size", str(TEXT_LM_BLOCK),
+                "--n_layer", str(TEXT_LM_LAYERS), "--n_head", str(LM_HEADS),
+                "--n_embd", str(LM_WIDTH), "--lr", "1e-3", "--lr_min", "1e-3",
+                "--warmup_steps", "1", "--max_steps", str(steps), "--seed", "0", "--bf16",
+                "--device", "cuda"]
+        print(f"[17b] wrote {2 * TEXT_LM_B} CoinRun traces, their sprites, a merge table and "
+              f"the flagship tokenizer in {time.perf_counter() - t0:.1f} s")
+        lm_loop.encode_batch, lm_loop.lm_train_step = encode, step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            state = transformer_train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = launch_counts()
+        finally:
+            lm_loop.encode_batch, lm_loop.lm_train_step = real_encode, real_step
+            text_tokenizer.VOCAB_DIR = vocab_dir
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gpt_cfg = state.gpt.cfg
+        # the same step with no loader running: the first batch again, encode included
+        bare = []
+        for _ in range(1 + TEXT_LM_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            real_step(*first["run"], *real_encode(first["run"][0], first["batch"]))
+            ev[1].record()
+            bare.append(ev)
+        torch.cuda.synchronize()
+        bare_ms = [a.elapsed_time(b) for a, b in bare[1:]]
+        profile = lm_profile(*first["run"], first["batch"], tag="17b")
+        del state, first["run"], first["batch"]
+    torch.cuda.empty_cache()
+    got = {k: v // steps if v % steps == 0 else v / steps for k, v in counts.items()}
+    step_ms = [a.elapsed_time(b) for a, b in marks[TEXT_LM_WARMUP:]]
+    losses, norms = [float(x) for x in losses], [float(x) for x in norms]
+    ms = sum(step_ms) / len(step_ms)
+    tokens = TEXT_LM_B * (TEXT_LM_BLOCK - 1)
+    flops = lm_train_flops(gpt_cfg, TEXT_LM_B, TEXT_LM_BLOCK - 1)
+    print(f"[17b] transformer_train --cond_stage_key text: {len(marks)} steps in {wall:.1f} s "
+          f"(model build, data and checkpoint included); {ms:.2f} ms a step "
+          f"({[round(x, 2) for x in step_ms]}, encode included, loader waits not), "
+          f"{tokens / ms * 1e3:.0f} tokens/s, {TEXT_LM_B / ms * 1e3:.2f} clips/s, peak "
+          f"{peak:.2f} GiB, {100 * flops / PEAK_BF16 * 1e3 / ms:.1f}% of the FLOP bound "
+          f"({flops / 1e12:.2f} TFLOP a step); losses {[round(x, 4) for x in losses]}, "
+          f"gradient norms {[round(x, 4) for x in norms]}; launches a step {got}")
+    bare_mean = sum(bare_ms) / len(bare_ms)
+    print(f"[17b] the same step on the first batch with no loader thread running: "
+          f"{bare_mean:.2f} ms ({[round(x, 2) for x in bare_ms]}), "
+          f"{tokens / bare_mean * 1e3:.0f} tokens/s, "
+          f"{100 * flops / PEAK_BF16 * 1e3 / bare_mean:.1f}% of the FLOP bound; the CLI's "
+          f"steps {ms / bare_mean:.2f}x that while its loader renders")
+    if len(marks) != steps or got != TEXT_LM_LAUNCHES or gpt_cfg.vocab_size != TEXT_LM_VOCAB:
+        raise AssertionError(f"steps {len(marks)}, launches a step {got} != {TEXT_LM_LAUNCHES}, "
+                             f"vocabulary {gpt_cfg.vocab_size}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"losses {losses}, gradient norms {norms}")
+
+    # the caption column: sos, then the caption ids shifted past sos
+    text, inputs = first["text"], first["inputs"]
+    if tuple(first["z"].shape) != (TEXT_LM_B, 5 * 32 * 32) or tuple(text.shape) != (
+            TEXT_LM_B, TEXT_LEN) or not torch.equal(inputs[:, 1:], text + 1) \
+            or bool((inputs[:, 0] != 0).any()):
+        raise AssertionError(f"sequence: codes {tuple(first['z'].shape)}, text "
+                             f"{tuple(text.shape)}, column equal "
+                             f"{torch.equal(inputs[:, 1:], text + 1)}")
+    with tempfile.TemporaryDirectory() as root:
+        vocab = text_tokenizer.SimpleTokenizer(write_merge_table(os.path.join(root, "v.txt")))
+    sot, eot = vocab.encoder["<|startoftext|>"], vocab.encoder["<|endoftext|>"]
+    caption = vocab.decode([t for t in text[0].tolist() if t not in (0, sot, eot)])
+    if not (bool((text[:, 0] == sot).all()) and caption.startswith("mugen")):
+        raise AssertionError(f"captions: first ids {text[:, 0].tolist()}, {caption!r}")
+    print(f"[17b] the caption column sits after sos: ids {text.shape[1]} wide, "
+          f"{int((text != 0).sum(1).max())} used at most; first caption {caption!r}")
+
+    # the first step at 2 of the layers: kernel route against plain route
+    cfg2 = gpt_cfg.replace(n_layer=TEXT_LM_COMPARE_LAYERS)
+    gpt = GPT(cfg2).cuda()
+    gpt.load_state_dict(first["sd"])
+    n2n = Net2NetTransformer(first["cfg"].replace(gpt=cfg2),
+                             types.SimpleNamespace(device=torch.device("cuda")), gpt=gpt)
+    one = {}
+    for name, flash in (("kernel", True), ("plain", False)):
+        lm_route(gpt, flash)
+        reset_launch_counts()
+        loss, _ = n2n.loss_fn(first["z"], first["text"])
+        grads = torch.autograd.grad(loss, list(gpt.parameters()))
+        one[name] = (float(loss.detach()), lm_grad_norms(gpt, grads), launch_counts())
+        del loss, grads
+        torch.cuda.empty_cache()
+    if (one["kernel"][2]["flash_attn_fwd"], one["kernel"][2]["flash_attn_bwd"]) != (
+            TEXT_LM_COMPARE_LAYERS,) * 2 or any(one["plain"][2].values()):
+        raise AssertionError(f"routes' launches: {one['kernel'][2]}, {one['plain'][2]}")
+    loss_err = abs(one["kernel"][0] - one["plain"][0]) / abs(one["plain"][0])
+    norm_err = {k: abs(v - one["plain"][1][k]) / one["plain"][1][k]
+                for k, v in one["kernel"][1].items()}
+    worst = max(norm_err, key=norm_err.get)
+    print(f"[17b] the first step at {TEXT_LM_COMPARE_LAYERS} layers, kernel vs plain route: "
+          f"loss {one['kernel'][0]:.6f} vs {one['plain'][0]:.6f} (rel {loss_err:.3e}, bar "
+          f"{LM_TRAIN_LOSS_REL_TOL}); gradient norms rel: global {norm_err['global']:.3e}, "
+          f"worst {worst} {norm_err[worst]:.3e} (bar {LM_TRAIN_GRAD_NORM_REL_TOL})")
+    if not (loss_err <= LM_TRAIN_LOSS_REL_TOL
+            and max(norm_err.values()) <= LM_TRAIN_GRAD_NORM_REL_TOL):
+        raise AssertionError(f"kernel vs plain route: loss {loss_err:.3e}, norms {norm_err}")
+    del gpt, n2n, first
+    torch.cuda.empty_cache()
+    row = {"step_ms": ms, "step_ms_each": step_ms, "tokens_per_s": tokens / ms * 1e3,
+           "clips_per_s": TEXT_LM_B / ms * 1e3, "peak_gib": peak, "flops_per_step": flops,
+           "bound_ms": flops / PEAK_BF16 * 1e3, "flop_bound_share": flops / PEAK_BF16 * 1e3 / ms,
+           "launches_per_step": got, "losses": losses, "grad_norms": norms,
+           "bare_step_ms": bare_mean, "bare_step_ms_each": bare_ms, "profile_ms": profile,
+           "one_step": {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err},
+           "wall_s": wall}
+    print(json.dumps({"text_lm_train": row}))
+    return got
+
+
+def phase17_host_pieces() -> dict:
+    t0 = time.perf_counter()
+    families = phase17a_families()
+    print(json.dumps({"families": families}))
+    got = phase17b_text_lm()
+    print(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return {"text_lm_train": got}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4588,7 +4995,8 @@ def main(argv=None) -> int:
               (7, lambda: {"wide": phase7_wide()}), (8, lambda: {"train": phase8_train(smi)}),
               (9, phase9_eval), (10, phase10_lm), (11, phase11_diffusion),
               (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v),
-              (15, lambda: phase15_last_pieces(smi)), (16, lambda: phase16_parallel(smi))]
+              (15, lambda: phase15_last_pieces(smi)), (16, lambda: phase16_parallel(smi)),
+              (17, phase17_host_pieces)]
     paths = {}
     for n, phase in phases:
         if run is None or n in run:
@@ -4608,7 +5016,7 @@ def main(argv=None) -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    done = "0-16" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
+    done = "0-17" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
     print(f"[done] phases {done} in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

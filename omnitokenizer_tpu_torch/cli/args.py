@@ -3,9 +3,10 @@ so the reference's shell recipes run with the module name swapped.
 
 The flag inventories are the JAX package's: the reference's
 omnitokenizer.py:694-768 (model), base.py:245-269 (VQ/GAN), data.py:551-577
-(data), and the trainer's flags. Not ported: --ckpt_backend (Orbax) and
---wandb_project (the port checkpoints with torch.save and logs to
-metrics.jsonl), and the JAX CLIs' multi-host bring-up (ROADMAP.md). The
+(data), and the trainer's flags. --ckpt_backend has no default here:
+without it the tokenizer trainer writes torch.save checkpoints, with
+msgpack the JAX package's train state (training/loop.py); orbax is
+refused. The JAX CLIs' multi-host bring-up is parallel/mesh.py's. The
 port adds --device: the card ("cuda", the default) or "cpu".
 """
 
@@ -118,6 +119,10 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--recloss_check_thres", type=float, default=None)
     p.add_argument("--resolution_scale", default=None, nargs="+", type=float)
     p.add_argument("--default_root_dir", type=str, default="./runs/omnitokenizer")
+    p.add_argument("--ckpt_backend", type=str, default=None, choices=["msgpack", "orbax"],
+                   help="vqgan_train's checkpoint format: torch.save .pt (default), msgpack "
+                        "(the JAX package's TokenizerTrainState file, step_*.msgpack), or "
+                        "orbax (refused: tensorstore)")
     p.add_argument("--pretrained", type=str, default=None)
     p.add_argument("--init_vgen", type=str, default=None)
     p.add_argument("--inflation_pe", action="store_true",
@@ -131,6 +136,9 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--gpus", type=int, default=0)
     p.add_argument("--sync_batchnorm", action="store_true")
     p.add_argument("--progress_bar_refresh_rate", type=int, default=50)
+    # the reference's WandbLogger (vqgan_train.py:149); an offline run
+    # directory without the wandb package (utils/wandb_logger.py)
+    p.add_argument("--wandb_project", type=str, default=None)
     return p
 
 

@@ -18,7 +18,8 @@ takes global_batch_size / N rows (synthetic latents and the timesteps are
 its rows of the global draw; the loader strides the data by rank), the
 gradients are averaged (training/diffusion_loop.py), so the parameters
 and their EMA stay equal everywhere, and rank 0 logs and writes the
-states. `latte_train` is `main(video=True)`.
+states. --wandb_project mirrors the metrics into a wandb run.
+`latte_train` is `main(video=True)`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ def build_parser(video: bool = False):
                         "the JAX package's state_*.msgpack")
     p.add_argument("--synthetic_data", action="store_true",
                    help="train directly on random latents (no VAE or data needed)")
+    p.add_argument("--wandb_project", type=str, default=None,
+                   help="mirror the metrics into a wandb run (an offline run directory under "
+                        "--results_dir/wandb without the wandb package)")
     if video:
         p.add_argument("--use_image_num", type=int, default=0,
                        help="joint image-video training (latte_img): append N independent "
@@ -172,7 +176,9 @@ def train(args, model, adapter=None, batches=None, video: bool = False):
         return m(x_t, t, y, **kw)
 
     step_fn = make_diffusion_train_step(loss_model_fn, diffusion, opt, args.ema_decay, group)
-    logger = MetricsLogger(args.results_dir, log_every=args.log_every) if lead else None
+    logger = MetricsLogger(args.results_dir, log_every=args.log_every,
+                           wandb_project=args.wandb_project, wandb_config=vars(args)
+                           ) if lead else None
     rng = np.random.RandomState(args.seed)
     encode = encode_batch_fn(adapter, video) if adapter is not None else None
     # the appended frames of joint training encode as images (one latent frame each)

@@ -18,8 +18,22 @@ OMNITOK_PROC_ID; parallel/mesh.py) the run is data-parallel, each process
 loading its strided share of the batches; --model_parallel M puts M ranks
 on a tensor-parallel group (parallel/tp.py) and --pipeline_stages S makes
 S ranks a GPipe pipeline of --microbatches microbatches (parallel/pp.py),
-the data axis taking the rest. Not ported, and refused: text and stft
-conditioning (ROADMAP.md, "The remaining host pieces").
+the data axis taking the rest.
+
+Text conditioning: --text_cond --cond_stage_key text on a CoinRun
+directory (its auto-captions, or --text_path's) or a caption HDF5 puts the
+caption's CLIP BPE ids (--text_seq_len wide; 256 for CoinRun, 77 for
+HDF5) in the sequence as the condition column, with --class_cond_dim 49408
+(CLIP's vocabulary) and a --block_size that holds sos + the column + the
+codes. The BPE merge table is read from data/text_tokenizer.py's VOCAB_DIR.
+--wandb_project mirrors the metrics into a wandb run (an offline run
+directory under <default_root_dir>/wandb without the wandb package).
+
+Refused, each where the JAX CLI goes wrong: --cond_stage_key stft (the JAX
+CLI loads --stft_vqvae but conditions on the batch's label, which
+StftDataset gives as -1: it never reads the stft), --vtokens (the JAX CLI
+would send the pre-tokenized code grids through the tokenizer as pixels),
+and --ckpt_backend (vqgan_train's; the LM's checkpoints are .pt).
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pkeep", type=float, default=1.0)
     p.add_argument("--first_stage_key", type=str, default="video")
     p.add_argument("--stft_vqvae", type=str, default=None,
-                   help="second tokenizer ckpt for 'stft' conditioning; not ported")
+                   help="second tokenizer ckpt for 'stft' conditioning; refused")
     p.add_argument("--vocab_size", type=int, default=None,
                    help="override the GPT vocab (default: the tokenizer's codes + the "
                         "conditioning)")
@@ -102,6 +116,34 @@ def build_model(args):
     return Net2NetTransformer(n2n_cfg, tok, seed=args.seed)
 
 
+def check_data(args) -> None:
+    """Refuse the flag sets the JAX CLI accepts but trains wrongly, and a
+    condition the data does not carry."""
+    from ..data.loader import CLASSLESS, special_family
+
+    if args.cond_stage_key == "stft":
+        raise NotImplementedError(
+            "--cond_stage_key stft is refused: the JAX CLI loads --stft_vqvae but conditions "
+            "on the batch's label, which StftDataset gives as -1, so it never reads the stft "
+            "(omnitokenizer_tpu/cli/transformer_train.py:219-224)")
+    if args.vtokens:
+        raise NotImplementedError(
+            "--vtokens is refused: the JAX CLI has no vtokens branch and would send the "
+            "dataset's int code grids through the tokenizer as pixels "
+            "(omnitokenizer_tpu/cli/transformer_train.py:215-218)")
+    if args.ckpt_backend:
+        raise ValueError("--ckpt_backend is vqgan_train's; transformer_train writes .pt "
+                         "checkpoints (training/lm_loop.py)")
+    family = special_family(args)
+    if args.cond_stage_key == "text" and not (args.text_cond
+                                               and family in ("coinrun", "text_cond")):
+        raise ValueError("--cond_stage_key text needs captions: --text_cond on a CoinRun "
+                         "directory or a caption HDF5")
+    if args.cond_stage_key == "label" and not args.unconditional and family in CLASSLESS:
+        raise ValueError(f"the {family!r} dataset family gives no class (label -1): train it "
+                         "with --unconditional, or --cond_stage_key text on captions")
+
+
 def main(argv=None):
     from ..data.loader import VideoData
     from ..parallel import mesh, tp
@@ -114,10 +156,7 @@ def main(argv=None):
         tp.check_layout(args.n_head, args.n_embd, args.model_parallel)
     if args.pipeline_stages > 1 and args.n_layer % args.pipeline_stages:
         raise ValueError("n_layer must divide by --pipeline_stages")
-    if args.cond_stage_key in ("text", "stft"):
-        raise NotImplementedError(
-            f"--cond_stage_key {args.cond_stage_key} needs the text/stft datasets, not ported "
-            "(ROADMAP.md, \"The remaining host pieces\")")
+    check_data(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     inner = max(args.model_parallel, args.pipeline_stages)
     mesh.init_distributed(args.device)
@@ -134,7 +173,8 @@ def main(argv=None):
     loader = VideoData(args, train=True, process_index=par.data_rank,
                        process_count=par.data_size)
     return train_lm(n2n, opt, iter(loader), args.default_root_dir, args.max_steps,
-                    seed=args.seed, par=par)
+                    seed=args.seed, par=par, wandb_project=args.wandb_project,
+                    wandb_config=vars(args))
 
 
 if __name__ == "__main__":

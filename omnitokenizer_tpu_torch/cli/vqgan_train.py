@@ -5,8 +5,11 @@ load with weight inflation, auto-resume, the GAN step over the loader.
     python -m omnitokenizer_tpu_torch.cli.vqgan_train --patch_size 8 ... \\
         --data_path DIR --train_datalist LIST --default_root_dir RUNS [--device cpu]
 
-Checkpoints land in <default_root_dir>/checkpoints/step_*.pt; a run
-resumes from the newest, and `vqgan_eval --vqgan_ckpt` reads them.
+Checkpoints land in <default_root_dir>/checkpoints/step_*.pt (with
+--ckpt_backend msgpack, step_*.msgpack in the JAX package's train-state
+format, which the JAX CLI resumes from too); a run resumes from the
+newest, and `vqgan_eval --vqgan_ckpt` reads them. --wandb_project mirrors
+the metrics into a wandb run (offline without the wandb package).
 `--pretrained` takes a reference Lightning `.ckpt`, a port `.pt` or a JAX
 package `.msgpack`; with `--use_vae --kl_weight 1e-6 --init_vgen keep
 --init_vdis keep` from a VQ stage it is the recipe's stage 3
@@ -39,11 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     from ..data.loader import VideoData
     from ..parallel import mesh
-    from ..training.loop import train_tokenizer
+    from ..training.loop import check_ckpt_backend, train_tokenizer
     from ..training.trainer import TokenizerTrainer
     from ..utils.inflate import load_pretrained_into_state
 
     args = A.normalize_precision(build_parser().parse_args(argv))
+    check_ckpt_backend(args.ckpt_backend)
     mesh.init_distributed(args.device)
     trainer = TokenizerTrainer(A.tokenizer_config_from(args), A.loss_config_from(args),
                                A.train_config_from(args), device=args.device,
@@ -64,7 +68,8 @@ def main(argv=None):
 
     return train_tokenizer(
         trainer, iter(loader), args.default_root_dir, max_steps=args.max_steps, seed=args.seed,
-        initial_state=state, val_batches=iter(val_loader) if val_loader is not None else None)
+        initial_state=state, val_batches=iter(val_loader) if val_loader is not None else None,
+        wandb_project=args.wandb_project, wandb_config=vars(args), ckpt_backend=args.ckpt_backend)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,9 @@ port's buffers of the same names.
 `load_train_state_from_jax` fills a trainer state (training/trainer.py)
 from the JAX trainer's: the generator's params and codebook buffers, the
 discriminators' params and BatchNorm statistics, the LPIPS params and the
-step. The optimizer states are not mapped.
+step. `train_state_to_jax` writes the whole JAX TokenizerTrainState,
+optimizers included, and `load_full_train_state_from_jax` reads it back
+(vqgan_train --ckpt_backend msgpack).
 
 It is strict: a JAX leaf that maps to no port tensor, a port tensor left
 unfilled, or a shape that disagrees raises.
@@ -45,7 +47,7 @@ from __future__ import annotations
 
 import re
 import warnings
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,10 +129,19 @@ def _port_key(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray
 
 def state_dict_from_jax(variables: Dict[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
     """flax variables (nested dicts of numpy arrays) -> `model`'s state_dict."""
+    return _from_jax(variables, model.state_dict())
+
+
+def params_from_jax(params: Dict[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A tree shaped as `model`'s flax params (an optimizer's moments, say)
+    -> a tensor for each of `model`'s named parameters."""
+    return _from_jax({"params": params}, dict(model.named_parameters()))
+
+
+def _from_jax(variables: Dict[str, Any], want: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     unknown = set(variables) - set(COLLECTIONS)
     if unknown:
         raise KeyError(f"unexpected variable collections: {sorted(unknown)}")
-    want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for collection in COLLECTIONS:
@@ -166,10 +177,114 @@ def load_train_state_from_jax(tree: Dict[str, Any], state) -> None:
     state.step = int(tree["step"])
 
 
-def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
-    """The inverse of state_dict_from_jax for the tokenizer: `model`'s
-    state_dict as the JAX tokenizer's variables {"params": ..., "buffers":
-    ..., ["batch_stats": ...]}. A Linear of an attention or
+# -- the JAX TokenizerTrainState (omnitokenizer_tpu/training/trainer.py:38-47) --------------
+# Its optimizers are optax chains: clip_by_global_norm (when a clip is set),
+# scale_by_adam, scale_by_learning_rate, in MultiSteps when gradients
+# accumulate. Serialized, a chain is a dict keyed '0', '1', ... of its
+# states: {} for the clip, {count, mu, nu} for Adam, {count} for the
+# schedule; MultiSteps is {mini_step, gradient_step, inner_opt_state,
+# acc_grads, skip_state: {}}. Counts are int32 0-d arrays. The port's
+# streams come from a seed where the JAX step splits a key: `rng` holds
+# the seed as jax.random.PRNGKey(seed) does, [seed >> 32, seed & 0xffffffff].
+def _i32(x: int) -> np.ndarray:
+    return np.asarray(x, np.int32)
+
+
+def _opt_to_jax(opt, st, moments) -> Dict[str, Any]:
+    """An OptaxAdam (training/trainer.py) and its OptState as optax's tree;
+    `moments(list)` maps a list in parameter order to the params tree."""
+    chain = [] if opt.clip is None else [{}]
+    chain += [{"count": _i32(st.count), "mu": moments(st.mu), "nu": moments(st.nu)},
+              {"count": _i32(st.lr_count)}]
+    inner = {str(i): c for i, c in enumerate(chain)}
+    if opt.k == 1:
+        return inner
+    return {"mini_step": _i32(st.mini_step), "gradient_step": _i32(st.gradient_step),
+            "inner_opt_state": inner, "acc_grads": moments(st.acc), "skip_state": {}}
+
+
+def _opt_from_jax(tree: Dict[str, Any], opt, st, moments) -> None:
+    """The inverse of _opt_to_jax into `st`; `moments(tree)` maps a params
+    tree to a list in parameter order."""
+    def fill(dst, tree_):
+        with torch.no_grad():
+            for t, v in zip(dst, moments(tree_)):
+                t.copy_(v)
+
+    if opt.k > 1:
+        st.mini_step, st.gradient_step = int(tree["mini_step"]), int(tree["gradient_step"])
+        fill(st.acc, tree["acc_grads"])
+        tree = tree["inner_opt_state"]
+    first = 0 if opt.clip is None else 1
+    if len(tree) != first + 2:
+        raise KeyError(f"an optax chain of {len(tree)} states; this optimizer's has {first + 2}")
+    adam = tree[str(first)]
+    st.count, st.lr_count = int(adam["count"]), int(tree[str(first + 1)]["count"])
+    fill(st.mu, adam["mu"])
+    fill(st.nu, adam["nu"])
+
+
+def _module_moments(modules: Dict[str, nn.Module]):
+    """(to_jax, from_jax) of moment lists over the parameters of `modules`
+    in order; keyed by name when there are several (the discriminators'
+    {"image", "video"}), else the one module's params tree."""
+    names = {k: [n for n, _ in m.named_parameters()] for k, m in modules.items()}
+
+    def to_jax(values):
+        out, it = {}, iter(values)
+        for k, m in modules.items():
+            sd = {n: next(it) for n in names[k]}
+            out[k] = state_dict_to_jax(m, sd).get("params", {})
+        return out if len(modules) > 1 else out[next(iter(modules))]
+
+    def from_jax(tree):
+        values = []
+        for k, m in modules.items():
+            got = params_from_jax(tree[k] if len(modules) > 1 else tree, m)
+            values += [got[n] for n in names[k]]
+        return values
+
+    return to_jax, from_jax
+
+
+def train_state_to_jax(state, opt_g, opt_d) -> Dict[str, Any]:
+    """A `training.trainer.TokenizerTrainState` as the JAX trainer's state
+    tree (to be written by utils.msgpack_io.write_msgpack); opt_g and
+    opt_d are the trainer's OptaxAdam chains."""
+    net = state_dict_to_jax(state.net)
+    discs = {w: state_dict_to_jax(getattr(state, f"{w}_disc")) for w in ("image", "video")}
+    g_moments, _ = _module_moments({"net": state.net})
+    d_moments, _ = _module_moments({w: getattr(state, f"{w}_disc") for w in ("image", "video")})
+    seed = int(state.seed)
+    return {"step": _i32(state.step), "params_g": net["params"], "buffers": net.get("buffers", {}),
+            "opt_g": _opt_to_jax(opt_g, state.opt_g, g_moments),
+            "params_d": {w: d["params"] for w, d in discs.items()},
+            "batch_stats_d": {w: d.get("batch_stats", {}) for w, d in discs.items()},
+            "opt_d": _opt_to_jax(opt_d, state.opt_d, d_moments),
+            "lpips_params": state_dict_to_jax(state.lpips)["params"],
+            "rng": np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)}
+
+
+def load_full_train_state_from_jax(tree: Dict[str, Any], state, opt_g, opt_d) -> None:
+    """The inverse of train_state_to_jax: the modules and the step
+    (load_train_state_from_jax), both optimizers' moments and counts, and
+    the seed from `rng`."""
+    load_train_state_from_jax(tree, state)
+    _, g_from = _module_moments({"net": state.net})
+    _, d_from = _module_moments({w: getattr(state, f"{w}_disc") for w in ("image", "video")})
+    _opt_from_jax(tree["opt_g"], opt_g, state.opt_g, g_from)
+    _opt_from_jax(tree["opt_d"], opt_d, state.opt_d, d_from)
+    hi, lo = (int(x) for x in _np(tree["rng"]).reshape(-1))
+    state.seed = (hi << 32) | lo
+
+
+def state_dict_to_jax(model: nn.Module, sd: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, Any]:
+    """The inverse of state_dict_from_jax for the tokenizer, a
+    discriminator or LPIPS: `model`'s state_dict (or `sd`, tensors under
+    its keys) as the JAX module's variables {"params": ..., "buffers":
+    ..., ["batch_stats": ...]}. Any conv's (out, in, *k) weight is a
+    `kernel` (*k, in, out) but for the tokenizer's own below. A Linear of an attention or
     feed-forward block was a raw `<name>_kernel` parameter of its flax
     module (ops/attention.py), any other Linear a Dense `kernel`; PEG's
     depthwise conv was `dsconv_kernel`, (d, 1, 3, 3, 3) -> (3, 3, 3, 1, d);
@@ -183,7 +298,7 @@ def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
 
     buffers = {n for n, _ in model.named_buffers()}
     flat: Dict[Tuple[str, ...], Any] = {}
-    for key, value in model.state_dict().items():
+    for key, value in (model.state_dict() if sd is None else sd).items():
         *scope, leaf = key.split(".")
         arr = value.detach().cpu()
         module = model.get_submodule(".".join(scope)) if scope else model
@@ -208,8 +323,9 @@ def state_dict_to_jax(model: nn.Module) -> Dict[str, Any]:
             else:
                 path = (*scope, "kernel")
             arr = arr.T if leaf == "weight" else arr
-        elif isinstance(module, nn.modules.conv._ConvNd):
-            raise KeyError(f"{key}: a conv outside PEG has no JAX tokenizer leaf")
+        elif isinstance(module, nn.modules.conv._ConvNd) and leaf == "weight":
+            path = (*scope, "kernel")
+            arr = arr.permute(*range(2, arr.ndim), 1, 0)
         else:
             path = (*scope, leaf)
         flat[("params",) + path] = _out(arr)

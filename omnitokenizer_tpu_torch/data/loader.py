@@ -232,11 +232,15 @@ class JointLoader:
             step += 1
 
 
-def _special_family(args) -> Optional[str]:
-    """The reference's 'sep' dataset families (its data.py:430-489), as the
-    JAX package routes them: coinrun directories, pre-tokenized vtokens,
-    frame folders, stft, smap/text HDF5 pairs and plain .h5 files. None
-    when the image/video list routing applies."""
+# the families whose samples carry no class: `label` -1 (vtokens has none)
+CLASSLESS = ("coinrun", "image_folder", "stft_data", "smap_cond", "text_cond", "hdf5")
+
+
+def special_family(args) -> Optional[str]:
+    """The reference's 'sep' dataset family of `args` (its data.py:430-489),
+    as the JAX package routes them: coinrun directories, pre-tokenized
+    vtokens, frame folders, stft, smap/text HDF5 pairs and plain .h5 files;
+    None when the image/video list routing applies."""
     import os.path as osp
 
     path0 = args.data_path if isinstance(args.data_path, str) else args.data_path[0]
@@ -250,13 +254,61 @@ def _special_family(args) -> Optional[str]:
     return None
 
 
+def text_seq_len(args) -> int:
+    """The caption width of a text family: --text_seq_len, else 256 for
+    CoinRun and 77 (CLIP's) for HDF5 captions."""
+    return getattr(args, "text_seq_len", None) or (
+        256 if special_family(args) == "coinrun" else 77)
+
+
+def _special_dataset(args, train: bool):
+    """The dataset of a special family (JAX data/loader.py:233-290), or None."""
+    import os.path as osp
+
+    family = special_family(args)
+    if family is None:
+        return None
+    get = lambda n, d=None: getattr(args, n, d)  # noqa: E731
+    path0 = args.data_path if isinstance(args.data_path, str) else args.data_path[0]
+    if family == "coinrun":
+        from .coinrun import CoinRunDataset
+
+        # --text_cond on a coinrun directory: captions (get_text_desc)
+        return CoinRunDataset(path0, get("asset_root") or osp.join(path0, "assets"),
+                              sequence_length=args.sequence_length,
+                              resolution=args.resolution, train=train,
+                              get_text_desc=bool(get("text_cond")),
+                              text_seq_len=text_seq_len(args), text_path=get("text_path"))
+    from . import hdf5
+
+    if family == "vtokens":
+        return hdf5.HDF5DatasetVtokens(path0, args.sequence_length, train=train,
+                                       resolution=args.resolution,
+                                       spatial_length=get("spatial_length", args.resolution))
+    if family == "image_folder":
+        return hdf5.FrameDataset(path0, args.sequence_length, resolution=args.resolution,
+                                 sample_every_n_frames=get("sample_every_n_frames", 1))
+    if family == "stft_data":
+        return hdf5.StftDataset(path0, sequence_length=args.sequence_length,
+                                resolution=args.resolution)
+    if family == "smap_cond":
+        return hdf5.HDF5DatasetSmap(path0, get("data_path2"), args.sequence_length,
+                                    train=train, resolution=args.resolution)
+    if family == "text_cond":
+        return hdf5.HDF5DatasetText(path0, args.sequence_length, train=train,
+                                    resolution=args.resolution, text_len=text_seq_len(args))
+    return hdf5.HDF5Dataset(path0, args.sequence_length, train=train,
+                            resolution=args.resolution,
+                            sample_every_n_frames=get("sample_every_n_frames", 1))
+
+
 def VideoData(args, train: bool = True, process_index: int = 0,
               process_count: int = 1, epochs: Optional[int] = None):
     """Build loaders from an argparse-style namespace mirroring
     VideoData.add_data_specific_args (the reference's data.py:551-577):
     loader_type 'sep'/'joint', data_path / train_datalist / val_datalist
-    lists, per-dataset batch_size. The reference's special dataset families
-    raise NotImplementedError.
+    lists, per-dataset batch_size; a special dataset family (`special_family`)
+    is one DataLoader of batch_size[0], shuffled when training.
 
     `epochs=None` (default) cycles forever — the training/validation
     contract.  Eval CLIs pass epochs=1 for the reference's one-pass
@@ -280,12 +332,9 @@ def VideoData(args, train: bool = True, process_index: int = 0,
               process_index=process_index, process_count=process_count,
               epochs=epochs, drop_last=not finite)
 
-    family = _special_family(args)
-    if family is not None:
-        raise NotImplementedError(
-            f"the {family!r} dataset family is not ported (ROADMAP.md, \"The remaining host "
-            "pieces\"): the HDF5, coinrun, frame-folder and stft datasets need h5py and are "
-            "off the tokenizer's main path; the port reads image and video lists")
+    special = _special_dataset(args, train)
+    if special is not None:
+        return DataLoader(special, batch_sizes[0], shuffle=train, **lk)
 
     def _is_image_list(dlist: str) -> bool:
         # the first entry's extension is authoritative — a list NAME

@@ -150,6 +150,11 @@ class Net2NetTransformer:
         if keep is not None and self.cfg.pkeep < 1.0:
             z_in = torch.where(keep, z_ids.long() + off, rand_ids.long()) - off
         cz, target, prefix = self.build_sequence(z_in, labels)
+        if cz.shape[1] - 1 > self.cfg.gpt.block_size:
+            raise ValueError(
+                f"the sequence is {cz.shape[1]} tokens ({cz.shape[1] - z_ids.shape[1]} of "
+                f"sos and condition, {z_ids.shape[1]} codes); the GPT reads all but the last: "
+                f"block_size {self.cfg.gpt.block_size} < {cz.shape[1] - 1}")
         return cz[:, :-1], target, prefix
 
     def loss_from_logits(self, logits: torch.Tensor, target: torch.Tensor, prefix: int

@@ -38,6 +38,7 @@ import dataclasses
 import os
 from typing import Any, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from ..models.gpt import GPT
@@ -257,25 +258,42 @@ def lm_train_step(n2n: Net2NetTransformer, opt: OptaxAdam, state: LMTrainState,
 
 
 def encode_batch(n2n: Net2NetTransformer, batch: Dict[str, Any]):
-    """(z_ids (B, N), class ids (B,)) of a loader batch: its channels-last
+    """(z_ids (B, N), condition) of a loader batch: its channels-last
     'video' (B, T, H, W, C) or images (B, H, W, C), arrays or tensors,
-    encoded by the frozen tokenizer, and its 'label' (zeros without one)."""
+    encoded by the frozen tokenizer; the condition its 'text' ids (B, L)
+    when cond_stage_key is 'text' (as the JAX CLI takes them), else its
+    'label' class ids (B,) (zeros without one). A host-side condition is
+    checked against the condition vocabulary: a family with no class gives
+    label -1."""
     video = torch.as_tensor(batch["video"], dtype=torch.float32).to(n2n.device)
     x = torch.movedim(video, -1, 1)
     with torch.no_grad():
         z_ids = n2n.encode_to_z(x, x.ndim == 4)
-    labels = batch.get("label")
-    labels = torch.zeros(len(x), dtype=torch.long) if labels is None else labels
-    return z_ids, torch.as_tensor(labels).to(n2n.device).long()
+    key = "text" if n2n.cfg.cond_stage_key == "text" else "label"
+    if key == "text" and "text" not in batch:
+        raise ValueError("--cond_stage_key text needs captions in the batch: a CoinRun directory "
+                         "or a caption HDF5, with --text_cond")
+    cond = batch.get(key)
+    cond = torch.zeros(len(x), dtype=torch.long) if cond is None else cond
+    if not isinstance(cond, torch.Tensor) and not n2n.cfg.unconditional:
+        ids = np.asarray(cond)
+        if ids.size and (ids.min() < 0 or ids.max() >= n2n.cond_vocab):
+            raise ValueError(f"the batch's {key} ids span [{ids.min()}, {ids.max()}], outside the "
+                             f"condition vocabulary [0, {n2n.cond_vocab}) (--class_cond_dim)"
+                             + ("; label -1 is a dataset family with no class"
+                                if key == "label" and ids.min() < 0 else ""))
+    return z_ids, torch.as_tensor(cond).to(n2n.device).long()
 
 
 def train_lm(n2n: Net2NetTransformer, opt: OptaxAdam, batches: Iterable[Dict[str, Any]],
              root_dir: str, max_steps: int, ckpt_every: int = 3000, log_every: int = 50,
-             resume: bool = True, seed: int = 0,
-             par: Optional[LMParallel] = None) -> LMTrainState:
+             resume: bool = True, seed: int = 0, par: Optional[LMParallel] = None,
+             wandb_project: Optional[str] = None,
+             wandb_config: Optional[Dict[str, Any]] = None) -> LMTrainState:
     """Train the GPT over a batch stream (this data row's, under `par`) up
     to `max_steps` (or the stream's end); returns the final state. Rank 0
-    alone logs and writes the checkpoints."""
+    alone logs (into a wandb run too, with wandb_project) and writes the
+    checkpoints."""
     par = par or LMParallel()
     state = init_lm_state(n2n, opt, seed)
     ckpt = find_latest_checkpoint(root_dir) if resume else None
@@ -286,7 +304,7 @@ def train_lm(n2n: Net2NetTransformer, opt: OptaxAdam, batches: Iterable[Dict[str
         for _ in range(state.step):  # the batches the steps before consumed
             next(it, None)
     lead = mesh.rank() == 0
-    logger = MetricsLogger(root_dir, log_every) if lead else None
+    logger = MetricsLogger(root_dir, log_every, wandb_project, wandb_config) if lead else None
 
     def ckpt_path() -> str:
         return os.path.join(root_dir, "checkpoints", f"step_{state.step:08d}.pt")

@@ -7,8 +7,10 @@ pass, reconstruction grids and the multi-resolution resize.
 
 `batches` yields dicts with 'video', channels-last (B, T, H, W, C) or
 (B, H, W, C) float32 arrays or tensors. Under `root_dir` the loop writes
-checkpoints/step_XXXXXXXX.pt (torch.save of the state's state_dict) every
-`ckpt_every` steps and at the end, metrics.jsonl (one JSON record a logged
+checkpoints/step_XXXXXXXX.pt (torch.save of the state's state_dict; with
+ckpt_backend='msgpack' step_XXXXXXXX.msgpack, the JAX package's
+TokenizerTrainState with both optimizers' moments) every `ckpt_every`
+steps and at the end, metrics.jsonl (one JSON record a logged
 step), and images/train/step_XXXXXXXX.png (input above reconstruction, the
 first sample's frames side by side) on a 1, 2, 4, ..., img_every, then
 every img_every schedule. A run resumes from the newest checkpoint.
@@ -61,9 +63,39 @@ def load_state(path: str, state: TokenizerTrainState) -> TokenizerTrainState:
     return state
 
 
-def find_latest_checkpoint(root: str) -> Optional[str]:
-    """The newest checkpoints/step_*.pt under root."""
-    cands = glob.glob(os.path.join(root, "checkpoints", "step_*.pt"))
+def check_ckpt_backend(backend: Optional[str]) -> None:
+    """None (torch.save) and msgpack are written; orbax is refused."""
+    if backend == "orbax":
+        raise NotImplementedError(
+            "--ckpt_backend orbax is not ported: Orbax writes through tensorstore, which the "
+            "port does not use (ROADMAP.md, \"Not to port\"); msgpack writes the JAX "
+            "package's train state, the default a torch.save .pt")
+    if backend not in (None, "msgpack"):
+        raise ValueError(f"unknown --ckpt_backend {backend!r}")
+
+
+def save_state_msgpack(path: str, state: TokenizerTrainState, trainer: TokenizerTrainer) -> None:
+    """The state as the JAX package's TokenizerTrainState msgpack (its
+    training/loop.py save_state): modules, both optimizers, step and seed."""
+    from ..convert import train_state_to_jax
+    from ..utils.msgpack_io import write_msgpack
+
+    write_msgpack(path, train_state_to_jax(state, trainer.opt_g, trainer.opt_d))
+
+
+def load_state_msgpack(path: str, state: TokenizerTrainState,
+                       trainer: TokenizerTrainer) -> TokenizerTrainState:
+    """The inverse of save_state_msgpack into `state`, moments included."""
+    from ..convert import load_full_train_state_from_jax
+    from ..utils.msgpack_io import read_msgpack
+
+    load_full_train_state_from_jax(read_msgpack(path), state, trainer.opt_g, trainer.opt_d)
+    return state
+
+
+def find_latest_checkpoint(root: str, ext: str = "pt") -> Optional[str]:
+    """The newest checkpoints/step_*.<ext> under root."""
+    cands = glob.glob(os.path.join(root, "checkpoints", f"step_*.{ext}"))
     if not cands:
         return None
     return max(cands, key=lambda p: int(re.findall(r"step_(\d+)", p)[0]))
@@ -104,20 +136,31 @@ def dump_recon_grid(root: str, split: str, step: int, inputs: np.ndarray,
 
 
 class MetricsLogger:
-    """metrics.jsonl under root, and a short line on stdout every log_every."""
+    """metrics.jsonl under root, and a short line on stdout every log_every;
+    with wandb_project, each record mirrored into a wandb run
+    (utils/wandb_logger.py: an offline run directory under root/wandb
+    without the wandb package) whose config is wandb_config."""
 
-    def __init__(self, root: str, log_every: int = 50):
+    def __init__(self, root: str, log_every: int = 50, wandb_project: Optional[str] = None,
+                 wandb_config: Optional[Dict[str, Any]] = None):
         os.makedirs(root, exist_ok=True)
         self.path = os.path.join(root, "metrics.jsonl")
         self.log_every = log_every
         self._f = open(self.path, "a")
         self._t0 = time.time()
+        self._wandb = None
+        if wandb_project:
+            from ..utils.wandb_logger import WandbRun
+
+            self._wandb = WandbRun(project=wandb_project, config=wandb_config, root=root)
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
         rec = {"step": step, "time": round(time.time() - self._t0, 2)}
         rec.update({k: float(v) for k, v in metrics.items() if np.ndim(v) == 0})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in rec.items() if k != "step"}, step=step)
         if step % self.log_every == 0:
             keys = ("recon_loss", "perceptual_loss", "discloss", "perplexity", "avg_usage",
                     "g_total", "loss", "grad_norm")  # the tokenizer's, then the diffusion's
@@ -126,6 +169,8 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._f.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
 def _log_schedule(every: int):
@@ -168,16 +213,26 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
                     img_every: int = 1000, log_every: int = 50, resume: bool = True,
                     seed: int = 0, initial_state: Optional[TokenizerTrainState] = None,
                     val_batches: Optional[Iterable[Dict[str, Any]]] = None,
-                    val_every: int = 2000, val_steps: int = 8) -> TokenizerTrainState:
+                    val_every: int = 2000, val_steps: int = 8,
+                    wandb_project: Optional[str] = None,
+                    wandb_config: Optional[Dict[str, Any]] = None,
+                    ckpt_backend: Optional[str] = None) -> TokenizerTrainState:
     """Run the GAN step over a batch stream up to `max_steps`; returns the
-    final state."""
+    final state. ckpt_backend 'msgpack' writes and resumes from the JAX
+    package's step_*.msgpack in place of step_*.pt; wandb_project mirrors
+    the log into a wandb run."""
+    check_ckpt_backend(ckpt_backend)
+    ext = "msgpack" if ckpt_backend == "msgpack" else "pt"
     state = initial_state if initial_state is not None else trainer.init_state(seed=seed)
     group = trainer.group
     lead = mesh.rank_in(group) == 0
-    ckpt = find_latest_checkpoint(root_dir) if resume else None
+    ckpt = find_latest_checkpoint(root_dir, ext) if resume else None
     if ckpt:
         print(f"auto-resuming from {ckpt}")
-        load_state(ckpt, state)
+        if ext == "msgpack":
+            load_state_msgpack(ckpt, state, trainer)
+        else:
+            load_state(ckpt, state)
     if group is not None:  # rank 0's state everywhere
         for m in state.MODULES:
             mesh.replicate(getattr(state, m), group)
@@ -185,10 +240,14 @@ def train_tokenizer(trainer: TokenizerTrainer, batches: Iterable[Dict[str, Any]]
 
     def write_ckpt(step_label: int) -> None:
         if lead:
-            save_state(os.path.join(root_dir, "checkpoints", f"step_{step_label:08d}.pt"), state)
+            path = os.path.join(root_dir, "checkpoints", f"step_{step_label:08d}.{ext}")
+            if ext == "msgpack":
+                save_state_msgpack(path, state, trainer)
+            else:
+                save_state(path, state)
         mesh.barrier(group)
 
-    logger = MetricsLogger(root_dir, log_every) if lead else None
+    logger = MetricsLogger(root_dir, log_every, wandb_project, wandb_config) if lead else None
     # multi-resolution training: a random scale a step, bilinear resize
     res_scales = list(trainer.train_cfg.resolution_scale or [])
     res_rng = np.random.RandomState(seed + 17)

@@ -175,9 +175,9 @@ def test_flag_sets_and_configs_match_jax():
                                   (vqgan_train.build_parser, jax_train.build_parser)):
         port_flags = {o for a in build_port()._actions for o in a.option_strings}
         jax_flags = {o for a in build_jax()._actions for o in a.option_strings}
-        # the port adds --device; it leaves out the Orbax backend and wandb
+        # the port adds --device and has every JAX flag
         assert port_flags - jax_flags == {"--device"}
-        assert jax_flags - port_flags <= {"--ckpt_backend", "--wandb_project"}
+        assert jax_flags - port_flags == set()
     argv = TINY + ["--bf16", "--use_vae", "--lr", "3e-4", "--freeze_trans",
                    "--ema_advances_per_step", "1"]
     pa = PA.normalize_precision(vqgan_train.build_parser().parse_args(argv))

@@ -3,10 +3,12 @@ files written here, the port's VideoData / DataLoader / JointLoader give
 the JAX package's batches bit for bit under the same args and seed (one
 decode worker, so the order and the random crops are deterministic); the
 finite-epoch eval semantics; the native normalize against numpy; the native
-video decoder against imageio; the special dataset families refused; the
-media grids."""
+video decoder against imageio; each special dataset family (HDF5,
+vtokens, frame folders, stft, HDF5 captions, CoinRun with captions)
+routed to the JAX loader's first batch; the media grids."""
 
 import argparse
+import os
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from omnitokenizer_tpu_torch.data import loader as port_loader
 from omnitokenizer_tpu_torch.data.video import load_video_frames
 from omnitokenizer_tpu_torch.native import build as native
 from omnitokenizer_tpu_torch.utils import media as port_media
+
+from torch_port_util import write_coinrun, write_host_families, write_merge_table
 
 
 @pytest.fixture(scope="module")
@@ -170,17 +174,51 @@ def test_native_video_decoder_matches_imageio(files):
     assert mask.tolist() == [1] * 9 + [0] * 3
 
 
-@pytest.mark.parametrize("kw", [dict(vtokens=True), dict(image_folder=True), dict(stft_data=True),
-                                dict(text_cond=True), dict(data_path=["clips.h5"]),
-                                dict(data_path=["coinrun_dir"])],
-                         ids=["vtokens", "image_folder", "stft", "text", "hdf5", "coinrun"])
-def test_special_dataset_families_raise(files, tmp_path, kw):
-    if kw.get("data_path") == ["coinrun_dir"]:
-        (tmp_path / "coinrun_dir").mkdir()
-        kw = dict(data_path=[str(tmp_path / "coinrun_dir")])
-    args = _args(files, ["k600_list.txt"], **kw)
-    with pytest.raises(NotImplementedError, match="The remaining host pieces"):
-        port_loader.VideoData(args)
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    """Files of each special family and a CoinRun directory (its name holds
+    'coinrun'), with a BPE merge table."""
+    root = tmp_path_factory.mktemp("families")
+    out = write_host_families(root)
+    write_coinrun(root / "coinrun_dir", n_games=4, n_frames=7)
+    out["coinrun"] = str(root / "coinrun_dir")
+    out["bpe"] = write_merge_table(root / "bpe_simple_vocab_16e6.txt")
+    return out
+
+
+ROUTES = {"vtokens": ("vtokens", dict(vtokens=True, resolution=6, spatial_length=4)),
+          "image_folder": ("frames", dict(image_folder=True, sample_every_n_frames=2,
+                                          sequence_length=3)),
+          "stft": ("stft", dict(stft_data=True)),
+          "text": ("text", dict(text_cond=True)),
+          "hdf5": ("hdf5", dict()),
+          "coinrun": ("coinrun", dict(text_cond=True, text_seq_len=24))}
+
+
+@pytest.mark.parametrize("family", list(ROUTES))
+def test_special_dataset_families_raise(files, families, family, monkeypatch):
+    """Each special family routes as the JAX loader routes it (a family the
+    port once refused): the first batch of the port's VideoData equals the
+    JAX VideoData's, shuffled from the same seed, one decode worker."""
+    from omnitokenizer_tpu.data import text_tokenizer as jax_text
+    from omnitokenizer_tpu_torch.data import text_tokenizer
+
+    monkeypatch.setattr(jax_text, "REFERENCE_VOCAB", families["bpe"])
+    monkeypatch.setattr(text_tokenizer, "VOCAB_DIR", os.path.dirname(families["bpe"]))
+    key, kw = ROUTES[family]
+    args = _args(files, ["k600_list.txt"], **{"data_path": [families[key]], **kw})
+    assert port_loader.special_family(args) == jax_family(family)
+    port, ref = _take(port_loader.VideoData(args), 1)[0], _take(jax_loader.VideoData(args), 1)[0]
+    _same(port, ref)
+    assert len(port["video"]) == 3
+    if family in ("text", "coinrun"):
+        assert port["text"].shape == (3, 77 if family == "text" else 24)
+    if family == "coinrun":
+        assert port["path"] == ref["path"] and all(p.endswith(".json") for p in port["path"])
+
+
+def jax_family(family: str) -> str:
+    return {"stft": "stft_data", "text": "text_cond"}.get(family, family)
 
 
 def test_media_grids_match_jax(tmp_path):

@@ -293,13 +293,15 @@ def test_flag_set_matches_jax():
     port = {o for a in transformer_train.build_parser()._actions for o in a.option_strings}
     jax_flags = {o for a in jax_cli.build_parser()._actions for o in a.option_strings}
     assert port - jax_flags == {"--device"}
-    assert jax_flags - port <= {"--ckpt_backend", "--wandb_project"}
+    assert jax_flags - port == set()
 
 
 def test_cli_refuses_what_it_does_not_port(lm_data, tmp_path):
     base = _cli_flags(lm_data, tmp_path / "run") + ["--device", "cpu", "--max_steps", "1"]
-    for extra, match in ((["--cond_stage_key", "text"], "The remaining host pieces"),
-                         (["--cond_stage_key", "stft"], "The remaining host pieces")):
+    # refused where the JAX CLI trains wrongly: it never reads the stft, and
+    # it would encode vtokens' code grids as pixels
+    for extra, match in ((["--cond_stage_key", "stft"], "never reads the stft"),
+                         (["--vtokens"], "as pixels")):
         with pytest.raises(NotImplementedError, match=match):
             transformer_train.main(base + extra)
     # tensor and pipeline parallelism run over processes (tests/test_torch_parallel_tp.py,

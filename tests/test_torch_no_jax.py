@@ -26,7 +26,10 @@ its BatchNorm statistics, and the CLI from random weights and from a
 msgpack in bf16. VAE training (the trainer's VAE step), the CNN VQGAN (a round trip, a
 Lightning checkpoint through load_cnn_vqgan_checkpoint) and the quantizer
 library (FSQ, LFQ, VectorQuantize with kmeans, the residual stacks) run with
-jax, flax and msgpack unimportable."""
+jax, flax and msgpack unimportable. The host pieces (CLIP's BPE, CoinRun
+and its captions, the HDF5 families, the wandb run) run with jax, flax,
+optax and msgpack unimportable: transformer_train on CoinRun captions, and
+vqgan_train with --ckpt_backend msgpack and --wandb_project, resumed."""
 
 import subprocess
 import sys
@@ -542,5 +545,112 @@ def test_parallel_runs_without_jax():
     to the plain search). (The dry run's ranks import the port alone.)"""
     res = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+HOST_SCRIPT = r"""
+import sys
+for name in ("jax", "flax", "optax", "msgpack"):
+    sys.modules[name] = None
+import glob, json, os, tempfile
+import h5py
+import numpy as np
+import torch
+from PIL import Image
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, TokenizerConfig
+from omnitokenizer_tpu_torch.cli import transformer_train, vqgan_train
+from omnitokenizer_tpu_torch.data import coinrun, hdf5, text_tokenizer
+from omnitokenizer_tpu_torch.data.coinrun_text import describe_clip
+from omnitokenizer_tpu_torch.training.loop import write_png
+from omnitokenizer_tpu_torch.utils.checkpoint import save_tokenizer_checkpoint
+from omnitokenizer_tpu_torch.utils.wandb_logger import WandbRun
+
+cfg = TokenizerConfig(embedding_dim=32, n_codes=32, resolution=32, sequence_length=5,
+                      temporal_patch_size=2, enc_block="t", dec_block="t", spatial_depth=1,
+                      temporal_depth=1, heads=2, dim_head=16)
+rng = np.random.RandomState(0)
+with tempfile.TemporaryDirectory() as root:
+    text_tokenizer.VOCAB_DIR = root
+    with open(os.path.join(root, text_tokenizer.VOCAB_NAME), "w") as f:
+        f.write("#version: 0.2\nm u\nmu g\nmug e\nmuge n</w>\nr u\nru n\n")
+    tk = text_tokenizer.SimpleTokenizer()
+    assert tk.encode("Mugen runs") == [tk.encoder["mugen</w>"], tk.encoder["run"],
+                                       tk.encoder["s</w>"]]
+    game = {"zoom": 5.5, "world_theme_n": 0, "agent_theme_n": 0,
+            "background_themes": ["bg.png"], "ground_themes": ["Grass"],
+            "agent_themes": ["Beige"], "monster_names": {"ground": ["bee"]},
+            "maze": ["A" * 64, "S" * 64] + ["." * 30 + "1=" + "." * 32] * 11,
+            "frames": [{"agent": {"x": 28.0 + i, "y": 2.0, "vx": 1.0, "time_alive": i},
+                        "monsters": [{"m_id": 0, "x": 33.0, "y": 2.0}]} for i in range(6)]}
+    data = os.path.join(root, "coinrun_train")
+    os.makedirs(data)
+    for i in range(4):
+        with open(os.path.join(data, f"g{i}.json"), "w") as f:
+            json.dump(game, f)
+    paths = coinrun.asset_paths(coinrun.Game(**game))
+    rels = [paths["background"], *paths["world"].values(), *paths["alien"].values()]
+    rels += [p.replace(".png", s + ".png") for p in paths["monster"].values()
+             for s in ("", "_move", "_dead")]
+    for rel in rels:
+        p = os.path.join(data, "assets", rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        Image.fromarray(rng.randint(0, 256, (12, 12, 4), np.uint8), "RGBA").save(p)
+    sample = coinrun.CoinRunDataset(data, os.path.join(data, "assets"), 5, 32,
+                                    get_text_desc=True, text_seq_len=8)[0]
+    assert sample["video"].shape == (5, 32, 32, 3) and sample["text"].shape == (8,)
+    assert describe_clip(coinrun.Game(**game)) == "Mugen runs to the right."
+    save_tokenizer_checkpoint(os.path.join(root, "tok.pt"),
+                              OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cpu").net, cfg)
+    state = transformer_train.main([
+        "--vqvae", os.path.join(root, "tok.pt"), "--data_path", data, "--train_datalist", "x",
+        "--default_root_dir", os.path.join(root, "lm"), "--resolution", "32",
+        "--sequence_length", "5", "--batch_size", "2", "--num_workers", "0", "--text_cond",
+        "--cond_stage_key", "text", "--text_seq_len", "8", "--class_cond_dim", "49408",
+        "--starts_with_sos", "--block_size", "57", "--n_layer", "1", "--n_head", "2",
+        "--n_embd", "32", "--max_steps", "1", "--device", "cpu"])
+    assert state.step == 1
+
+    h5 = os.path.join(root, "clips.h5")
+    with h5py.File(h5, "w") as f:
+        f["train_data"] = rng.randint(0, 256, (12, 40, 36, 3)).astype(np.uint8)
+        f["train_idx"] = np.asarray([0, 6, 12])
+        f.create_dataset("train_text", data=["a dog", "a cat"], dtype=h5py.string_dtype())
+    s = hdf5.HDF5DatasetText(h5, 4, resolution=32)[1]
+    assert s["video"].shape == (4, 32, 32, 3) and s["text"].shape == (77,)
+
+    for i in range(4):
+        write_png(os.path.join(root, f"im{i}.png"), rng.randint(0, 255, (32, 32, 3), np.uint8))
+    with open(os.path.join(root, "images.txt"), "w") as f:
+        f.write("".join(f"im{i}.png\t{i}\n" for i in range(4)))
+    run = os.path.join(root, "vq")
+    flags = ["--data_path", root, "--train_datalist", os.path.join(root, "images.txt"),
+             "--val_datalist", "none", "--default_root_dir", run, "--resolution", "32",
+             "--sequence_length", "1", "--batch_size", "2", "--num_workers", "0",
+             "--embedding_dim", "32", "--n_codes", "32", "--enc_block", "t", "--dec_block", "t",
+             "--spatial_depth", "1", "--temporal_depth", "1", "--heads", "2",
+             "--dim_head", "16", "--disc_layers", "1", "--disc_channels", "8",
+             "--ckpt_backend", "msgpack", "--wandb_project", "omnitokenizer", "--device", "cpu"]
+    vqgan_train.main(flags + ["--max_steps", "1"])
+    state = vqgan_train.main(flags + ["--max_steps", "2"])
+    assert state.step == 2 and state.opt_g.count == 2
+    names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(run, "checkpoints", "*")))
+    assert names == ["step_00000001.msgpack", "step_00000002.msgpack"], names
+    hist = glob.glob(os.path.join(run, "wandb", "run-*", "history.jsonl"))
+    assert sum(len(open(h).readlines()) for h in hist) == 2
+    run = WandbRun(project="p", config={"a": 1}, root=root, mode="offline")
+    run.log({"x": 1.0})
+    run.finish()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "msgpack",
+                "omnitokenizer_tpu") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_host_pieces_run_without_jax():
+    res = subprocess.run([sys.executable, "-c", HOST_SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

@@ -4,6 +4,8 @@ small GPT with random weights on both sides."""
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import torch
@@ -258,3 +260,188 @@ def check_result(results: list, check: str, rank: int = 0):
     res = results[rank][check]
     assert "error" not in res, res.get("error")
     return res["ok"]
+
+
+# -- host data: the special dataset families, CoinRun and CLIP's BPE ------------------------
+CORPUS = ("mugen runs to the right jumps climbs a ladder collects a coin coins gets killed "
+          "kills a monster stays in place is in power-up mode the left and slime bee snail "
+          "video caption of a dog walking on grass playing with a ball in the park")
+
+
+def write_merge_table(path, corpus: str = CORPUS, n_merges: int = 160) -> str:
+    """A CLIP-format BPE merge table learned from `corpus` (a version line,
+    then one 'a b' merge a line): each round merges the most frequent
+    adjacent pair of the words (ties to the first in sorted order), as BPE
+    training does, over byte-unicode symbols with '</w>' ending a word."""
+    from collections import Counter
+
+    words = Counter(tuple(w[:-1]) + (w[-1] + "</w>",) for w in corpus.lower().split())
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=lambda p: pairs[p])
+        merges.append(best)
+        out = Counter()
+        for w, c in words.items():
+            new, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    new.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    new.append(w[i])
+                    i += 1
+            out[tuple(new)] += c
+        words = out
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return str(path)
+
+
+MONSTERS = {"ground": ["slimeBlock"], "walking": ["snail"], "flying": ["bee"]}
+
+
+def coinrun_game(seed: int, n_frames: int = 9, world: int = 0, agent: int = 0) -> dict:
+    """A CoinRun trace in game.py's asdict format from a numpy seed: a maze
+    of every tile kind, an agent that walks, jumps, climbs, eats coins,
+    powers up and dies, and monsters of each kind, one dying."""
+    rng = np.random.RandomState(seed)
+    h, w = 13, 64
+    maze = [list("." * w) for _ in range(h)]
+    maze[0] = list("A" * w)
+    maze[1] = list("S" * w)
+    for x in range(2, w, 3):
+        maze[2 + rng.randint(0, 6)][x] = "S1a2b#$&%^|="[rng.randint(0, 12)]
+    coins = [(x, y) for y in range(h) for x in range(w) if maze[y][x] in "12"]
+    frames = []
+    for i in range(n_frames):
+        killed = i >= n_frames - 2
+        frames.append({
+            "frame_id": i, "file_name": f"f{i}.png", "state_time": i,
+            "coins_eaten": [list(c) for c in coins[:i // 3]],
+            "agent": {"x": 4.0 + 0.7 * i + 0.1 * rng.rand(), "y": 2.0 + (i % 3 == 1),
+                      "vx": (-0.3 if i == 2 else 0.3) * (i % 4 != 3),
+                      "vy": 0.2 * (i % 3 == 1), "time_alive": 3 * i, "ladder": i == 5,
+                      "spring": int(i == 6), "is_killed": killed,
+                      "killed_animation_frame_cnt": 8 * (i - n_frames + 3) if killed else 0,
+                      "power_up_mode": i == 4},
+            "monsters": [{"m_id": m, "x": 6.0 + 2 * m - 0.1 * i, "y": 2.0 + (m == 2),
+                          "vx": 0.1 if m == 1 else -0.1, "vy": 0.1 * (m == 2 and i % 2),
+                          "theme": m, "is_jumping": m == 2, "time": i, "anim_freq": 2,
+                          "is_dead": m == 0 and i >= 3,
+                          "monster_dying_frame_cnt": max(0, 6 - i) if m == 0 else 0}
+                         for m in range(3)],
+        })
+    return {"game_id": seed, "level_seed": seed, "rl_agent_seed": 0, "zoom": 5.5, "bgzoom": 0.4,
+            "world_theme_n": world, "agent_theme_n": agent,
+            "background_themes": ["backgrounds/bg_a.png", "backgrounds/bg_b.png"],
+            "ground_themes": ["Planet", "Grass"], "agent_themes": ["Yellow", "Blue"],
+            "monster_names": MONSTERS, "video_res": 1024, "maze_w": w, "maze_h": h,
+            "maze": ["".join(r) for r in maze], "frames": frames}
+
+
+def write_coinrun(root, n_games: int = 4, n_frames: int = 9, captions: bool = False) -> None:
+    """`n_games` game JSONs under `root` (the themes alternating) and an
+    asset tree under root/assets: a coloured RGBA PNG at every path of
+    data/coinrun.py's asset_paths for those themes (alpha 0, 255 and
+    between), but for one alien pose, which takes the pose-less fallback.
+    With `captions`, root.parent/captions.json holds manual captions for
+    the first two games (two for the second)."""
+    import json as _json
+
+    from PIL import Image
+
+    from omnitokenizer_tpu_torch.data.coinrun import Game, asset_paths
+
+    root = os.fspath(root)
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(100)
+    files = set()
+    for i in range(n_games):
+        game = coinrun_game(i, n_frames, world=i % 2, agent=(i // 2) % 2)
+        with open(os.path.join(root, f"game{i:02d}.json"), "w") as f:
+            _json.dump(game, f)
+        paths = asset_paths(Game(**game))
+        files.add(paths["background"])
+        files.update(paths["world"].values())
+        for pose, rel in paths["alien"].items():
+            files.add(rel if pose != "duck" else rel.replace("_duck", ""))
+        for rel in paths["monster"].values():
+            base, ext = os.path.splitext(rel)
+            files.update(base + s + ext for s in ("", "_move", "_dead"))
+    for rel in sorted(files):
+        p = os.path.join(root, "assets", rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        hw = (24, 24) if "backgrounds" in rel else (10 + rng.randint(0, 8), 8 + rng.randint(0, 8))
+        rgba = rng.randint(0, 256, hw + (4,)).astype(np.uint8)
+        rgba[..., 3] = np.where(rng.rand(*hw) < 0.3, 0, np.where(rng.rand(*hw) < 0.5, 255,
+                                                                 rgba[..., 3]))
+        Image.fromarray(rgba, "RGBA").save(p)
+    if captions:
+        caps = {"game00": ["Mugen does a custom thing."],
+                "game01": ["Mugen waits &amp; sees.", "Mugen jumps over a snail twice."]}
+        with open(os.path.join(os.path.dirname(root), "captions.json"), "w") as f:
+            _json.dump(caps, f)
+
+
+CAPTIONS = ["a dog walking on grass", "Mugen &amp; the bee", "café au lait, naïve!",
+            "  playing   with a ball in the park at 3pm  ", "x" * 90]
+
+
+def write_h5_clips(path, lengths=(9, 4, 12, 10, 7), hw=(20, 24), seed: int = 0,
+                   text: bool = False, channels: bool = True) -> None:
+    """An HDF5 of clips in the JAX package's layout, both splits: every
+    video's frames end to end in <split>_data (uint8, (N, H, W, 3), or
+    (N, H, W) without `channels`), <split>_idx the start of each then N,
+    and with `text` <split>_text a caption a video."""
+    import h5py
+
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, "w") as f:
+        for split in ("train", "test"):
+            n = sum(lengths)
+            shape = (n,) + tuple(hw) + ((3,) if channels else ())
+            f[f"{split}_data"] = rng.randint(0, 256, shape).astype(np.uint8)
+            f[f"{split}_idx"] = np.cumsum((0,) + tuple(lengths)).astype(np.int64)
+            if text:
+                f.create_dataset(f"{split}_text", data=CAPTIONS[:len(lengths)],
+                                 dtype=h5py.string_dtype())
+
+
+def write_host_families(root) -> dict:
+    """Files of every HDF5 / frame-folder / stft family under `root`; the
+    path each family reads."""
+    import h5py
+    from PIL import Image
+
+    root = os.fspath(root)
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(1)
+    out = {"hdf5": os.path.join(root, "clips.h5"), "text": os.path.join(root, "text.h5"),
+           "smap": os.path.join(root, "smap.h5"), "vtokens": os.path.join(root, "vtokens.h5"),
+           "frames": os.path.join(root, "frames"), "stft": os.path.join(root, "stft")}
+    write_h5_clips(out["hdf5"])
+    write_h5_clips(out["text"], seed=2, text=True)
+    write_h5_clips(out["smap"], seed=3, channels=False)
+    with h5py.File(out["vtokens"], "w") as f:
+        for split in ("train", "test"):
+            lengths = (8, 3, 11, 9)
+            f[f"{split}_data"] = rng.randint(0, 32, (sum(lengths), 6, 6)).astype(np.int64)
+            f[f"{split}_idx"] = np.cumsum((0,) + lengths).astype(np.int64)
+    for c, n in enumerate((7, 12, 4, 9)):
+        d = os.path.join(out["frames"], f"clip{c}")
+        os.makedirs(d)
+        for i in range(n):
+            ext = ".png" if (i + c) % 2 else ".jpg"
+            Image.fromarray(rng.randint(0, 256, (18, 22, 3), np.uint8)).save(
+                os.path.join(d, f"{i:03d}{ext}"))
+    os.makedirs(out["stft"])
+    for i, t in enumerate((8, 3, 11, 6)):
+        np.savez(os.path.join(out["stft"], f"s{i}.npz"), stft=rng.randn(t + 1, 5),
+                 video=rng.randint(0, 256, (t, 18, 22, 3)).astype(np.uint8))
+    return out
