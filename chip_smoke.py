@@ -159,7 +159,8 @@ Phases (any failure raises and exits non-zero):
      peak, a small one card against CPU; (c) the quantizers at working
      sizes (16384 rows; VQ of 8192 codes of 256, euclidean and cosine,
      kmeans held step by step, one training call's EMA; FSQ (8, 8, 8, 5, 5,
-     5); LFQ of 2^14 codes; the residual stacks 4 deep) card against CPU.
+     5); LFQ of 2^14 codes; the residual stacks 2 deep, a depth cut for
+     time) card against CPU.
  16. parallelism over torch.distributed, in child processes: (a) a world of
      one over NCCL: the flagship GAN step bit-equal to the step with no
      group, the codebook step twice bit-equal, the class-CFG decode of
@@ -188,6 +189,21 @@ Phases (any failure raises and exits non-zero):
      loader thread running, and one profiled; then the first step's batch
      and weights at 2 of the layers, kernel route against plain route
      (loss and per-layer gradient norms at phase 12's bars).
+ 18. sequence parallelism of the tokenizer (parallel/tp.py), two ranks in
+     child processes as in 16b (NCCL one card a rank, else gloo on one
+     card), each holding 128 of the 256 pixel rows: the bf16 flagship round
+     trip (B=4, 17 x 256^2, random weights, seed 0) with launches per rank
+     16/14/6/8/1 (cosine_mha on a query block of 512 of 1024 tokens), held
+     on rank 0 to the one-process round trip of the same clips (pixels 2e-2
+     whole-tensor; indices equal but at near-ties of the SP latents, a
+     relative gap of at most 1e-3); the f32 VAE the same way (mha 6 a rank,
+     512 queries against 1024 keys; pixels 1e-4); frames/s and peak memory
+     per rank and of the one process; one SP round trip profiled through
+     utils/profiling.py and utils/trace_analysis.py (kernels by name and by
+     the encode / quantize / decode range that launched them, the host
+     time in c10d collectives); the JAX dry run's SP forward on the card.
+     Phase 2 holds the two query-block kernels against their plain
+     versions at those shapes (rows "sp" and "sp_vae").
 `--phases 14` (any comma list) runs phases 0, 1 and those alone.
 Phase 0 also prints which host data backends load (the native normalize,
 the libav decoder, PIL, imageio) and whether h5py is importable.
@@ -527,27 +543,30 @@ def check_geglu(tag, path, x, ln_w, ln_b, w1, w2):
            chain_fn=chain, shape=[M, D, inner])
 
 
-def sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope):
+def sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope, q_offset=0):
     """The attention modules' bf16 route up to SDPA (ops/attention.py:
-    _attend): [RoPE], F.normalize * scales -> bf16, as (B, H, N, Dh) views."""
-    from omnitokenizer_tpu_torch.ops.rotary import freqs_cis_2d, rotate_pairs
+    _attend): [RoPE], F.normalize * scales -> bf16, as (B, H, N, Dh) views;
+    q may be a block of the grid's tokens from q_offset."""
+    from omnitokenizer_tpu_torch.ops.rotary import block_table, freqs_cis_2d, rotate_pairs
 
-    b, n, _ = q.shape
-    qh, k = q.view(b, n, heads, dim_head), kv.view(b, n, 2, heads, dim_head)[:, :, 0]
+    b, nq, _ = q.shape
+    n = kv.shape[1]
+    qh, k = q.view(b, nq, heads, dim_head), kv.view(b, n, 2, heads, dim_head)[:, :, 0]
     if rope:
         cos, sin = freqs_cis_2d(dim_head, n, q.device)
-        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-        qh, k = rotate_pairs(qh, cos, sin), rotate_pairs(k, cos, sin)
+        qh = rotate_pairs(qh, *block_table(cos, sin, q_offset, nq))
+        k = rotate_pairs(k, *block_table(cos, sin, 0, n))
     qh = (F.normalize(qh.float(), dim=-1) * qs).to(BF)
     k = (F.normalize(k.float(), dim=-1) * ks).to(BF)
     return [t.transpose(1, 2) for t in (qh, k, kv.view(b, n, 2, heads, dim_head)[:, :, 1])]
 
 
-def attention_chain(q, kv, heads, dim_head, qs, ks, rope, causal=False):
-    b, n, _ = q.shape
-    out = F.scaled_dot_product_attention(*sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope),
-                                         is_causal=causal, scale=8.0)
-    return out.transpose(1, 2).reshape(b, n, heads * dim_head)
+def attention_chain(q, kv, heads, dim_head, qs, ks, rope, causal=False, q_offset=0):
+    b, nq, _ = q.shape
+    out = F.scaled_dot_product_attention(
+        *sdpa_inputs(q, kv, heads, dim_head, qs, ks, rope, q_offset), is_causal=causal,
+        scale=8.0)
+    return out.transpose(1, 2).reshape(b, nq, heads * dim_head)
 
 
 def check_small_n(tag, path, q, kv, qs, ks, heads, dim_head):
@@ -598,6 +617,41 @@ def check_cosine(tag, path, q, kv, qs, ks, heads, dim_head, rope):
                  2 * bt * n * 4 * heads * dim_head + 8 * dim_head, PEAK_BF16), library,
            chain_fn=lambda: attention_chain(q, kv, heads, dim_head, qs, ks, rope),
            shape=[bt, n, heads * dim_head], rope=rope)
+
+
+def check_cosine_block(tag, path, q, kv, qs, ks, heads, dim_head, offset):
+    """cosine_mha with a query block (sequence parallelism): q (b t, Nq,
+    H*Dh), the grid's tokens from `offset`, against the whole grid's kv
+    (b t, N, 2*H*Dh), RoPE on and off, each also against the rows of the
+    square call's plain version; timed with RoPE, as the SP path runs it."""
+    from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
+
+    bt, nq, hd = q.shape
+    n = kv.shape[1]
+    args = (q, kv, qs, ks, heads, dim_head, 8.0)
+    errs = []
+    for r in (True, False):
+        got = cm.cosine_mha(*args, r, q_offset=offset)
+        errs.append(compare(f"cosine_mha block {nq} of {n} at {offset} rope={r}", got,
+                            cm.cosine_mha_plain(*args, r, q_offset=offset)))
+        whole_q = torch.zeros(bt, n, hd, dtype=BF, device="cuda")
+        whole_q[:, offset:offset + nq] = q
+        rows = cm.cosine_mha_plain(whole_q, *args[1:], r)[:, offset:offset + nq]
+        compare(f"cosine_mha block {nq} of {n} rope={r} vs the square call's rows", got, rows)
+    sdpa_in = sdpa_inputs(q, kv, heads, dim_head, qs, ks, True, offset)
+
+    def library():
+        return F.scaled_dot_product_attention(*sdpa_in, scale=8.0)
+
+    print(f"[{tag}] cosine_mha query block ({path}): its SDPA call runs "
+          f"{device_kernels(library)}")
+    record(tag, "cosine_mha", path, errs, lambda: cm.cosine_mha(*args, True, q_offset=offset),
+           lambda: cm.cosine_mha_plain(*args, True, q_offset=offset),
+           bound(4 * bt * heads * nq * n * dim_head,
+                 2 * (2 * bt * nq * hd + bt * n * 2 * hd) + 8 * dim_head, PEAK_BF16), library,
+           chain_fn=lambda: attention_chain(q, kv, heads, dim_head, qs, ks, True,
+                                            q_offset=offset),
+           shape=[bt, nq, n, hd], rope=True, q_offset=offset)
 
 
 def check_vq(tag, path, z, emb):
@@ -664,6 +718,14 @@ def phase2_kernels() -> None:
     # (b h w, H, 9, Dh) in bf16
     check_mha("2", "vae", g, (B * (1 + (T - 1) // 4), H, hw, Dh), torch.float32, False)
     check_mha("2", "rel", g, (B * hw, H, 1 + (T - 1) // 2, Dh), BF, True)
+    # sequence parallelism's query blocks at two ranks (phase 18): a rank's 512 of the
+    # flagship's 1024 tokens, the second rank's, against the whole grid's keys; the f32
+    # VAE's spatial blocks the same way
+    t_vq = 1 + (T - 1) // 4
+    check_cosine_block("2", "sp", randn(g, B * t_vq, hw // SP_RANKS, H * Dh, dtype=BF),
+                       randn(g, B * t_vq, hw, 2 * H * Dh, dtype=BF), qs, ks, H, Dh,
+                       offset=hw - hw // SP_RANKS)
+    check_mha("2", "sp_vae", g, (B * t_vq, H, hw // SP_RANKS, Dh), torch.float32, False, nk=hw)
     mha_f32_floor(mh, g)
     # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D)
     # projections; then the long-sequence recipes' shape, where the kernels are
@@ -676,18 +738,21 @@ def phase2_kernels() -> None:
                 LM_WIDTH // LM_HEADS)
 
 
-def check_mha(tag, path, g, shape, dtype, causal) -> None:
+def check_mha(tag, path, g, shape, dtype, causal, nk=None) -> None:
     """mha at one path's (B, H, N, D) against its plain version: q and k
     l2-normalized, as the cosine attention hands them over, with its logit
     scale 8. The bf16 ones are the views that ops/attention.py:_attend hands
     over: (B, H, N, D) views of (B, N, H, D) memory, v inside the fused kv;
-    the f32 ones the contiguous copies sdpa makes for the flash branch."""
+    the f32 ones the contiguous copies sdpa makes for the flash branch, k
+    and v of nk keys where given (a query block: sequence parallelism)."""
     from omnitokenizer_tpu_torch.ops.kernels import mha as mh
 
     b, h, n, d = shape
+    nk = nk or n
     if dtype == torch.float32:
-        q, k = (F.normalize(randn(g, *shape), dim=-1) for _ in range(2))
-        v, tol = randn(g, *shape), MHA_F32_REL_TOL
+        q = F.normalize(randn(g, *shape), dim=-1)
+        k = F.normalize(randn(g, b, h, nk, d), dim=-1)
+        v, tol = randn(g, b, h, nk, d), MHA_F32_REL_TOL
     else:
         q, k = (F.normalize(randn(g, b, n, h, d), dim=-1).to(dtype).transpose(1, 2)
                 for _ in range(2))
@@ -704,13 +769,14 @@ def check_mha(tag, path, g, shape, dtype, causal) -> None:
     print(f"[{tag}] mha ({path}): library call vs plain max_abs "
           f"{max_abs(library(), mh.mha_plain(q, k, v, 8.0, causal)):.3e}; "
           f"it runs {device_kernels(library)}")
-    pairs = n * (n + 1) // 2 if causal else n * n
-    flops, nbytes = 4 * b * h * pairs * d, 4 * b * h * n * d * q.element_size()
+    pairs = n * (n + 1) // 2 if causal else n * nk
+    flops, nbytes = 4 * b * h * pairs * d, 2 * b * h * (n + nk) * d * q.element_size()
     record(tag, "mha", path, [err], lambda: mh.mha(q, k, v, 8.0, causal),
            lambda: mh.mha_plain(q, k, v, 8.0, causal),
            bound(flops, nbytes, PEAK_BF16) if dtype == BF
            else bound(3 * flops, nbytes, PEAK_TF32),  # 3xTF32
-           library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal)
+           library, shape=list(shape), dtype=str(dtype).split(".")[1], causal=causal,
+           **({"nk": nk} if nk != n else {}))
 
 
 FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-2, 2e-2  # bf16 outputs vs f32 math on the same bf16 inputs
@@ -3720,9 +3786,10 @@ CNN_B, CNN_T, CNN_RES = 4, 16, 128
 CNN_REL_TOL = 1e-4        # f32, whole-tensor relative: card against CPU; decodes of two index sets
 # the quantizers at working sizes, card against CPU: 16384 rows, VQ of 8192 codes of width
 # 256 (kmeans init, 10 Lloyd steps), FSQ levels (8, 8, 8, 5, 5, 5), LFQ of 2^14 codes,
-# residual stacks 4 deep. Indices equal but for f32 near-ties (the two choices' f64 scores
+# residual stacks 2 deep (a depth cut for the run's time: each layer's kmeans is held step by
+# step against the CPU's). Indices equal but for f32 near-ties (the two choices' f64 scores
 # within VQ_TIE_TOL), each counted and the codes they touch left out of the state's bar
-Q_ROWS, Q_DIM, Q_CODES, Q_DEPTH = 16384, 256, 8192, 4
+Q_ROWS, Q_DIM, Q_CODES, Q_DEPTH = 16384, 256, 8192, 2
 Q_FSQ_LEVELS, Q_LFQ_DIM = (8, 8, 8, 5, 5, 5), 14
 Q_REL_TOL = 1e-5
 
@@ -4144,9 +4211,13 @@ def phase15_last_pieces(smi: str) -> dict:
     """(a) stage 3, (b) the CNN VQGAN, (c) the quantizers; returns the launches."""
     t0 = time.perf_counter()
     paths = phase15a_stage3(smi)
+    t1 = time.perf_counter()
     paths.update(phase15b_cnn())
+    t2 = time.perf_counter()
     phase15c_quantizers()
-    print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
+    t3 = time.perf_counter()
+    print(f"[15] phase 15 in {t3 - t0:.1f} s (15a {t1 - t0:.1f}, 15b {t2 - t1:.1f}, "
+          f"15c {t3 - t2:.1f})")
     return paths
 
 
@@ -4471,7 +4542,7 @@ def _children(role: str, n: int, env: dict, timeout: float = 900.0) -> list:
                     p.kill()
                     p.wait()
         if any(rcs):
-            raise AssertionError(f"phase 16 {role}: child exit codes {rcs}")
+            raise AssertionError(f"child {role}: exit codes {rcs}")
         results = []
         for out in outs:
             with open(out) as f:
@@ -4969,6 +5040,219 @@ def phase17_host_pieces() -> dict:
     return {"text_lm_train": got}
 
 
+# -- phase 18: sequence parallelism of the tokenizer ---------------------------------------------
+# Two ranks in child processes, as in phase 16b: over NCCL one card a rank where the host has
+# two cards or more, else both on the one card over gloo (collectives staged through the
+# host). Each rank holds 128 of the 256 pixel rows (16 of the 32 token rows) of every frame.
+SP_RANKS = 2
+# indices may differ from the one process's only at near-ties of the SP run's own latents:
+# the one process's pre-VQ latents differ from the SP run's by its cuBLAS calls' other row
+# blockings (bf16 roundings), so a near-tie is a relative distance gap of at most this
+SP_TIE_REL_TOL = 1e-3
+
+
+def _sp_round_trip(net, x, sp, annotate=False) -> tuple:
+    """encode_latent -> quantize (VQ) or the posterior's mode (VAE) ->
+    decode_latent under `sp`; (recon, indices or None, pre-VQ latents)."""
+    from omnitokenizer_tpu_torch.ops.gaussian import DiagonalGaussian
+    from omnitokenizer_tpu_torch.utils.profiling import annotate as rng
+
+    ctx = rng if annotate else (lambda name: contextlib.nullcontext())
+    with ctx("encode"):
+        h = net.encode_latent(x, False, sp=sp)
+    if net.cfg.use_vae:
+        z, idx = DiagonalGaussian.from_params(h).mode(), None
+    else:
+        with ctx("quantize"):
+            vq = net.quantize(h, sp=sp)
+        z, idx = vq["embeddings"], vq["encodings"]
+    with ctx("decode"):
+        return net.decode_latent(z, False, sp=sp), idx, h
+
+
+def _sp_case(model, video, grid, sp, trace_dir=None) -> dict:
+    """One model's SP round trip on this rank's rows: launches, frames/s and
+    peak; rank 0 then holds the gathered result to the one-process round
+    trip of the whole clips (pixels whole-tensor, indices with near-ties
+    counted) and times it; with trace_dir, one SP round trip profiled."""
+    from omnitokenizer_tpu_torch.ops.attention import l2norm
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omnitokenizer_tpu_torch.parallel import mesh, tp
+    from omnitokenizer_tpu_torch.utils import profiling, trace_analysis
+
+    net = model.net
+    xl = video.permute(0, 2, 3, 4, 1)
+    rows = tp.sp_shard_pixels(xl, grid.inner).contiguous()
+    out = {}
+    with torch.inference_mode():
+        _sp_round_trip(net, rows, sp)  # warm-up: the collectives' first use
+        torch.cuda.synchronize()
+        mesh.barrier()
+        reset_launch_counts()
+        recon, idx, h = _sp_round_trip(net, rows, sp)
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        out["finite"] = bool(torch.isfinite(recon).all())
+        out["shape"] = list(recon.shape)
+        whole = tp.sp_gather(recon, grid.inner, 2)
+        whole_idx = None if idx is None else tp.sp_gather(idx, grid.inner, 2)
+        whole_h = tp.sp_gather(h, grid.inner, 2)
+        mesh.barrier()
+        fps, peak = fps_and_peak(lambda: _sp_round_trip(net, rows, sp), B * T)
+        out.update(fps=fps, peak_gib=peak)
+        mesh.barrier()  # every rank runs the round trip (its collectives); one traces it
+        with profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            _sp_round_trip(net, rows, sp, annotate=True)
+            torch.cuda.synchronize()
+            out["traced_ms"] = (time.perf_counter() - t0) * 1e3
+        if trace_dir:
+            events = trace_analysis.load_trace_events(trace_dir)
+            out["op_table"] = trace_analysis.op_table(events)[:12]
+            out["source_table"] = trace_analysis.source_table(events)
+            # host time in SP's collectives, the "sp.gather" / "sp.halo" ranges
+            # (parallel/mesh.py) with their staging copies under gloo, and in the
+            # c10d ops alone (the wire under gloo, the enqueue under NCCL)
+            def host_ms(pred):
+                return sum(e["dur"] for e in events if e.get("ph") == "X" and pred(e)) / 1e3
+
+            out["sp_collective_host_ms"] = host_ms(
+                lambda e: e.get("cat") == "user_annotation" and e["name"] in ("sp.gather",
+                                                                              "sp.halo"))
+            out["collective_host_ms"] = host_ms(
+                lambda e: e.get("cat") == "cpu_op" and e["name"].startswith("c10d::"))
+        mesh.barrier()
+        if mesh.rank() != 0:
+            return out
+        want, want_idx, want_h = _sp_round_trip(net, xl, None)
+        out["pixels_rel_err"] = rel_norm(whole, want)
+        out["latents_rel_err"] = rel_norm(whole_h, want_h)
+        if idx is not None:
+            bad = (whole_idx != want_idx).flatten().nonzero().flatten()
+            out["indices"] = int(want_idx.numel())
+            out["indices_differ"] = int(bad.numel())
+            if bad.numel():
+                emb = net.codebook.embeddings.double()
+                z = whole_h.flatten(0, -2)[bad].double()
+                z = l2norm(z) if net.cfg.l2_code else z
+                d_sp = (z - emb[whole_idx.flatten()[bad].long()]).square().sum(-1)
+                d_one = (z - emb[want_idx.flatten()[bad].long()]).square().sum(-1)
+                out["tie_rel_gap"] = float(((d_one - d_sp).abs() / d_sp.clamp_min(1e-12)).max())
+        one_fps, one_peak = fps_and_peak(lambda: _sp_round_trip(net, xl, None), B * T)
+        out.update(one_fps=one_fps, one_peak_gib=one_peak)
+    return out
+
+
+def child18(out_path: str) -> None:
+    """One of two ranks: the bf16 flagship and the f32 VAE round trips with
+    the pixel rows over the model group, against one process on rank 0; the
+    dry run's SP forward; one profiled round trip."""
+    from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, imagenet_k600_config
+    from omnitokenizer_tpu_torch.parallel import dryrun, mesh, tp
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    group = mesh.init_distributed("cuda")
+    grid = mesh.grid(SP_RANKS)
+    sp = tp.seq_parallel(grid.inner)
+    res = {"rank": mesh.rank(), "world": mesh.world(), "card": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend(group), "sp_size": sp.size}
+    g = torch.Generator().manual_seed(1)
+    video = (torch.rand(B, 3, T, RES, RES, generator=g) * 2 - 1).to("cuda")
+    trace_dir = tempfile.mkdtemp(prefix="sp_trace_")
+    try:
+        model = OmniTokenizerVQGAN.from_config(imagenet_k600_config().replace(dtype=BF), seed=0,
+                                               device="cuda").serving()
+        res["vq"] = _sp_case(model, video, grid, sp,
+                             trace_dir=trace_dir if mesh.rank() == 0 else None)
+        del model
+        torch.cuda.empty_cache()
+        model = OmniTokenizerVQGAN.from_config(imagenet_k600_config(use_vae=True), seed=0,
+                                               device="cuda")
+        res["vae"] = _sp_case(model, video, grid, sp)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    # the JAX dry run's SP forward: its small config, random weights, f32 on the card
+    import numpy as np
+
+    from omnitokenizer_tpu_torch.models.tokenizer import OmniTokenizerNet, init_weights
+    from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    net = OmniTokenizerNet(dryrun._config()[0])
+    init_weights(net, torch.Generator().manual_seed(0))
+    batch = torch.from_numpy(np.random.RandomState(0).randn(
+        2 * mesh.world(), 5, 32, 32, 3).astype(np.float32) * 0.2)
+    reset_launch_counts()
+    res["dryrun"] = dryrun.sp_forward(net.cuda(), batch.cuda())
+    res["dryrun"]["mha"] = launch_counts()["mha"]
+    mesh.barrier()
+    mesh.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def phase18_sp(smi: str) -> dict:
+    """Two ranks of sequence parallelism; returns a rank's launches in the
+    bf16 flagship's and the f32 VAE's SP round trips."""
+    from omnitokenizer_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    ranks = _children("18", SP_RANKS, {"OMNITOK_COORD": f"localhost:{mesh.free_port()}",
+                                       "OMNITOK_NPROCS": str(SP_RANKS)})
+    r0 = ranks[0]
+    backend, shared = r0["backend"], len({r["card"] for r in ranks}) == 1
+    print(f"[18] {SP_RANKS} ranks over {backend} on card(s) {[r['card'] for r in ranks]}, "
+          f"a model group of {r0['sp_size']}: {RES // SP_RANKS} of {RES} pixel rows a rank")
+    fails = []
+    if backend != ("gloo" if shared else "nccl"):
+        fails.append(f"backend {backend} for ranks on cards {[r['card'] for r in ranks]}")
+    for name, want, tol in (("vq", EXPECTED_LAUNCHES["vq"], DECODE_REL_TOL),
+                            ("vae", EXPECTED_LAUNCHES["vae"], VAE_REL_TOL)):
+        for r in ranks:
+            c = r[name]
+            print(f"[18] {name} SP round trip rank {r['rank']} (B={B}, {T}x{RES}^2, rows "
+                  f"{c['shape'][2]}): launches {c['launches']}; {c['fps']:.2f} frames/s, peak "
+                  f"{c['peak_gib']:.2f} GiB ({backend}; {smi})")
+            if c["launches"] != want:
+                fails.append(f"{name} rank {r['rank']} launches {c['launches']} != {want}")
+            if not c["finite"] or c["shape"][2] != RES // SP_RANKS:
+                fails.append(f"{name} rank {r['rank']}: reconstruction {c['shape']}, finite "
+                             f"{c['finite']}")
+        c = r0[name]
+        ties = ""
+        if "indices" in c:
+            ties = (f"; indices differ at {c['indices_differ']} of {c['indices']} "
+                    f"(largest relative gap {c.get('tie_rel_gap', 0.0):.3e})")
+            if c.get("tie_rel_gap", 0.0) > SP_TIE_REL_TOL:
+                fails.append(f"{name}: an index differs by a relative gap {c['tie_rel_gap']:.3e}")
+        print(f"[18] {name} SP vs one process: pixels rel err {c['pixels_rel_err']:.3e} (bar "
+              f"{tol}), pre-VQ latents {c['latents_rel_err']:.3e}{ties}; one process "
+              f"{c['one_fps']:.2f} frames/s, peak {c['one_peak_gib']:.2f} GiB")
+        if not c["pixels_rel_err"] <= tol:
+            fails.append(f"{name}: pixels rel err {c['pixels_rel_err']:.3e} > {tol}")
+    vq = r0["vq"]
+    print(f"[18] one SP round trip (rank 0) profiled: {vq['traced_ms']:.2f} ms on the host "
+          f"clock, {vq['sp_collective_host_ms']:.2f} ms of it in SP's collectives (sp.gather, "
+          f"sp.halo; {vq['collective_host_ms']:.2f} ms in their c10d ops)")
+    for row in vq["op_table"]:
+        print(f"[18]   {row['ms']:8.3f} ms x{row['count']:<5} {row['name'][:70]:70} "
+              f"{row['source']}")
+    for row in vq["source_table"]:
+        print(f"[18]   {row['ms']:8.3f} ms x{row['count']:<5} launched in {row['source']}")
+    for r in ranks:
+        d = r["dryrun"]
+        print(f"[18] the dry run's SP forward rank {r['rank']}: recon rel err vs one process "
+              f"{d['sp_recon_rel_err']:.3e}, commitment {d['sp_commitment_loss']:.6f}, mha "
+              f"launches {d['mha']}")
+        if d["mha"] == 0:
+            fails.append(f"dry run rank {r['rank']}: no mha launch")
+    if fails:
+        raise AssertionError("18: " + "; ".join(fails))
+    print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
+    return {"sp": r0["vq"]["launches"], "sp_vae": r0["vae"]["launches"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4976,13 +5260,13 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", type=lambda v: {int(x) for x in v.split(",")}, default=None,
                         help="comma-separated phases after 0 and 1 (the card, the build) to "
                              "run, for a short run; all of them by default")
-    parser.add_argument("--child", choices=["16a", "16b"], default=None,
-                        help="run as one of phase 16's child processes (set by phase 16)")
+    parser.add_argument("--child", choices=["16a", "16b", "18"], default=None,
+                        help="run as one of phase 16's or 18's child processes (set by them)")
     parser.add_argument("--out", default=None, help="a child's JSON result file")
     parsed = parser.parse_args(argv)
     run = parsed.phases
     if parsed.child:
-        {"16a": child16a, "16b": child16b}[parsed.child](parsed.out)
+        {"16a": child16a, "16b": child16b, "18": child18}[parsed.child](parsed.out)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4996,7 +5280,7 @@ def main(argv=None) -> int:
               (9, phase9_eval), (10, phase10_lm), (11, phase11_diffusion),
               (12, phase12_lm_train), (13, phase13_checkpoints), (14, phase14_variants_t2v),
               (15, lambda: phase15_last_pieces(smi)), (16, lambda: phase16_parallel(smi)),
-              (17, phase17_host_pieces)]
+              (17, phase17_host_pieces), (18, lambda: phase18_sp(smi))]
     paths = {}
     for n, phase in phases:
         if run is None or n in run:
@@ -5016,7 +5300,7 @@ def main(argv=None) -> int:
                         **row})
     src, rep = "omnitokenizer_tpu_torch/ops/kernel_grad.py", "omnitokenizer_tpu/ops/kernel_grad.py:49"
     kernels += [{"route": "cuda", "source": src, "replaces": rep, **row} for row in TRAIN_ROWS]
-    done = "0-17" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
+    done = "0-18" if run is None else ",".join(map(str, [0, 1] + sorted(run)))
     print(f"[done] phases {done} in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

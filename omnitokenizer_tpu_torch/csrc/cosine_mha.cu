@@ -44,6 +44,11 @@
 // may be partial (N < 64 is one partial tile): its keys past N score -inf,
 // and their v rows are TMA's zeros (v's map holds each batch apart), so they
 // add exactly 0 whatever the next batch holds.
+// A query block (sequence parallelism: a rank's rows of the grid): q holds
+// Nq of the N tokens from token q_offset on, q-hat is (B, Nq, H*Dh) and
+// takes its RoPE rows from q_offset, k-hat is the whole grid's (B, N, H*Dh),
+// and a flash block reads its queries from q-hat's batch row b*Nq and its
+// keys from k-hat's b*N. Nq = N, q_offset = 0 is the square call.
 #include "sm90_gemm.cuh"
 
 namespace {
@@ -67,15 +72,16 @@ __global__ void __launch_bounds__(kPrepThreads)
 prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
             const float* __restrict__ q_scale, const float* __restrict__ k_scale,
             const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-            bf16* __restrict__ q_hat, bf16* __restrict__ k_hat, int rows, int N, int HD,
-            float scale, int rope) {
+            bf16* __restrict__ q_hat, bf16* __restrict__ k_hat, int B, int Nq, int N,
+            int q_offset, int HD, float scale, int rope) {
   constexpr int kLanes = Dh / 8;  // threads of a head: aligned groups inside a warp
   const int chunks = HD / 8;
+  const bool is_k = blockIdx.y != 0;
+  const int n_rows = is_k ? N : Nq;  // tokens a batch of this half
   const long long idx = (long long)blockIdx.x * kPrepThreads + threadIdx.x;
   // every lane takes part in the shuffles; one past the end works on row 0
-  const bool active = idx < (long long)rows * chunks;
+  const bool active = idx < (long long)B * n_rows * chunks;
   const int r = active ? (int)(idx / chunks) : 0, c = active ? (int)(idx % chunks) : 0;
-  const bool is_k = blockIdx.y != 0;
   const int d0 = (c % kLanes) * 8;  // first dim inside the head
   const bf16* src = is_k ? kv + (size_t)r * 2 * HD + 8 * c : q + (size_t)r * HD + 8 * c;
   const uint4 u = *reinterpret_cast<const uint4*>(src);
@@ -88,7 +94,8 @@ prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     x[2 * p + 1] = f.y;
   }
   if (rope) {
-    const size_t at = (size_t)(r % N) * (Dh / 2) + d0 / 2;
+    const int pos = r % n_rows + (is_k ? 0 : q_offset);  // the token's place on the grid
+    const size_t at = (size_t)pos * (Dh / 2) + d0 / 2;
     const float4 cs = *reinterpret_cast<const float4*>(cos_t + at);
     const float4 sn = *reinterpret_cast<const float4*>(sin_t + at);
     const float cv[4] = {cs.x, cs.y, cs.z, cs.w}, sv[4] = {sn.x, sn.y, sn.z, sn.w};
@@ -259,7 +266,8 @@ constexpr size_t flash_smem() {
 template <int Dh, bool kRagged>
 __global__ void __launch_bounds__(kThreads, Dh == 128 ? 1 : 2)
 flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int N, int H) {
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int Nq, int N,
+             int H) {
   constexpr uint32_t kRowBytes = 2 * Dh;
   constexpr uint32_t kQBytes = kBQ * kRowBytes;
   constexpr uint32_t kTileBytes = kBN * kRowBytes;  // a k-hat or a v tile
@@ -274,7 +282,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y;
-  const int row_base = blockIdx.z * N;  // the batch's first row in q-hat's and k-hat's maps
+  const int q_base = blockIdx.z * Nq;  // the batch's first row in q-hat's map
+  const int k_base = blockIdx.z * N;   // and in k-hat's
   const int n_tiles = (N + kBN - 1) / kBN;  // the last one may be partial
 
   if (tid == 0) {
@@ -290,14 +299,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   if (tid >= kConsumers) {  // producer warp: one thread keeps the ring full
     if (tid == kConsumers) {
       otk::mbar_expect_tx(q_bar, kQBytes);
-      load_tile<Dh>(q_s, &tq, q_bar, h * Dh, row_base + q0);
-      load_tile<Dh>(q_s + kQBytes / 2, &tq, q_bar, h * Dh, row_base + q0 + 64);
+      load_tile<Dh>(q_s, &tq, q_bar, h * Dh, q_base + q0);
+      load_tile<Dh>(q_s + kQBytes / 2, &tq, q_bar, h * Dh, q_base + q0 + 64);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         if (it >= kStages) otk::mbar_wait(empty0 + 8 * s, ((it / kStages) - 1) & 1);
         const uint32_t full = full0 + 8 * s, k_dst = kv_s + s * kStageBytes;
         otk::mbar_expect_tx(full, kStageBytes);
-        load_tile<Dh>(k_dst, &tk, full, h * Dh, row_base + it * kBN);
+        load_tile<Dh>(k_dst, &tk, full, h * Dh, k_base + it * kBN);
         load_tile<Dh>(k_dst + kTileBytes, &tv, full, (H + h) * Dh, it * kBN, blockIdx.z);
       }
     }
@@ -398,9 +407,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int row = row0 + 8 * e;
-    if (row >= N) continue;
+    if (row >= Nq) continue;
     const float inv = 1.f / l_run[e];
-    bf16* dst = out + (size_t)(row_base + row) * H * Dh + h * Dh + 2 * t;
+    bf16* dst = out + (size_t)(q_base + row) * H * Dh + h * Dh + 2 * t;
 #pragma unroll
     for (int i = 0; i < Dh / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
@@ -410,23 +419,23 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 
 template <int Dh>
 int launch(const void* q, const void* kv, const void* qs, const void* ks, const void* cos_t,
-           const void* sin_t, void* q_hat, void* k_hat, void* out, int B, int N, int H,
-           float scale, int rope, cudaStream_t stream) {
-  const int rows = B * N, HD = H * Dh;
-  const long long threads = (long long)rows * (HD / 8);
+           const void* sin_t, void* q_hat, void* k_hat, void* out, int B, int Nq, int N,
+           int q_offset, int H, float scale, int rope, cudaStream_t stream) {
+  const int HD = H * Dh;
+  const long long threads = (long long)B * N * (HD / 8);  // the k half's, the larger
   const dim3 pgrid((unsigned)((threads + kPrepThreads - 1) / kPrepThreads), 2);
   prep_kernel<Dh><<<pgrid, kPrepThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const float*>(qs),
       static_cast<const float*>(ks), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<bf16*>(q_hat), static_cast<bf16*>(k_hat),
-      rows, N, HD, scale, rope);
+      B, Nq, N, q_offset, HD, scale, rope);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap tq, tk, tv;
   constexpr int kBox = Box<Dh>::kCols;
-  if (!otk::make_map(&tq, q_hat, rows, HD, 64, kBox) ||
-      !otk::make_map(&tk, k_hat, rows, HD, 64, kBox) ||
+  if (!otk::make_map(&tq, q_hat, B * Nq, HD, 64, kBox) ||
+      !otk::make_map(&tk, k_hat, B * N, HD, 64, kBox) ||
       !otk::make_map(&tv, kv, N, 2 * HD, 64, kBox, B))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = flash_smem<Dh>();
@@ -434,33 +443,37 @@ int launch(const void* q, const void* kv, const void* qs, const void* ks, const 
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), N, H);
+  const dim3 grid((Nq + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<bf16*>(out), Nq, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q_hat and k_hat (B, N, H*Dh) are the wrapper's scratch buffers
+// q_hat (B, Nq, H*Dh) and k_hat (B, N, H*Dh) are the wrapper's scratch
+// buffers; q is (B, Nq, H*Dh), tokens q_offset .. of the N-token grid
 extern "C" int cosine_mha_launch(const void* q, const void* kv, const void* q_scale,
                                  const void* k_scale, const void* cos_t, const void* sin_t,
-                                 void* q_hat, void* k_hat, void* out, int B, int N, int H, int Dh,
-                                 float scale, int rope, void* stream) {
-  if (B < 1 || H < 1 || N < 16 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* q_hat, void* k_hat, void* out, int B, int Nq, int N,
+                                 int q_offset, int H, int Dh, float scale, int rope,
+                                 void* stream) {
+  if (B < 1 || H < 1 || N < 16 || N > 2048 || Nq < 1 || Nq > N || q_offset < 0 ||
+      q_offset + Nq > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 16:
-      return launch<16>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
-                        rope, s);
+      return launch<16>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, Nq, N,
+                        q_offset, H, scale, rope, s);
     case 32:
-      return launch<32>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
-                        rope, s);
+      return launch<32>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, Nq, N,
+                        q_offset, H, scale, rope, s);
     case 64:
-      return launch<64>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
-                        rope, s);
+      return launch<64>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, Nq, N,
+                        q_offset, H, scale, rope, s);
     case 128:
-      return launch<128>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, N, H, scale,
-                         rope, s);
+      return launch<128>(q, kv, q_scale, k_scale, cos_t, sin_t, q_hat, k_hat, out, B, Nq, N,
+                         q_offset, H, scale, rope, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

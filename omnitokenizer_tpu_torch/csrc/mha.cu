@@ -44,6 +44,10 @@
 //   In both flash branches key tiles entirely above the causal diagonal are
 //   skipped, padding keys score -inf and padded rows are zero (no NaN), and
 //   inside a tile masked scores are set to -1e9 as in the plain version.
+//   Non-causal, both take Nk keys against N queries (sequence parallelism:
+//   a rank's rows of the f32 VAE's spatial blocks against the whole grid's
+//   keys, N = 512 of Nk = 1024 at two ranks); q and out are (B*H, N, D),
+//   k and v (B*H, Nk, D). Causal calls and the small branch take Nk = N.
 //
 // * Small branch (N <= 16, D any multiple of 16 up to 128): the stage-1
 //   tokenizer's causal temporal blocks, B*H = 32768 problems of 9 x 9 in
@@ -144,7 +148,7 @@ __device__ __forceinline__ float row_sum16(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 mha_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int N, float scale, int causal) {
+                 T* __restrict__ out, int N, int Nk, float scale, int causal) {
   constexpr int ld = D + 4;                    // row stride of the q/k/v tiles (floats)
   constexpr int kDpt = D >= 16 ? D / 16 : 1;   // output dims per thread
   extern __shared__ __align__(16) float smem[];
@@ -155,7 +159,8 @@ mha_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * kBM;
-  const size_t base = (size_t)blockIdx.y * N * D;
+  const size_t base = (size_t)blockIdx.y * N * D;     // q's and out's (bh) rows
+  const size_t k_base = (size_t)blockIdx.y * Nk * D;  // k's and v's
   const bool d_active = tx * kDpt < D;  // D = 8 leaves half the threads out of P v
 
   load_tile<T, D>(s_q, ld, q + base + (size_t)q0 * D, N - q0);
@@ -170,11 +175,11 @@ mha_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   // key tiles past the block's last query are all masked when causal
-  const int k_end = causal ? min(N, q0 + kBM) : N;
+  const int k_end = causal ? min(Nk, q0 + kBM) : Nk;
   for (int k0 = 0; k0 < k_end; k0 += kBN) {
     __syncthreads();  // the previous tile's P v is done with s_v and s_p
-    load_tile<T, D>(s_k, ld, k + base + (size_t)k0 * D, N - k0);
-    load_tile<T, D>(s_v, ld, v + base + (size_t)k0 * D, N - k0);
+    load_tile<T, D>(s_k, ld, k + k_base + (size_t)k0 * D, Nk - k0);
+    load_tile<T, D>(s_v, ld, v + k_base + (size_t)k0 * D, Nk - k0);
     __syncthreads();
 
     // S (4 rows x 4 cols per thread): rows ty*4 + i, cols tx + 16*j
@@ -210,7 +215,7 @@ mha_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
-        if (col >= N) x = -CUDART_INF_F;                 // padding: no key
+        if (col >= Nk) x = -CUDART_INF_F;                // padding: no key
         else if (causal && col > row) x = -1e9f;         // the mask of the plain version
         s[i][j] = x;
         mt = fmaxf(mt, x);
@@ -498,8 +503,8 @@ __device__ __forceinline__ void split_v(uint8_t* hi, uint8_t* lo, const float* r
 template <int D>
 __global__ void __launch_bounds__(Tf32Cfg<D>::kThreads)
 mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int N, float scale,
-                      int causal) {
+                      const float* __restrict__ v, float* __restrict__ out, int N, int Nk,
+                      float scale, int causal) {
   using C = Tf32Cfg<D>;
   constexpr int kBM = C::kBM, kBN = C::kBN;
   constexpr int kSteps = D / 8;   // k steps of S, 8-column tiles of O
@@ -517,14 +522,14 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kBM + wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + g;  // and + 8
   const int q0 = blockIdx.x * kBM;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const size_t base = (size_t)blockIdx.y * N * D;  // q's and out's (bh) rows
+  const float* kb = k + (size_t)blockIdx.y * Nk * D;
+  const float* vb = v + (size_t)blockIdx.y * Nk * D;
   const uint32_t qh_s = otk::smem_u32(q_hi) + wg * 64 * 128, ql_s = qh_s + C::kQBytes;
   const uint32_t kh_s = otk::smem_u32(k_hi), kl_s = kh_s + C::kKBytes;
   const uint32_t vh_s = otk::smem_u32(v_hi), vl_s = otk::smem_u32(v_lo);
 
-  const int k_end = causal ? min(N, q0 + kBM) : N;
+  const int k_end = causal ? min(Nk, q0 + kBM) : Nk;
   const int n_tiles = (k_end + kBN - 1) / kBN;
 
   stage_rows<D>(raw, q + base + (size_t)q0 * D, kBM, N - q0);
@@ -533,8 +538,8 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   split_rows<D>(q_hi, C::kQBytes, raw, kBM);
   fence_proxy_async();
   __syncthreads();
-  stage_rows<D>(raw, kb, kBN, N);
-  stage_rows<D>(raw_v, vb, kBN, N);
+  stage_rows<D>(raw, kb, kBN, Nk);
+  stage_rows<D>(raw_v, vb, kBN, Nk);
   otk::cp_async_commit();
 
   float o[D / 2], m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
@@ -551,8 +556,8 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // operand tiles ready, staging free
     if (it + 1 < n_tiles) {  // the next tile streams in while this one multiplies
       const int k1 = k0 + kBN;
-      stage_rows<D>(raw, kb + (size_t)k1 * D, kBN, N - k1);
-      stage_rows<D>(raw_v, vb + (size_t)k1 * D, kBN, N - k1);
+      stage_rows<D>(raw, kb + (size_t)k1 * D, kBN, Nk - k1);
+      stage_rows<D>(raw_v, vb + (size_t)k1 * D, kBN, Nk - k1);
     }
 
     // S (64 x kBN per warpgroup) = Q K^T; s[4i + e]: row g + 8 (e / 2), key 8i + 2t + e % 2
@@ -586,7 +591,7 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = row0 + 8 * ((i >> 1) & 1);
       const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
       float x = s[i] * scale;
-      if (col >= N) x = -CUDART_INF_F;           // padding: no key
+      if (col >= Nk) x = -CUDART_INF_F;          // padding: no key
       else if (causal && col > row) x = -1e9f;   // the mask of the plain version
       s[i] = x;
       mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], x);
@@ -654,7 +659,7 @@ mha_flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_flash_tf32(const void* q, const void* k, const void* v, void* o, int BH, int N,
-                      float scale, int causal, cudaStream_t stream) {
+                      int Nk, float scale, int causal, cudaStream_t stream) {
   using C = Tf32Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(mha_flash_tf32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -663,15 +668,15 @@ int launch_flash_tf32(const void* q, const void* k, const void* v, void* o, int 
   const dim3 grid((N + C::kBM - 1) / C::kBM, BH);
   mha_flash_tf32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), N, scale, causal);
+      static_cast<float*>(o), N, Nk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, int N, float scale,
-                 int causal, cudaStream_t stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, int N, int Nk,
+                 float scale, int causal, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
-    return launch_flash_tf32<D>(q, k, v, o, BH, N, scale, causal, stream);
+    return launch_flash_tf32<D>(q, k, v, o, BH, N, Nk, scale, causal, stream);
   } else {
     const size_t smem =
         ((size_t)(kBM + 2 * kBN) * (D + 4) + (size_t)kBM * kLdP) * sizeof(float);
@@ -682,15 +687,15 @@ int launch_flash(const void* q, const void* k, const void* v, void* o, int BH, i
     const dim3 grid((N + kBM - 1) / kBM, BH);
     mha_flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), N, scale, causal);
+        static_cast<T*>(o), N, Nk, scale, causal);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-             int H, int N, int D, float scale, int causal, cudaStream_t s) {
-  if (N <= kMaxSmallN && D % 16 == 0 && D >= 16 && D <= 128) {
+             int H, int N, int Nk, int D, float scale, int causal, cudaStream_t s) {
+  if (N <= kMaxSmallN && Nk == N && D % 16 == 0 && D >= 16 && D <= 128) {
     namespace sg = otk::small_group;
     sg::Problem p;
     p.q = q;
@@ -720,16 +725,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const long lo
   }
   // the flash branches read (B*H, N, D) tensors: refuse any other strides
   // (a dim of size 1 may carry any stride)
-  const long long dense[3] = {(long long)H * N * D, (long long)N * D, D}, size[3] = {B, H, N};
-  for (int t = 0; t < 12; ++t)
+  // (q, k, v, out: k and v hold Nk rows a (b, h))
+  for (int t = 0; t < 12; ++t) {
+    const long long n = t / 3 == 1 || t / 3 == 2 ? Nk : N;
+    const long long dense[3] = {(long long)H * n * D, n * D, D}, size[3] = {B, H, n};
     if (size[t % 3] > 1 && st[t] != dense[t % 3]) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int BH = B * H;
   switch (D) {
-    case 8: return launch_flash<T, 8>(q, k, v, o, BH, N, scale, causal, s);
-    case 16: return launch_flash<T, 16>(q, k, v, o, BH, N, scale, causal, s);
-    case 32: return launch_flash<T, 32>(q, k, v, o, BH, N, scale, causal, s);
-    case 64: return launch_flash<T, 64>(q, k, v, o, BH, N, scale, causal, s);
-    case 128: return launch_flash<T, 128>(q, k, v, o, BH, N, scale, causal, s);
+    case 8: return launch_flash<T, 8>(q, k, v, o, BH, N, Nk, scale, causal, s);
+    case 16: return launch_flash<T, 16>(q, k, v, o, BH, N, Nk, scale, causal, s);
+    case 32: return launch_flash<T, 32>(q, k, v, o, BH, N, Nk, scale, causal, s);
+    case 64: return launch_flash<T, 64>(q, k, v, o, BH, N, Nk, scale, causal, s);
+    case 128: return launch_flash<T, 128>(q, k, v, o, BH, N, Nk, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -737,14 +745,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const long lo
 }  // namespace
 
 // strides: (b, h, n) in elements of q, k, v and out, read by the small
-// branch; the flash branches take contiguous (B*H, N, D) tensors and refuse
-// any other strides
+// branch; the flash branches take contiguous (B*H, N, D) tensors (k and v
+// (B*H, Nk, D)) and refuse any other strides. Nk != N: non-causal flash only
 extern "C" int mha_launch(const void* q, const void* k, const void* v, void* out,
-                          const void* strides, int B, int H, int N, int D, float scale,
+                          const void* strides, int B, int H, int N, int Nk, int D, float scale,
                           int causal, int is_bf16, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > 2048) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || N < 1 || N > 2048 || Nk < 1 || Nk > 2048 || (causal && Nk != N))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* st = static_cast<const long long*>(strides);
-  return is_bf16 ? dispatch<bf16>(q, k, v, out, st, B, H, N, D, scale, causal, s)
-                 : dispatch<float>(q, k, v, out, st, B, H, N, D, scale, causal, s);
+  return is_bf16 ? dispatch<bf16>(q, k, v, out, st, B, H, N, Nk, D, scale, causal, s)
+                 : dispatch<float>(q, k, v, out, st, B, H, N, Nk, D, scale, causal, s);
 }

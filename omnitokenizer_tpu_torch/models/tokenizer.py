@@ -25,6 +25,11 @@ blocks, which no token count fits (an einops error), so a dec_block with
 
 The TPU-only `fast_patchify` fold and `flat_temporal` layout are left out
 on purpose: the plain forms here compute the same function.
+
+Sequence parallelism (`sp=`, a `parallel.tp.SeqParallel`): the pixels are
+a rank's block of rows (`tp.sp_shard_pixels`), and so are the tokens,
+latents, encodings and reconstruction; the stacks say their collectives
+(parallel/tp.py). Refused: the 'cnn' patch embed and the deferred pools.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from ..parallel import mesh
 from ..ops.gaussian import DiagonalGaussian
 from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
-from ..ops.transformer import Transformer
+from ..ops.transformer import Transformer, grid_after
 from ..ops.window import WindowAttention
 from .discriminator import Normalize
 
@@ -74,6 +79,19 @@ def _deferred(cfg: TokenizerConfig) -> Tuple[bool, bool]:
     """(temporal, spatial) deferred pools, which apply to the linear embed."""
     linear = cfg.patch_embed == "linear"
     return linear and cfg.defer_temporal_pool, linear and cfg.defer_spatial_pool
+
+
+def check_sp(cfg: TokenizerConfig, sp, pixel_rows: int, decoder: bool = False) -> None:
+    """Refuse what sequence parallelism does not take: the cnn patch embed,
+    the deferred pools, and a rank's pixel rows that are no whole patches."""
+    if cfg.patch_embed != "linear":
+        sp.refuse(f"patch_embed {cfg.patch_embed!r}", "its norm runs over whole frames")
+    if any(_deferred(cfg)):
+        sp.refuse("deferred pools", "they regrid the rows")
+    p = patch_sizes(cfg, decoder)[0]
+    if pixel_rows % p:
+        sp.refuse(f"a rank's {pixel_rows} pixel rows", f"token rows of {p} do not divide "
+                  f"them: the rows must divide by the {sp.size} ranks in whole patches")
 
 
 def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) -> Transformer:
@@ -172,10 +190,14 @@ class Encoder(nn.Module):
         f = dense(getattr(self, f"{name}_norm1")(f), getattr(self, f"{name}_proj"), cfg.dtype)
         return getattr(self, f"{name}_norm2")(f)
 
-    def forward(self, video: torch.Tensor, is_image: bool, training: bool = False) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, is_image: bool, training: bool = False,
+                sp=None) -> torch.Tensor:
+        """video (B, T, H, W, C), a rank's H rows under `sp`."""
         cfg = self.cfg
         _, pt = patch_sizes(cfg)
         T = video.shape[1]
+        if sp is not None:
+            check_sp(cfg, sp, video.shape[2])
         if (T - 1) % pt:
             raise ValueError(
                 f"frames-1 ({T - 1}) must be divisible by temporal patch size ({pt})")
@@ -186,10 +208,11 @@ class Encoder(nn.Module):
 
         b, t, h, w, d = tokens.shape
         x = self.enc_spatial_transformer(tokens.reshape(b * t, h * w, d), (b, t, h, w),
-                                         is_spatial=True, training=training)
-        nh = nw = int(x.shape[1] ** 0.5)  # the grid after the stack's pools
+                                         is_spatial=True, training=training, sp=sp)
+        nh, nw = grid_after(cfg.enc_block, h, w)
         x = rearrange(x.reshape(b, t, nh, nw, d), "b t h w d -> (b h w) t d")
-        x = self.enc_temporal_transformer(x, (b, t, nh, nw), is_spatial=False, training=training)
+        x = self.enc_temporal_transformer(x, (b, t, nh, nw), is_spatial=False, training=training,
+                                          sp=sp)
         tokens = rearrange(x, "(b h w) t d -> b t h w d", b=b, h=nh, w=nw)
 
         defer_t, defer_s = _deferred(cfg)
@@ -234,8 +257,12 @@ class Decoder(nn.Module):
         return rearrange(y, "b t h w (c pt p1 p2) -> b (t pt) (h p1) (w p2) c",
                          pt=1 if first else pt, p1=p, p2=p)
 
-    def forward(self, tokens: torch.Tensor, is_image: bool, training: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, is_image: bool, training: bool = False,
+                sp=None) -> torch.Tensor:
+        """tokens (B, t, h, w, d), a rank's h rows under `sp`."""
         cfg = self.cfg
+        if sp is not None:
+            check_sp(cfg, sp, tokens.shape[2] * patch_sizes(cfg, decoder=True)[0], decoder=True)
         defer_t, defer_s = _deferred(cfg)
         if tokens.shape[1] > 1 and defer_t:
             tokens = torch.cat([tokens[:, :1], tokens[:, 1:].repeat_interleave(2, 1)], dim=1)
@@ -245,14 +272,12 @@ class Decoder(nn.Module):
         video_shape = (b, t, h, w)
 
         x = rearrange(tokens, "b t h w d -> (b h w) t d")
-        x = self.dec_temporal_transformer(x, video_shape, is_spatial=False, training=training)
+        x = self.dec_temporal_transformer(x, video_shape, is_spatial=False, training=training,
+                                          sp=sp)
         x = rearrange(x, "(b h w) t d -> (b t) (h w) d", b=b, h=h, w=w)
-        x = self.dec_spatial_transformer(x, video_shape, is_spatial=True, training=training)
-        for blk in cfg.dec_block:  # the grid after the stack's pools and ups
-            if blk in "nr":
-                h, w = 2 * h, 2 * w
-            elif blk in "aml":
-                h, w = h // 2, w // 2
+        x = self.dec_spatial_transformer(x, video_shape, is_spatial=True, training=training,
+                                         sp=sp)
+        h, w = grid_after(cfg.dec_block, h, w)
         x = rearrange(x, "(b t) (h w) d -> b t h w d", b=b, h=h, w=w)
 
         recon = self._to_pixels(x[:, :1], True)
@@ -291,57 +316,83 @@ class OmniTokenizerNet(nn.Module):
 
     # -- pieces ---------------------------------------------------------
     def encode_latent(self, x: torch.Tensor, is_image: bool,
-                      training: bool = False) -> torch.Tensor:
+                      training: bool = False, sp=None) -> torch.Tensor:
         """pixels (B, T, H, W, C) -> pre-quant latents (B, t, h, w, code_dim[*2])."""
-        h = self.encoder(x, is_image, training=training)
+        h = self.encoder(x, is_image, training=training, sp=sp)
         return dense(h, self.pre_vq_conv, self.vq_dtype)
 
     def quantize(self, h: torch.Tensor, training: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 group=None) -> Dict[str, torch.Tensor]:
+                 group=None, sp=None) -> Dict[str, torch.Tensor]:
         """training=True advances the codebook (its init and restart rows
-        drawn from `generator`; over every rank's rows given a `group`)."""
+        drawn from `generator`; over every rank's rows given a `group`,
+        under `sp` data x model, the model group by default). Under `sp`
+        an inference call's commitment loss and statistics are the model
+        group's."""
         if self.cfg.l2_code:
             h = l2norm(h)
-        return self.codebook(h, training=training, generator=generator, group=group)
+        return self.codebook(h, training=training, generator=generator, group=group,
+                             sp_group=None if sp is None else sp.group)
 
     def decode_latent(self, z: torch.Tensor, is_image: bool,
-                      training: bool = False) -> torch.Tensor:
+                      training: bool = False, sp=None) -> torch.Tensor:
         """post-quant latents (B, t, h, w, code_dim) -> pixels (B, T, H, W, C)."""
         z = dense(z, self.post_vq_conv, self.cfg.dtype)
-        return self.decoder(z, is_image, training=training)
+        return self.decoder(z, is_image, training=training, sp=sp)
 
     # -- public-contract methods -----------------------------------------
     def encode(self, x: torch.Tensor, is_image: bool, include_embeddings: bool = False,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, sp=None):
         """VQ: token indices (B, t, h, w) [+ straight-through embeddings].
         VAE: latents (B, t, h, w, code_dim), a sample of the posterior when
-        given a generator, else its mode."""
-        h = self.encode_latent(x, is_image)
+        given a generator, else its mode. Under `sp`, a rank's rows."""
+        h = self.encode_latent(x, is_image, sp=sp)
         if self.cfg.use_vae:
             posterior = DiagonalGaussian.from_params(h)
-            return posterior.mode() if generator is None else posterior.sample(generator)
-        vq = self.quantize(h)
+            if generator is None:
+                return posterior.mode()
+            return posterior.sample(generator, self._noise(posterior, generator, None, sp))
+        vq = self.quantize(h, sp=sp)
         if include_embeddings:
             return vq["embeddings"], vq["encodings"]
         return vq["encodings"]
 
-    def decode(self, encodings: torch.Tensor, is_image: bool) -> torch.Tensor:
+    def decode(self, encodings: torch.Tensor, is_image: bool, sp=None) -> torch.Tensor:
         """VQ indices, flat (B, N) or grid (B, t, h, w), or VAE latents,
-        (B, t, h, w, c), flat (B, N, c) or an image's (B, h, w, c) -> pixels."""
+        (B, t, h, w, c), flat (B, N, c) or an image's (B, h, w, c) -> pixels.
+        Under `sp`, a rank's rows of the grid forms."""
         if self.cfg.use_vae:  # (B, h, w, c) is an image latent without its time axis
             z = encodings[:, None] if encodings.ndim == 4 else encodings
         else:
             z = self.codebook.lookup(encodings)
         if z.ndim == 3:  # flat (B, N, c)
+            if sp is not None:
+                sp.refuse("flat encodings", "a rank's rows are known by their grid's shape")
             n = z.shape[1]
             hh = math.isqrt(n) if is_image else self.cfg.resolution // self.cfg.patch_size
             z = z.reshape(z.shape[0], n // (hh * hh), hh, hh, z.shape[-1])
-        return self.decode_latent(z, is_image)
+        return self.decode_latent(z, is_image, sp=sp)
+
+    @staticmethod
+    def _noise(posterior, generator, group, sp) -> Optional[torch.Tensor]:
+        """This rank's rows of one N(0, 1) draw for the whole batch (over
+        `group`) and the whole grid (over `sp`'s rows), or None for a
+        draw of the local shape alone."""
+        if group is None and sp is None:
+            return None
+        shape = posterior.mean.shape
+        if sp is not None:
+            shape = shape[:2] + (shape[2] * sp.size,) + shape[3:]
+        noise = mesh.draw_rows(lambda s: torch.randn(s, generator=generator,
+                                                     device=posterior.mean.device), shape, group)
+        if sp is not None:
+            h = posterior.mean.shape[2]
+            noise = noise.narrow(2, sp.rank * h, h)
+        return noise
 
     def forward(self, x: torch.Tensor, is_image: bool, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, group=None
+                noise: Optional[torch.Tensor] = None, group=None, sp=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full autoencode pass; returns (x_recon, aux dict). VAE mode
         decodes a sample when given the N(0, 1) `noise` (the latents' shape)
@@ -350,21 +401,24 @@ class OmniTokenizerNet(nn.Module):
         sum(kl) / B * kl_weight. VQ mode with training=True advances the
         codebook, drawing its random rows from `generator`. Given a process
         group (data parallelism), the codebook's statistics are the group's
-        and a posterior draw is this rank's rows of one draw for the group."""
-        h = self.encode_latent(x, is_image, training=training)
+        and a posterior draw is this rank's rows of one draw for the group.
+        Under `sp` (sequence parallelism) x is this rank's pixel rows, and
+        so are the reconstruction, encodings, posterior and `noise`; the
+        losses are the whole grid's (parallel/tp.py)."""
+        h = self.encode_latent(x, is_image, training=training, sp=sp)
         if self.cfg.use_vae:
             posterior = DiagonalGaussian.from_params(h)
-            if noise is None and generator is not None and group is not None:
-                noise = mesh.draw_rows(lambda shape: torch.randn(
-                    shape, generator=generator, device=h.device), posterior.mean.shape, group)
+            if noise is None and generator is not None:
+                noise = self._noise(posterior, generator, group, sp)
             z = (posterior.mode() if generator is None and noise is None
                  else posterior.sample(generator, noise))
-            recon = self.decode_latent(z, is_image, training=training)
+            recon = self.decode_latent(z, is_image, training=training, sp=sp)
             kl = posterior.kl()
-            kl_loss = kl.sum() / kl.shape[0] * self.cfg.kl_weight
+            kl_sum = mesh.sum_over(kl.sum(), None if sp is None else sp.group)
+            kl_loss = kl_sum / kl.shape[0] * self.cfg.kl_weight
             return recon, dict(commitment_loss=kl_loss, kl_loss=kl_loss, posterior=posterior)
-        vq = self.quantize(h, training=training, generator=generator, group=group)
-        return self.decode_latent(vq["embeddings"], is_image, training=training), vq
+        vq = self.quantize(h, training=training, generator=generator, group=group, sp=sp)
+        return self.decode_latent(vq["embeddings"], is_image, training=training, sp=sp), vq
 
 
 @torch.no_grad()

@@ -16,6 +16,12 @@ of an inference-route call that autograd records (a VAE's training step).
 serving; without the cache an inference call casts the live parameters,
 and a training call always does.
 
+Under sequence parallelism (`sp=`, parallel/tp.py) a spatial call holds
+its rank's token rows: it projects them, gathers K/V over the group
+(`mesh.gather_summed`) and attends with its queries at their global
+offset: `cosine_mha` and `mha` with a query block on the card, their plain
+versions on the CPU. Temporal calls stay local.
+
 Under `attn_bias_mode='einsum'` a spatial `rel` call adds its CPB bias and
 a causal call AliBi to the f32 logits. No attention kernel takes a bias
 (the JAX gates refuse one): a biased call projects with `ln_qkv` where its
@@ -31,12 +37,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .bias import ContinuousPositionBias, alibi_bias
 from .kernel_grad import kernel_fwd_ref_bwd, train_kernel_fwd_ops
 from .kernels.cosine_mha import cosine_mha, cosine_mha_supported
 from .kernels.geglu_ff import geglu_ff, geglu_ff_supported, pad_geglu_weights
 from .kernels.ln_qkv import ln_qkv, ln_qkv_supported
 from .kernels.mha import mha, mha_plain, mha_supported, small_branch
+from .kernels.mha import query_block_ok as mha_block_ok
 from .kernels.small_attn import small_n_attention, small_n_supported
 from .norms import layer_norm
 from .rotary import apply_rotary_emb_2d
@@ -51,7 +59,7 @@ def _mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                 causal: bool) -> torch.Tensor:
     """The `mha` kernel: its small branch reads the views as they stand,
     the flash branches take contiguous copies."""
-    if not small_branch(*q.shape[-2:]):
+    if not small_branch(*q.shape[-2:], k.shape[-2]):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return mha(q, k, v, scale, causal)
 
@@ -60,8 +68,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
          causal: bool = False, training: bool = False,
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T * scale [+ bias] [bottom-right causal]) v over (B, H,
-    N, D). Without a bias, a call with training=False inside the `mha` gate
-    runs the kernel for a CUDA tensor, as
+    N, D) queries and (B, H, Nk, D) keys and values. Without a bias, a
+    call with training=False inside the `mha` gate runs the kernel for a
+    CUDA tensor, as
     `omnitokenizer_tpu.ops.attention.sdpa` routes between `mha_pallas` and
     XLA; a training=True call runs the plain math (`mha_plain`). With a
     bias (broadcast to (B, H, N, N)): the plain math, the bias added to the
@@ -76,7 +85,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     has no backward of its own: its output alone would carry no gradient."""
     if bias is not None:
         return mha_plain(q, k, v, scale, causal, bias)
-    if training or not mha_supported(*q.shape[-2:], q.dtype):
+    if (training or not mha_supported(k.shape[-2], q.shape[-1], q.dtype)
+            or not mha_block_ok(q.shape[-2], k.shape[-2], causal)):
         return mha_plain(q, k, v, scale, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if "attn" not in train_kernel_fwd_ops():
@@ -98,21 +108,23 @@ def project(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor, wkv: torch.T
 def attend(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor, k_scale: torch.Tensor, *,
            heads: int, dim_head: int, scale: float, causal: bool, use_rope: bool,
            dtype: torch.dtype, training: bool,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain math from the projections q (B, N, H*D), kv (B, N, 2*H*D) to
-    the (B, N, H*D) tokens before the out-projection; `bias` is added to
-    the logits (sdpa)."""
-    B, N, inner = q.shape
+           bias: Optional[torch.Tensor] = None, q_offset: int = 0) -> torch.Tensor:
+    """Plain math from the projections q (B, Nq, H*D), kv (B, N, 2*H*D) to
+    the (B, Nq, H*D) tokens before the out-projection; `bias` is added to
+    the logits (sdpa). q is the grid's tokens q_offset .. (all N of them
+    by default), for RoPE."""
+    B, Nq, inner = q.shape
     k, v = kv.chunk(2, dim=-1)
-    q, k, v = (t.reshape(B, N, heads, dim_head) for t in (q, k, v))
+    q = q.reshape(B, Nq, heads, dim_head)
+    k, v = (t.reshape(B, kv.shape[1], heads, dim_head) for t in (k, v))
     if use_rope:
-        q, k = apply_rotary_emb_2d(q, k)
+        q, k = apply_rotary_emb_2d(q, k, q_offset)
     q = l2norm(q.float()) * q_scale
     k = l2norm(k.float()) * k_scale
     q = q.transpose(1, 2).to(dtype)
     k = k.transpose(1, 2).to(dtype)
     out = sdpa(q, k, v.transpose(1, 2), scale, causal=causal, training=training, bias=bias)
-    return out.transpose(1, 2).reshape(B, N, inner)
+    return out.transpose(1, 2).reshape(B, Nq, inner)
 
 
 def attention_ref_math(x, gamma, wq, wkv, q_scale, k_scale, *, dtype, heads, dim_head,
@@ -187,10 +199,12 @@ class Attention(nn.Module):
         return project(x, self.norm_gamma, self.to_q.weight, self.to_kv.weight, self.dtype)
 
     def _attend(self, q: torch.Tensor, kv: torch.Tensor, uses_rope: bool,
-                training: bool, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                training: bool, bias: Optional[torch.Tensor] = None,
+                q_offset: int = 0) -> torch.Tensor:
         return attend(q, kv, self.q_scale, self.k_scale, heads=self.heads,
                       dim_head=self.dim_head, scale=self.scale, causal=self.causal,
-                      use_rope=uses_rope, dtype=self.dtype, training=training, bias=bias)
+                      use_rope=uses_rope, dtype=self.dtype, training=training, bias=bias,
+                      q_offset=q_offset)
 
     def needs_bias(self, is_spatial: bool) -> bool:
         """Whether a call adds a bias to its logits: in 'einsum' mode, a
@@ -249,8 +263,50 @@ class Attention(nn.Module):
                                      self.causal)
         return cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope)
 
+    def _qkv(self, x: torch.Tensor):
+        """bf16 inference's projections, as the JAX module dispatches them:
+        ln_qkv inside its gate, else plain; the kernels' weights from the
+        serving cache where it is built, else cast from the live
+        parameters. Returns q, kv and the attention kernels' scales."""
+        B, N, D = x.shape
+        proj, qs, ks = self.kernel_weights or self._cast_weights()
+        if proj is None:
+            return (*self._project(x), qs, ks)
+        q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), *proj)
+        inner = self.dim_head * self.heads
+        return q2.view(B, N, inner), kv2.view(B, N, 2 * inner), qs, ks
+
+    def _forward_sp(self, x: torch.Tensor, training: bool, sp) -> torch.Tensor:
+        """A spatial call under sequence parallelism: x holds this rank's
+        token rows, a block of the grid's N tokens from token rank * Nq."""
+        B, Nq, _ = x.shape
+        N, offset = Nq * sp.size, Nq * sp.rank
+        uses_rope = self.spatial_pos == "rope"
+        if self.attn_bias_mode == "einsum":
+            sp.refuse("attn_bias_mode 'einsum'", "its bias is over the whole grid's logits")
+        if self.dtype != torch.bfloat16:
+            q, kv = self._project(x)
+            kv = mesh.gather_summed(kv, 1, sp.group)
+            return self._proj_out(self._attend(q, kv, uses_rope, training, q_offset=offset))
+        if training:
+            sp.refuse("a bf16 training-route call", "the kernels' training route under SP "
+                      "has no reference: the JAX package's SP gradient is f32")
+        q, kv, qs, ks = self._qkv(x)
+        kv = mesh.gather_summed(kv, 1, sp.group)
+        if not uses_rope and small_n_supported(N, self.dim_head):
+            sp.refuse(f"a spatial grid of {N} tokens", "small_n_attention's groups are local")
+        if not self.causal and cosine_mha_supported(N, self.dim_head):
+            out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope,
+                             q_offset=offset)
+        else:
+            out = self._attend(q, kv, uses_rope, False, q_offset=offset)
+        return self._proj_out(out)
+
     def forward(self, x: torch.Tensor, is_spatial: bool = True,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, sp=None) -> torch.Tensor:
+        """`sp`: the SeqParallel of a spatial call whose x holds a rank's rows."""
+        if sp is not None and is_spatial:
+            return self._forward_sp(x, training, sp)
         B, N, D = x.shape
         uses_rope = self.spatial_pos == "rope" and is_spatial
 
@@ -268,18 +324,9 @@ class Attention(nn.Module):
         if self.dtype != torch.bfloat16 or training:
             return self._proj_out(self._attend(*self._project(x), uses_rope, training, bias))
 
-        # bf16 inference, as the JAX module dispatches: the projections by
-        # ln_qkv inside its gate, else plain; then the attention kernel that
-        # takes (N, dim_head), whatever made q and kv, unless a bias applies.
-        # Weights from the serving cache where it is built, else cast from
-        # the live parameters
-        proj, qs, ks = self.kernel_weights or self._cast_weights()
-        if proj is not None:
-            q2, kv2 = ln_qkv(x.reshape(B * N, D).to(self.dtype), *proj)
-            inner = self.dim_head * self.heads
-            q, kv = q2.view(B, N, inner), kv2.view(B, N, 2 * inner)
-        else:
-            q, kv = self._project(x)
+        # bf16 inference: the projections (_qkv), then the attention kernel
+        # that takes (N, dim_head), whatever made q and kv, unless a bias applies
+        q, kv, qs, ks = self._qkv(x)
         if bias is not None:
             out = self._attend(q, kv, uses_rope, training, bias)
         elif not uses_rope and small_n_supported(N, self.dim_head):

@@ -20,6 +20,11 @@ rows are drawn from every rank's rows gathered in rank order with the
 generator every rank shares, so N ranks hold the codebook one call on the
 concatenated rows would. `vq_argmin_sharded` searches a table split over
 a group (JAX `make_vq_argmin_sharded`).
+
+Sequence parallelism: `sp_group` is the model group whose ranks hold a
+block of every frame's rows. The commitment loss, counts, usage and
+perplexity of an inference call are that group's; a training call's
+statistics are its `group`'s (data x model), the model group by default.
 """
 
 from __future__ import annotations
@@ -98,17 +103,18 @@ class Codebook(nn.Module):
 
     def forward(self, z: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                group=None) -> Dict[str, torch.Tensor]:
+                group=None, sp_group=None) -> Dict[str, torch.Tensor]:
         """z (B, T, H, W, D) channels-last latents -> dict(embeddings,
         encodings, commitment_loss, perplexity, avg_usage, batch_usage).
         training=True searches the (initialized) codes and then advances
         the buffers; `generator` draws the init and restart rows; `group`
-        makes the statistics and the advance those of every rank's rows."""
+        makes the statistics and the advance those of every rank's rows;
+        `sp_group` those of an inference call (sequence parallelism)."""
         bshape = z.shape[:-1]
         flat = z.reshape(-1, self.embedding_dim).float()
         emb = self.embeddings
-        if not training:
-            group = None
+        if not training or group is None:
+            group = sp_group
         all_rows = None
         if training:
             # the first training batch initializes the codes from its rows

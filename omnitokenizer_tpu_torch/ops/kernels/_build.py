@@ -34,8 +34,8 @@ SIGNATURES = {
     "ln_qkv_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
     "geglu_ff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
     "small_attn_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
-    "cosine_mha_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P],
-    "mha_launch": [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, I, P],
+    "cosine_mha_launch": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, P],
+    "mha_launch": [P, P, P, P, P, I, I, I, I, I, ctypes.c_float, I, I, P],
     "flash_attn_fwd_launch": [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
     "flash_attn_bwd_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
 }

@@ -7,7 +7,9 @@ fills -1e9, not -inf. Replaces `omnitokenizer_tpu/ops/pallas/mha.py:mha_pallas`;
 the CUDA kernel is `csrc/mha.cu` (for N > 16 a flash branch: f32 on wgmma
 tensor cores with 3xTF32 error compensation, bf16 in f32 FMA; for N <= 16 the
 staged small-group core of `csrc/small_group.cuh`, which reads strided views)
-and `mha_plain` its plain version.
+and `mha_plain` its plain version. Non-causal, k and v may hold Nk keys
+against q's N queries (sequence parallelism: a rank's rows against the
+whole grid's keys), which the flash branches take.
 """
 
 from __future__ import annotations
@@ -49,10 +51,17 @@ def narrowed(n: int, dim_head: int) -> bool:
     return MIN_N <= n <= MAX_N and dim_head % 8 == 0 and dim_head > MAX_DIM_HEAD
 
 
-def small_branch(n: int, dim_head: int) -> bool:
+def small_branch(n: int, dim_head: int, nk: Optional[int] = None) -> bool:
     """Whether the kernel takes (n, dim_head) in its small branch, which
-    reads strided views; the flash branches take contiguous tensors."""
-    return n <= SMALL_MAX_N and dim_head in SMALL_DIM_HEADS
+    reads strided views; the flash branches take contiguous tensors and any
+    nk keys (nk = n by default)."""
+    return n <= SMALL_MAX_N and dim_head in SMALL_DIM_HEADS and nk in (None, n)
+
+
+def query_block_ok(n: int, nk: int, causal: bool) -> bool:
+    """Whether the kernel takes n queries against nk keys: n = nk, or a
+    non-causal call."""
+    return n == nk or not causal
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -75,19 +84,22 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         causal: bool = False) -> torch.Tensor:
-    """q, k, v (B, H, N, D) of one dtype, float32 or bfloat16: contiguous,
-    or in the small branch any views with 16-byte rows (the attention
-    module's transposed (B, N, H, D) memory; the output then takes q's
-    layout). Kernel on a CUDA tensor, plain version on a CPU tensor."""
+    """q (B, H, N, D), k and v (B, H, Nk, D) of one dtype, float32 or
+    bfloat16, Nk = N unless non-causal: contiguous, or in the small branch
+    any views with 16-byte rows (the attention module's transposed (B, N,
+    H, D) memory; the output then takes q's layout). The gate reads Nk, the
+    keys. Kernel on a CUDA tensor, plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v, scale, causal)
     _build.refuse_grad("mha", q, k, v)
     B, H, N, D = q.shape
-    if not mha_supported(N, D, q.dtype):
-        raise ValueError(f"mha: unsupported N={N} dim_head={D} dtype={q.dtype}")
-    small = small_branch(N, D)
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _build.check(t, name, q.dtype, (B, H, N, D), contiguous=not small)
+    Nk = k.shape[2]
+    if not mha_supported(Nk, D, q.dtype) or not query_block_ok(N, Nk, causal):
+        raise ValueError(f"mha: unsupported N={N} of Nk={Nk} dim_head={D} dtype={q.dtype} "
+                         f"causal={causal}")
+    small = small_branch(N, D, Nk)
+    for t, name, n in ((q, "q", N), (k, "k", Nk), (v, "v", Nk)):
+        _build.check(t, name, q.dtype, (B, H, n, D), contiguous=not small)
         if small and t.stride(-1) != 1:
             raise ValueError(f"mha: {name} needs a unit last stride, got {t.stride(-1)}")
         if small and any(s * t.element_size() % 16
@@ -104,7 +116,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         out = torch.empty(B, H, N, width, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     _build.launch("mha_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  ctypes.addressof(strides), B, H, N, width, float(scale), int(causal),
+                  ctypes.addressof(strides), B, H, N, Nk, width, float(scale), int(causal),
                   int(q.dtype == torch.bfloat16))
     mha.launches += 1
     return out[..., :D] if width != D else out

@@ -3,6 +3,8 @@
 For a flat h*w token grid each head dim is split into dim/4 complex
 frequency slots; even slots rotate by x-position angles and odd slots by
 y-position angles (the reference's `cat([x_cis, y_cis]).reshape` interleave).
+Under sequence parallelism a rank's queries are a block of the grid's
+tokens, and take the table's rows at their global offset.
 """
 
 from __future__ import annotations
@@ -51,10 +53,18 @@ def rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1).flatten(-2)
 
 
-def apply_rotary_emb_2d(q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """2D RoPE on q, k of shape (B, N, H, D), computed in f32 and cast back."""
-    _, N, _, D = q.shape
+def block_table(cos: torch.Tensor, sin: torch.Tensor, offset: int, n: int):
+    """Rows offset .. offset + n - 1 of the tables, shaped to broadcast
+    against (B, n, H, D/2)."""
+    return cos[None, offset:offset + n, None, :], sin[None, offset:offset + n, None, :]
+
+
+def apply_rotary_emb_2d(q: torch.Tensor, k: torch.Tensor,
+                        q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2D RoPE on q (B, Nq, H, D) and k (B, N, H, D), computed in f32 and
+    cast back; the grid is k's N tokens and q the block of Nq of them from
+    token q_offset (all of them by default)."""
+    N, D = k.shape[1], k.shape[-1]
     cos, sin = freqs_cis_2d(D, N, q.device)
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-    return (rotate_pairs(q, cos, sin).to(q.dtype),
-            rotate_pairs(k, cos, sin).to(k.dtype))
+    return (rotate_pairs(q, *block_table(cos, sin, q_offset, q.shape[1])).to(q.dtype),
+            rotate_pairs(k, *block_table(cos, sin, 0, N)).to(k.dtype))

@@ -5,6 +5,11 @@ Block codes: 't' full attention with PEG in front, 'w' window attention,
 residual, a pool or up block replaces the tokens, the feed-forward is
 residual after any of them, and a gamma-only LayerNorm closes the stack. A
 pool halves the video shape's grid for the PEGs after it, an up doubles it.
+
+Under sequence parallelism (`sp=`) video_shape is the rank's (B, T, h/n,
+w): the PEGs, the spatial attention and the windows take their collectives
+or their local rows from it (ops/peg.py, ops/attention.py); pool and up
+blocks, which would regrid the rows, are refused.
 """
 
 from __future__ import annotations
@@ -20,6 +25,16 @@ from .peg import PEG
 from .window import WindowAttention
 
 
+def grid_after(block: str, h: int, w: int) -> Tuple[int, int]:
+    """The (h, w) token grid after a stack's pools and ups."""
+    for blk in block:
+        if blk in "nr":
+            h, w = 2 * h, 2 * w
+        elif blk in "aml":
+            h, w = h // 2, w // 2
+    return h, w
+
+
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, block: str, causal: bool = False,
                  dim_head: int = 64, heads: int = 8, ff_mult: float = 4.0,
@@ -29,7 +44,7 @@ class Transformer(nn.Module):
         super().__init__()
         if len(block) != depth:
             raise ValueError(f"block string {block!r} does not have depth {depth}")
-        self.block = block
+        self.block, self.window_size = block, window_size
         # `spatial`: a stack over the token grid; its `rel` attentions own
         # the CPB parameters (ops/attention.py)
         # submodules carry the flax names (layers_{i}_attn, ...), so the
@@ -54,20 +69,36 @@ class Transformer(nn.Module):
         self.norm_out = LayerNormGamma(dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
-                is_spatial: bool = True, training: bool = False) -> torch.Tensor:
+                is_spatial: bool = True, training: bool = False, sp=None) -> torch.Tensor:
+        """`sp`: the SeqParallel whose rank's rows x holds; video_shape is
+        then the rank's."""
         vs = tuple(video_shape)
+        sp_kw = {}  # the one-process path's calls stay as they were
+        if sp is not None:
+            self.check_sp(vs, is_spatial, sp)
+            sp_kw = {"sp": sp}
         for i, blk in enumerate(self.block):
             attn = getattr(self, f"layers_{i}_attn")
             if blk == "t":
                 peg = getattr(self, f"layers_{i}_peg", None)
                 if peg is not None:
-                    x = peg(x, vs, residual=True)
-                x = attn(x, is_spatial=is_spatial, training=training) + x
+                    x = peg(x, vs, residual=True, is_spatial=is_spatial, **sp_kw)
+                x = attn(x, is_spatial=is_spatial, training=training, **sp_kw) + x
             elif blk == "w":
-                x = attn(x) + x
+                x = attn(x, grid=vs[2:] if sp is not None else None) + x
             else:
                 x = attn(x)
                 up = blk in ("n", "r")
                 vs = vs[:2] + tuple(s * 2 if up else s // 2 for s in vs[2:])
             x = getattr(self, f"layers_{i}_ff")(x, training=training) + x
         return self.norm_out(x)
+
+    def check_sp(self, video_shape, is_spatial: bool, sp) -> None:
+        """Refuse what sequence parallelism does not take in this stack."""
+        if any(blk in "amlnr" for blk in self.block):
+            sp.refuse(f"block string {self.block!r}", "pool and up blocks regrid the rows")
+        if is_spatial and "w" in self.block:
+            ws = self.window_size
+            if video_shape[2] % ws or video_shape[3] % ws:
+                sp.refuse(f"a rank's {video_shape[2]} x {video_shape[3]} token grid",
+                          f"it does not fill whole {ws} x {ws} windows")

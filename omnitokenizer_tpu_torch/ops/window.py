@@ -45,8 +45,10 @@ def relative_position_index(ws: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    """W-MSA over non-overlapping windows of a square token grid: gamma-only
-    pre-norm, qkv without bias, proj with bias, scale head_dim**-0.5."""
+    """W-MSA over non-overlapping windows of a token grid: gamma-only
+    pre-norm, qkv without bias, proj with bias, scale head_dim**-0.5. The
+    grid is the caller's (h, w) (a rank's rows under sequence parallelism),
+    else the square int(sqrt(N))^2 one."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  dtype: torch.dtype = torch.float32):
@@ -60,9 +62,9 @@ class WindowAttention(nn.Module):
         idx = torch.from_numpy(relative_position_index(window_size).reshape(-1))
         self.register_buffer("rel_index", idx, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid=None) -> torch.Tensor:
         B, N, C = x.shape
-        H = W = int(N ** 0.5)
+        H, W = grid or (int(N ** 0.5),) * 2
         ws, heads = self.window_size, self.num_heads
         head_dim = C // heads
 

@@ -6,7 +6,11 @@ package's `__graft_entry__.dryrun_multichip`).
 `dryrun_multichip(n)` starts n processes (the OMNITOK_* variables, a local
 coordinator), each of which takes one data-parallel GAN step of the JAX
 dry run's small config on its 2 rows of an (n * 2)-clip batch, and checks
-that every rank ends with the same finite metrics and parameters. The
+that every rank ends with the same finite metrics and parameters; then,
+for an even n, the JAX dry run's sequence-parallel tokenizer forward
+(`__graft_entry__._dryrun_tp_sp`'s second half): the batch over the data
+axis of `mesh.grid(2)`, each clip's pixel rows over its model pairs,
+held to the one-process forward of the data row's clips. The
 ranks run on the card unless --device cpu is passed: over NCCL, one card a
 rank, or over gloo where there are more ranks than cards
 (`mesh.default_backend`); on the CPU over gloo.
@@ -58,7 +62,32 @@ def rank_step(device: str = "cuda") -> Dict[str, float]:
     every = torch.stack(mesh.all_gather(vals, group)) if group is not None else vals[None]
     if not bool(torch.isfinite(every).all()) or not bool((every == every[0]).all()):
         raise RuntimeError(f"ranks disagree after the data-parallel step: {every.tolist()}")
-    return {k: float(metrics[k]) for k in sorted(metrics)}
+    out = {k: float(metrics[k]) for k in sorted(metrics)}
+    if n % 2 == 0:
+        out.update(sp_forward(state.net, batch.to(device)))
+    return out
+
+
+@torch.no_grad()
+def sp_forward(net, batch: torch.Tensor) -> Dict[str, float]:
+    """The tokenizer forward with the batch over the data axis of
+    `mesh.grid(2)` and the pixel rows over its model axis, against the
+    one-process forward of this data row's clips: the gathered
+    reconstruction 1e-5 relative, the indices equal."""
+    from . import tp
+
+    grid = mesh.grid(2)
+    sp = tp.seq_parallel(grid.inner)
+    clips = mesh.rank_rows(batch, grid.data if grid.data_size > 1 else None)
+    recon, aux = net(tp.sp_shard_pixels(clips, grid.inner), False, sp=sp)
+    recon = tp.sp_gather(recon, grid.inner, 2)
+    idx = tp.sp_gather(aux["encodings"], grid.inner, 2)
+    want, want_aux = net(clips, False)
+    err = float((recon - want).abs().max() / want.abs().max())
+    if not (err <= 1e-5 and torch.equal(idx, want_aux["encodings"])):
+        raise RuntimeError(f"the sequence-parallel forward is {err:.3e} from one process's, "
+                           f"indices equal {torch.equal(idx, want_aux['encodings'])}")
+    return {"sp_recon_rel_err": err, "sp_commitment_loss": float(aux["commitment_loss"])}
 
 
 def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 600.0) -> None:

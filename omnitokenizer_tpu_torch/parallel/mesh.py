@@ -27,10 +27,11 @@ stays on the card.
 innermost (the JAX `tp_mesh`'s ('data', 'model') and the pipeline's
 stages): ranks d * n_inner .. d * n_inner + n_inner - 1 share data row d.
 
-The autograd-aware collectives (`mean_over`, `copy_to`, `reduce_from`,
-`gather_from`) make a cross-rank quantity
-differentiable: each rank's gradient is what the one-process program
-computes for that rank's inputs once the ranks' gradients are summed.
+The autograd-aware collectives (`mean_over`, `sum_over`, `copy_to`,
+`reduce_from`, `gather_from`, and sequence parallelism's `gather_summed`
+and `halo`) make a cross-rank quantity differentiable: each rank's
+gradient is what the one-process program computes for that rank's inputs
+once the ranks' gradients are summed.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import Any, Callable, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 # -- bring-up -------------------------------------------------------------------------------
 def launch_env() -> Optional[tuple]:
@@ -311,6 +313,75 @@ class _GatherFrom(torch.autograd.Function):
     def backward(ctx, g):
         r = rank_in(ctx.group)
         return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _GatherSummed(torch.autograd.Function):
+    """Concatenate every rank's block along `dim` where each rank's own
+    computation reads the whole (sequence parallelism: a rank's queries
+    attend to every rank's keys). Each rank's gradient of the result is its
+    own part, so the backward sums it over the group (an all_reduce of the
+    whole gradient: gloo has no reduce-scatter) and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_(g.contiguous().clone(), ctx.group)
+        return g.narrow(ctx.dim, rank_in(ctx.group) * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _Halo(torch.autograd.Function):
+    """(before, after): the previous rank's last k rows of x along `dim` and
+    the next rank's first k rows, zeros at the group's two ends. The
+    backward adds each halo's gradient onto the rows it was read from."""
+
+    @staticmethod
+    def forward(ctx, x, dim, k, group):
+        ctx.dim, ctx.k, ctx.group, ctx.shape = dim, k, group, x.shape
+        n, r = size_of(group), rank_in(group)
+        every = all_gather(torch.stack([x.narrow(dim, 0, k),
+                                        x.narrow(dim, x.shape[dim] - k, k)]), group)
+        zero = torch.zeros_like(every[0][0])
+        return (every[r - 1][1] if r > 0 else zero), (every[r + 1][0] if r < n - 1 else zero)
+
+    @staticmethod
+    def backward(ctx, g_before, g_after):
+        n, r, dim, k = size_of(ctx.group), rank_in(ctx.group), ctx.dim, ctx.k
+        every = all_gather(torch.stack([g_before, g_after]), ctx.group)
+        gx = g_before.new_zeros(ctx.shape)
+        if r > 0:  # this rank's first rows were the previous rank's `after`
+            gx.narrow(dim, 0, k).add_(every[r - 1][1])
+        if r < n - 1:  # and its last rows the next rank's `before`
+            gx.narrow(dim, ctx.shape[dim] - k, k).add_(every[r + 1][0])
+        return gx, None, None, None
+
+
+def gather_summed(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """Every rank's block of x along `dim`, in rank order; the backward sums
+    the gradient over the group and keeps this rank's block (see
+    _GatherSummed). x itself without a group. A
+    profiler trace shows the call as the range "sp.gather"."""
+    if group is None:
+        return x
+    with record_function("sp.gather"):
+        return _GatherSummed.apply(x, dim, group)
+
+
+def halo(x: torch.Tensor, dim: int, k: int, group: Any) -> tuple:
+    """The k rows along `dim` before this rank's block (the previous rank's
+    last ones) and after it (the next rank's first ones), zeros beyond the
+    group's ends; differentiable. Every rank holds at least k rows. A
+    profiler trace shows the call as the range "sp.halo"."""
+    with record_function("sp.halo"):
+        return _Halo.apply(x, dim, k, group)
+
+
+def sum_over(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The sum of x over the group's ranks, differentiable as `mean_over`."""
+    return x if group is None else _AllReduceSum.apply(x, group)
 
 
 def mean_over(x: torch.Tensor, group: Any) -> torch.Tensor:

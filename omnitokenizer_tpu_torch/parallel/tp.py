@@ -1,5 +1,6 @@
 """Megatron tensor parallelism of the GPT (mirror of
-`omnitokenizer_tpu.parallel.tp`, its :39-100), on the port's torch names.
+`omnitokenizer_tpu.parallel.tp`, its :39-100), on the port's torch names,
+and the tokenizer's sequence parallelism (its :103-107, `sp_pixel_spec`).
 
 The JAX package declares PartitionSpecs and lets GSPMD insert the
 collectives; here each rank of a tensor-parallel group holds its shards
@@ -27,10 +28,42 @@ sharded gradient's squares over the group and a replicated one's once
 (`global_norm`). `shard_state_dict` cuts a full state_dict (a checkpoint,
 or `convert.gpt_state_dict_from_jax`'s carry-over) to a rank's shards;
 `gather_state_dict` puts the shards back together for a checkpoint.
+
+Sequence parallelism (SP): the JAX package shards the pixel rows of
+(B, T, H, W, C) over the model axis and lets GSPMD insert the collectives.
+Here a model group of n ranks (`mesh.grid(n).inner`) holds H/n pixel rows
+a rank (`sp_shard_pixels`), so H/(n p) token rows of every frame, and the
+tokenizer says each collective itself once it is handed the group's
+`SeqParallel` (`sp=` on OmniTokenizerNet and its modules):
+
+  * a spatial 't' block's PEG reads one halo row of tokens from each
+    neighbour (`mesh.halo`), zeros at the frame's top and bottom;
+  * a temporal block's PEG sees the reference's scrambled (B, T, H, W)
+    reinterpretation of the (b h w) t tokens, in which a rank's tokens are
+    one contiguous chunk of T H W / n of each batch element's volume, and a
+    3 x 3 x 3 stencil there reaches up to 2 H W + W + 1 tokens back: it
+    gathers that PEG's input over the group and computes the frames of the
+    volume that its chunk touches, then keeps the chunk;
+  * a spatial 't' block's attention projects its own rows and gathers K/V
+    (`mesh.gather_summed`, whose backward sums over the group and keeps
+    its block); its queries carry their global RoPE positions;
+  * 'w' windows, feed-forwards, norms, the temporal attention, the pre- and
+    post-VQ projections and the codebook search are per token, or inside a
+    rank's rows, and stay local;
+  * the commitment loss is the group's mean, a VAE's KL its sum over B.
+
+Every rank computes the same loss; the ranks' gradients averaged
+(`mesh.average_grads_` over the group, or over data x model) are the
+one-process gradient. `sp_gather` puts the rows back together. Refused
+under SP, each with its reason: attn_bias_mode 'einsum', pool or up
+blocks, deferred pools, the 'cnn' patch embed, local token rows that do
+not fill whole windows, pixel or token rows that do not divide by n, a
+bf16 training-route call, and the GAN trainer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Dict, List, Optional
 
@@ -136,3 +169,41 @@ def gather_state_dict(tensors: Dict[str, torch.Tensor], dims: Dict[str, Optional
         d = dims.get(k)
         out[k] = v if d is None else torch.cat(mesh.all_gather(v.detach(), group), dim=d)
     return out
+
+
+# -- sequence parallelism of the tokenizer --------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SeqParallel:
+    """A model group of `size` ranks; rank `rank` holds the rank-th block of
+    rows of every frame."""
+
+    group: Any
+    rank: int
+    size: int
+
+    def refuse(self, what: str, why: str) -> None:
+        raise ValueError(f"sequence parallelism: {what} is not supported ({why})")
+
+
+def seq_parallel(group: Any) -> Optional[SeqParallel]:
+    """The SP context of a model group; None for no group or a group of
+    one, which runs the one-process path."""
+    n = mesh.size_of(group)
+    return None if n == 1 else SeqParallel(group, mesh.rank_in(group), n)
+
+
+def sp_shard_pixels(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """This rank's block of pixel rows of x (B, T, H, W, C)."""
+    n, r = mesh.size_of(group), mesh.rank_in(group)
+    if x.shape[2] % n:
+        raise ValueError(f"sequence parallelism: {x.shape[2]} pixel rows do not divide "
+                         f"over {n} ranks")
+    h = x.shape[2] // n
+    return x.narrow(2, r * h, h)
+
+
+def sp_gather(x: torch.Tensor, group: Any, dim: int) -> torch.Tensor:
+    """Every rank's block of x along `dim`, in rank order: the whole
+    reconstruction (dim 2 of (B, T, H, W, C)) or grid of indices (dim 2 of
+    (B, t, h, w))."""
+    return mesh.gather_from(x, dim, group)

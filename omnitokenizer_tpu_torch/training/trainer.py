@@ -293,12 +293,16 @@ class TokenizerTrainer:
     card unless `device` says otherwise. `lpips_vgg16_path` and
     `lpips_lin_path` name the perceptual net's weights (see
     models.lpips.load_lpips_variables); `group` is the data-parallel
-    process group (None: one process)."""
+    process group (None: one process); a sequence-parallel `sp` is
+    refused."""
 
     def __init__(self, cfg: TokenizerConfig, loss_cfg: LossConfig = LossConfig(),
                  train_cfg: TrainConfig = TrainConfig(), device: Any = "cuda",
                  lpips_vgg16_path: Optional[str] = None, lpips_lin_path: Optional[str] = None,
-                 group=None):
+                 group=None, sp=None):
+        if sp is not None:
+            sp.refuse("the GAN trainer", "the JAX package has no sequence-parallel trainer; "
+                      "train data-parallel (group=)")
         if cfg.patch_embed == "cnn":
             raise NotImplementedError(
                 "training the cnn patch embed is not ported: its norms serve inference only "

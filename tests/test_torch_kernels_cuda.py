@@ -6,7 +6,9 @@ branches on zero-padded widths, vq_argmin at any code dim with duplicate
 codes), ragged row counts and small groups, the LM's causal flash attention
 forward and backward over head widths 16-128, sequence lengths at its tile
 edges, ragged ones and the long recipes' 5121, and its backward's determinism,
-and the wrappers refusing what the kernels do not take. Skips without a GPU. This file imports
+sequence parallelism's query blocks (cosine_mha at a block's offset, mha's
+flash branches with fewer queries than keys), and the wrappers refusing
+what the kernels do not take. Skips without a GPU. This file imports
 no JAX, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -159,6 +161,43 @@ def test_cosine_mha_one_batch(gen, dim_head, N):
                    cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, True)) <= REL_TOL
 
 
+# sequence parallelism's query blocks: a rank's rows of the grid (2, 4 or 8
+# ranks) against the whole grid's kv, RoPE at the block's offset
+@pytest.mark.parametrize("dim_head", cm.DIM_HEADS)
+@pytest.mark.parametrize("N,ranks", [(256, 2), (1024, 2), (1024, 4), (1024, 8), (1600, 2),
+                                     (784, 4), (784, 1)])
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
+def test_cosine_mha_query_block(gen, dim_head, N, ranks, rope):
+    """Each block's output equals the plain version's rows of the square
+    call (800 and 196 queries end in a partial 128-query tile); 784 in one
+    block is the square call itself."""
+    heads, B = 3, 2
+    q = randn(gen, B, N, heads * dim_head)
+    kv = randn(gen, B, N, 2 * heads * dim_head)
+    qs = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    ks = 1 + randn(gen, dim_head, scale=0.1, dtype=torch.float32)
+    whole = cm.cosine_mha_plain(q, kv, qs, ks, heads, dim_head, 8.0, rope)
+    nq = N // ranks
+    for r in range(ranks):
+        block = q[:, r * nq:(r + 1) * nq].contiguous()
+        got = cm.cosine_mha(block, kv, qs, ks, heads, dim_head, 8.0, rope, q_offset=r * nq)
+        assert got.shape == block.shape
+        assert rel_err(got, whole[:, r * nq:(r + 1) * nq]) <= REL_TOL
+        assert rel_err(got, cm.cosine_mha_plain(block, kv, qs, ks, heads, dim_head, 8.0, rope,
+                                                q_offset=r * nq)) <= REL_TOL
+
+
+def test_cosine_mha_refuses_bad_query_blocks(gen):
+    """A block that reaches past the grid, or starts before it."""
+    heads, dh = 2, 64
+    kv = randn(gen, 1, 1024, 2 * heads * dh)
+    qs = torch.ones(dh, device="cuda")
+    for nq, off in ((64, 1000), (1024, 1), (512, 768), (256, -128)):
+        with pytest.raises(ValueError, match="block"):
+            cm.cosine_mha(randn(gen, 1, nq, heads * dh), kv, qs, qs, heads, dh, 8.0, True,
+                          q_offset=off)
+
+
 VQ_TIE_TOL = 1e-5  # relative distance gap allowed for an index mismatch
 
 
@@ -258,6 +297,28 @@ def test_mha(gen, dtype, causal, N, dim_head):
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
     assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
+
+
+# the flash branches' query blocks, non-causal: N of Nk queries (a rank's
+# rows under sequence parallelism; the f32 VAE's 512 of 1024 at two ranks)
+@pytest.mark.parametrize("dim_head", mh.DIM_HEADS + (40,))
+@pytest.mark.parametrize("N,Nk", [(512, 1024), (256, 1024), (16, 64), (8, 16), (100, 300)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_query_block(gen, dtype, N, Nk, dim_head):
+    B, H, dt = 2, 3, getattr(torch, dtype)
+    q = randn(gen, B, H, N, dim_head, dtype=dt)
+    k, v = (randn(gen, B, H, Nk, dim_head, dtype=dt) for _ in range(2))
+    got = mh.mha(q, k, v, dim_head ** -0.5)
+    want = mh.mha_plain(q, k, v, dim_head ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert rel_err(got, want) <= (F32_REL_TOL if dtype == "float32" else REL_TOL)
+
+
+def test_mha_refuses_causal_query_block(gen):
+    q, k = randn(gen, 1, 2, 64, 64), randn(gen, 1, 2, 128, 64)
+    with pytest.raises(ValueError, match="causal"):
+        mh.mha(q, k, k, 8.0, True)
 
 
 def bnhd_views(gen, B, H, N, D, dt):
@@ -375,10 +436,10 @@ def test_mha_flash_refuses_strided_views(gen):
     for strides, ok in (((8192, 4096, 64) * 4, True), ((8192, 64, 128) * 4, False)):
         st = (ctypes.c_longlong * 12)(*strides)
         if ok:
-            _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 8.0, 0, 1)
+            _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 64, 8.0, 0, 1)
         else:
             with pytest.raises(RuntimeError, match="CUDA error"):
-                _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 8.0, 0, 1)
+                _build.launch("mha_launch", *ptrs, ctypes.addressof(st), 2, 2, 64, 64, 64, 8.0, 0, 1)
     one = randn(gen, 2, 1, 64, 64).transpose(0, 1)  # (1, 2, 64, 64), batch stride 4096
     assert one.is_contiguous() and one.stride(0) != one.numel()
     assert rel_err(mh.mha(one, one, one, 8.0), mh.mha_plain(one, one, one, 8.0)) <= REL_TOL

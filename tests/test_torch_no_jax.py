@@ -29,7 +29,9 @@ library (FSQ, LFQ, VectorQuantize with kmeans, the residual stacks) run with
 jax, flax and msgpack unimportable. The host pieces (CLIP's BPE, CoinRun
 and its captions, the HDF5 families, the wandb run) run with jax, flax,
 optax and msgpack unimportable: transformer_train on CoinRun captions, and
-vqgan_train with --ckpt_backend msgpack and --wandb_project, resumed."""
+vqgan_train with --ckpt_backend msgpack and --wandb_project, resumed.
+Sequence parallelism's entry points and the profiling utilities run with
+jax, flax and optax unimportable."""
 
 import subprocess
 import sys
@@ -652,5 +654,51 @@ print("ok")
 def test_host_pieces_run_without_jax():
     res = subprocess.run([sys.executable, "-c", HOST_SCRIPT], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+SP_PROFILING_SCRIPT = r"""
+import sys
+for name in ("jax", "flax", "optax"):
+    sys.modules[name] = None
+import tempfile
+import torch
+torch.set_num_threads(1)
+from omnitokenizer_tpu_torch import OmniTokenizerVQGAN, TokenizerConfig
+from omnitokenizer_tpu_torch.parallel import mesh, tp
+from omnitokenizer_tpu_torch.utils import profiling, trace_analysis
+group = mesh.init_distributed("cpu", world_of_one=True)
+assert tp.seq_parallel(group) is None  # a model group of one runs the one-process path
+x = torch.rand(1, 3, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+assert torch.equal(tp.sp_gather(tp.sp_shard_pixels(x, group), group, 2), x)
+cfg = TokenizerConfig(embedding_dim=16, n_codes=32, codebook_dim=4, resolution=16,
+                      sequence_length=3, patch_size=4, temporal_patch_size=2, enc_block="t",
+                      dec_block="t", spatial_depth=1, temporal_depth=1, dim_head=8, heads=2)
+model = OmniTokenizerVQGAN.from_config(cfg, seed=0, device="cpu")
+with tempfile.TemporaryDirectory() as d:
+    with profiling.trace(d):
+        with profiling.annotate("round_trip"):
+            recon, _ = model.net(x, False, sp=tp.seq_parallel(group))
+    events = trace_analysis.load_trace_events(d)
+assert "round_trip" in {e.get("name") for e in events}
+assert trace_analysis.op_table(events)[0]["name"] == "TOTAL"
+mesh.shutdown()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax",
+                                                             "omnitokenizer_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_sp_and_profiling_run_without_jax():
+    """parallel/tp.py's sequence-parallel entry points and the profiling
+    utilities (utils/profiling.py, utils/trace_analysis.py) import and run
+    with jax, flax and optax unimportable: a model group of one runs the
+    one-process forward, traced and read back. (The SP ranks of
+    tests/test_torch_parallel_sp.py import the port alone.)"""
+    res = subprocess.run([sys.executable, "-c", SP_PROFILING_SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

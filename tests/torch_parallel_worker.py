@@ -2,7 +2,7 @@
 
     python tests/torch_parallel_worker.py SUITE RANK WORLD PORT WORKDIR
 
-tests/test_torch_parallel_{dp,tp,pp}.py start WORLD of these per world
+tests/test_torch_parallel_{dp,tp,pp,sp}.py start WORLD of these per world
 size; each rank runs every check of SUITE once and writes
 WORKDIR/SUITE_rank{RANK}.pt: {check: {"ok": values} or {"error": text}},
 the values numpy arrays that the test files hold to their bars. Inputs
@@ -510,6 +510,95 @@ def check_dit_cli(workdir):
                     "states": sorted(f for f in os.listdir(run) if f.startswith("state_"))})
 
 
+# -- sp ---------------------------------------------------------------------------------------
+def _sp_run(net, x, sp):
+    """The forward of the JAX test's loss (L1 reconstruction + commitment,
+    training=False) and its gradient: under `sp` on this rank's pixel rows,
+    the reconstruction and indices gathered and the ranks' gradients
+    averaged."""
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    group = None if sp is None else sp.group
+    xin = x if sp is None else tp.sp_shard_pixels(x, group)
+    recon, aux = net(xin, False, sp=sp)
+    loss = mesh.mean_over((recon - xin).abs().mean(), group) + aux["commitment_loss"]
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    mesh.average_grads_(grads, group)
+    out = {"loss": loss, "grads": dict(zip(names, grads)),
+           "recon": recon if sp is None else tp.sp_gather(recon.detach(), group, 2)}
+    if "encodings" in aux:
+        enc = aux["encodings"]
+        out["encodings"] = enc if sp is None else tp.sp_gather(enc, group, 2)
+    return np_tree(out)
+
+
+def _sp_net(spec, **overrides):
+    from omnitokenizer_tpu_torch.config import TokenizerConfig
+    from omnitokenizer_tpu_torch.models.tokenizer import OmniTokenizerNet
+
+    net = OmniTokenizerNet(TokenizerConfig(**{**spec["cfg"], **overrides}))
+    if not overrides:
+        net.load_state_dict(spec["state_dict"])
+    return net
+
+
+def check_sp_cases(workdir):
+    """Each case's SP forward and gradient over the world, and rank 0's
+    one-process run of the same net."""
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    sp = tp.seq_parallel(dist.group.WORLD)
+    out = {}
+    for name, spec in _inputs(workdir, "sp.pt").items():
+        net, x = _sp_net(spec), torch.from_numpy(spec["x"])
+        out[name] = {"sp": _sp_run(net, x, sp),
+                     "one": _sp_run(net, x, None) if mesh.rank() == 0 else None}
+    return out
+
+
+def check_sp_refusals(workdir):
+    """What sequence parallelism refuses, each raising its reason: the
+    message of each, or None where nothing raised."""
+    from omnitokenizer_tpu_torch.config import LossConfig, TrainConfig
+    from omnitokenizer_tpu_torch.parallel import tp
+    from omnitokenizer_tpu_torch.training.trainer import TokenizerTrainer
+
+    sp = tp.seq_parallel(dist.group.WORLD)
+    spec = _inputs(workdir, "sp.pt")["t"]
+    x = torch.from_numpy(spec["x"])
+    rows = tp.sp_shard_pixels(x, sp.group)
+
+    def message(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def forward(**kw):
+        return lambda: _sp_net(spec, **kw)(rows, False, sp=sp)
+
+    return {
+        "einsum": message(forward(attn_bias_mode="einsum", spatial_pos="rel")),
+        "pool": message(forward(enc_block="ta", spatial_depth=2)),
+        "defer": message(forward(defer_spatial_pool=True)),
+        "cnn": message(forward(patch_embed="cnn")),
+        "window": message(lambda: _sp_net(spec, enc_block="tw", spatial_depth=2,
+                                          twod_window_size=4)(rows, False, sp=sp)),
+        "rows": message(lambda: _sp_net(spec)(tp.sp_shard_pixels(x[:, :, :12], sp.group),
+                                              False, sp=sp)),
+        "odd_rows": message(lambda: tp.sp_shard_pixels(x[:, :, :15], sp.group)),
+        "bf16_training": message(lambda: _sp_net(spec, dtype=torch.bfloat16)(
+            rows, False, training=True, sp=sp)),
+        "trainer": message(lambda: TokenizerTrainer(
+            _sp_net(spec).cfg, LossConfig(), TrainConfig(), device="cpu", sp=sp)),
+        "flat_decode": message(lambda: _sp_net(spec).decode(
+            torch.zeros(x.shape[0], 16, dtype=torch.long), False, sp=sp)),
+    }
+
+
 SUITES = {
     "dp": [("placement", check_placement),
            ("codebook", check_codebook),
@@ -527,6 +616,8 @@ SUITES = {
            ("vq_sharded", check_vq_sharded),
            ("cli_train", check_cli_train),
            ("cli_eval", check_cli_eval)],
+    "sp": [("sp_cases", check_sp_cases),
+           ("sp_refusals", check_sp_refusals)],
     "pp": [("pp_loss", check_pp_loss),
            ("pp_step", check_pp_step),
            ("cli_train", check_cli_train)],

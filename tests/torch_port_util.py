@@ -226,6 +226,13 @@ def run_world(suite: str, world: int, workdir, timeout: float = 600.0) -> list:
     """Start `world` gloo ranks of tests/torch_parallel_worker.py's SUITE on
     the CPU and return each rank's results ({check: {"ok": ...} or
     {"error": traceback}}); a rank that exits non-zero fails the caller."""
+    return start_world(suite, world, workdir)(timeout)
+
+
+def start_world(suite: str, world: int, workdir):
+    """`run_world` in two halves: start the ranks now, and return the call
+    that waits up to its `timeout` for them and returns their results, so
+    the caller can work while they run."""
     import os
     import socket
     import subprocess
@@ -242,16 +249,20 @@ def run_world(suite: str, world: int, workdir, timeout: float = 600.0) -> list:
                                suite, str(r), str(world), str(port), str(workdir)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    rcs = [p.returncode for p in procs]
-    assert not any(rcs), f"ranks exited {rcs}:\n" + "\n".join(o[-3000:] for o in outs)
-    return [torch.load(os.path.join(str(workdir), f"{suite}_rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+
+    def finish(timeout: float = 600.0) -> list:
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        rcs = [p.returncode for p in procs]
+        assert not any(rcs), f"ranks exited {rcs}:\n" + "\n".join(o[-3000:] for o in outs)
+        return [torch.load(os.path.join(str(workdir), f"{suite}_rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return finish
 
 
 def check_result(results: list, check: str, rank: int = 0):
