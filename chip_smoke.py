@@ -726,6 +726,12 @@ def phase2_kernels() -> None:
                        randn(g, B * t_vq, hw, 2 * H * Dh, dtype=BF), qs, ks, H, Dh,
                        offset=hw - hw // SP_RANKS)
     check_mha("2", "sp_vae", g, (B * t_vq, H, hw // SP_RANKS, Dh), torch.float32, False, nk=hw)
+    # phase 18b's flagship at 320^2: the second rank's 800 of 1600 tokens (a partial query tile)
+    hw320 = (SP_RES_320 // 8) ** 2
+    check_cosine_block("2", "sp_flagship_320",
+                       randn(g, B * t_vq, hw320 // SP_RANKS, H * Dh, dtype=BF),
+                       randn(g, B * t_vq, hw320, 2 * H * Dh, dtype=BF), qs, ks, H, Dh,
+                       offset=hw320 - hw320 // SP_RANKS)
     mha_f32_floor(mh, g)
     # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D)
     # projections; then the long-sequence recipes' shape, where the kernels are
@@ -5070,11 +5076,14 @@ def _sp_round_trip(net, x, sp, annotate=False) -> tuple:
         return net.decode_latent(z, False, sp=sp), idx, h
 
 
-def _sp_case(model, video, grid, sp, trace_dir=None) -> dict:
+def _sp_case(model, video, grid, sp, trace_dir=None, profiled=True, flat=False,
+             iters=5) -> dict:
     """One model's SP round trip on this rank's rows: launches, frames/s and
     peak; rank 0 then holds the gathered result to the one-process round
     trip of the whole clips (pixels whole-tensor, indices with near-ties
-    counted) and times it; with trace_dir, one SP round trip profiled."""
+    counted) and times it; with `profiled`, one more SP round trip on every
+    rank, traced where trace_dir is given; with `flat`, whether the decode
+    of this rank's flat indices equals its grid decode bit for bit."""
     from omnitokenizer_tpu_torch.ops.attention import l2norm
     from omnitokenizer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from omnitokenizer_tpu_torch.parallel import mesh, tp
@@ -5083,6 +5092,7 @@ def _sp_case(model, video, grid, sp, trace_dir=None) -> dict:
     net = model.net
     xl = video.permute(0, 2, 3, 4, 1)
     rows = tp.sp_shard_pixels(xl, grid.inner).contiguous()
+    frames = video.shape[0] * video.shape[2]
     out = {}
     with torch.inference_mode():
         _sp_round_trip(net, rows, sp)  # warm-up: the collectives' first use
@@ -5098,27 +5108,34 @@ def _sp_case(model, video, grid, sp, trace_dir=None) -> dict:
         whole_idx = None if idx is None else tp.sp_gather(idx, grid.inner, 2)
         whole_h = tp.sp_gather(h, grid.inner, 2)
         mesh.barrier()
-        fps, peak = fps_and_peak(lambda: _sp_round_trip(net, rows, sp), B * T)
+        if flat:
+            grid_px = net.decode(idx, False, sp=sp)
+            out["flat_equal"] = bool(torch.equal(
+                net.decode(idx.reshape(idx.shape[0], -1), False, sp=sp), grid_px))
+            del grid_px
+        mesh.barrier()
+        fps, peak = fps_and_peak(lambda: _sp_round_trip(net, rows, sp), frames, iters)
         out.update(fps=fps, peak_gib=peak)
         mesh.barrier()  # every rank runs the round trip (its collectives); one traces it
         with profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            _sp_round_trip(net, rows, sp, annotate=True)
-            torch.cuda.synchronize()
-            out["traced_ms"] = (time.perf_counter() - t0) * 1e3
+            if profiled:
+                t0 = time.perf_counter()
+                _sp_round_trip(net, rows, sp, annotate=True)
+                torch.cuda.synchronize()
+                out["traced_ms"] = (time.perf_counter() - t0) * 1e3
         if trace_dir:
             events = trace_analysis.load_trace_events(trace_dir)
             out["op_table"] = trace_analysis.op_table(events)[:12]
             out["source_table"] = trace_analysis.source_table(events)
-            # host time in SP's collectives, the "sp.gather" / "sp.halo" ranges
+            # host time in SP's collectives, the "sp.gather" / "sp.halo" / "sp.rows" ranges
             # (parallel/mesh.py) with their staging copies under gloo, and in the
             # c10d ops alone (the wire under gloo, the enqueue under NCCL)
             def host_ms(pred):
                 return sum(e["dur"] for e in events if e.get("ph") == "X" and pred(e)) / 1e3
 
             out["sp_collective_host_ms"] = host_ms(
-                lambda e: e.get("cat") == "user_annotation" and e["name"] in ("sp.gather",
-                                                                              "sp.halo"))
+                lambda e: e.get("cat") == "user_annotation" and e["name"] in (
+                    "sp.gather", "sp.halo", "sp.rows"))
             out["collective_host_ms"] = host_ms(
                 lambda e: e.get("cat") == "cpu_op" and e["name"].startswith("c10d::"))
         mesh.barrier()
@@ -5138,8 +5155,39 @@ def _sp_case(model, video, grid, sp, trace_dir=None) -> dict:
                 d_sp = (z - emb[whole_idx.flatten()[bad].long()]).square().sum(-1)
                 d_one = (z - emb[want_idx.flatten()[bad].long()]).square().sum(-1)
                 out["tie_rel_gap"] = float(((d_one - d_sp).abs() / d_sp.clamp_min(1e-12)).max())
-        one_fps, one_peak = fps_and_peak(lambda: _sp_round_trip(net, xl, None), B * T)
+        one_fps, one_peak = fps_and_peak(lambda: _sp_round_trip(net, xl, None), frames, iters)
         out.update(one_fps=one_fps, one_peak_gib=one_peak)
+    return out
+
+
+# phase 18b: phase 14's five variants (bf16, every tensor random, BatchNorm's statistics off 0
+# and 1) and the flagship at 320^2 under SP, at the flagship's width; phase 14's launches a
+# rank. At 320^2 the 40 token rows give 20 a rank, so the encoder's windows of 8 rows 16-23
+# straddle the two ranks; the flagship also decodes its flat indices.
+SP_RES_320 = 320
+SP_VARIANTS = {**VARIANTS, "flagship_320": (dict(resolution=SP_RES_320), "imagenet_k600", B,
+                                            EXPECTED_LAUNCHES["vq"])}
+SP_VARIANT_ITERS = 3  # timed round trips of each, SP and one process
+
+
+def _child18b(grid, sp) -> dict:
+    """Each 18b case's SP round trip on this rank (see _sp_case)."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config, imagenet_only_config
+
+    bases = {"imagenet_k600": imagenet_k600_config, "imagenet_only": imagenet_only_config}
+    out = {}
+    for name, (kw, base, batch, _) in SP_VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = bases[base]().replace(dtype=BF, **kw)
+        model = filled_tokenizer(cfg).serving()
+        g = torch.Generator().manual_seed(1)
+        video = (torch.rand(batch, 3, T, cfg.resolution, cfg.resolution, generator=g) * 2
+                 - 1).to("cuda")
+        out[name] = _sp_case(model, video, grid, sp, profiled=False,
+                             flat=name == "flagship_320", iters=SP_VARIANT_ITERS)
+        out[name]["seconds"] = time.perf_counter() - t0
+        del model, video
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5186,6 +5234,10 @@ def child18(out_path: str) -> None:
     reset_launch_counts()
     res["dryrun"] = dryrun.sp_forward(net.cuda(), batch.cuda())
     res["dryrun"]["mha"] = launch_counts()["mha"]
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res["b"] = _child18b(grid, sp)
+    res["b_seconds"] = time.perf_counter() - t0
     mesh.barrier()
     mesh.shutdown()
     with open(out_path, "w") as f:
@@ -5234,7 +5286,7 @@ def phase18_sp(smi: str) -> dict:
     vq = r0["vq"]
     print(f"[18] one SP round trip (rank 0) profiled: {vq['traced_ms']:.2f} ms on the host "
           f"clock, {vq['sp_collective_host_ms']:.2f} ms of it in SP's collectives (sp.gather, "
-          f"sp.halo; {vq['collective_host_ms']:.2f} ms in their c10d ops)")
+          f"sp.halo, sp.rows; {vq['collective_host_ms']:.2f} ms in their c10d ops)")
     for row in vq["op_table"]:
         print(f"[18]   {row['ms']:8.3f} ms x{row['count']:<5} {row['name'][:70]:70} "
               f"{row['source']}")
@@ -5247,10 +5299,52 @@ def phase18_sp(smi: str) -> dict:
               f"launches {d['mha']}")
         if d["mha"] == 0:
             fails.append(f"dry run rank {r['rank']}: no mha launch")
+    fails += _report18b(ranks, smi, backend)
     if fails:
         raise AssertionError("18: " + "; ".join(fails))
     print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
-    return {"sp": r0["vq"]["launches"], "sp_vae": r0["vae"]["launches"]}
+    return {"sp": r0["vq"]["launches"], "sp_vae": r0["vae"]["launches"],
+            **{f"sp_{name}": r0["b"][name]["launches"] for name in SP_VARIANTS}}
+
+
+def _report18b(ranks: list, smi: str, backend: str) -> list:
+    """18b's lines and the failures of its bars: a rank's launches against
+    phase 14's, pixels against one process under DECODE_REL_TOL, indices
+    with near-ties counted, the flagship's flat decode bit-equal."""
+    fails = []
+    r0 = ranks[0]
+    for name, (kw, base, batch, want) in SP_VARIANTS.items():
+        res = kw.get("resolution", RES)
+        for r in ranks:
+            c = r["b"][name]
+            print(f"[18b] {name} ({base} {kw}, bf16) SP round trip rank {r['rank']} (B={batch}, "
+                  f"{T}x{res}^2, pixel rows {c['shape'][2]}): launches {c['launches']}; "
+                  f"{c['fps']:.2f} frames/s, peak {c['peak_gib']:.2f} GiB ({backend}; {smi})")
+            if c["launches"] != want:
+                fails.append(f"18b {name} rank {r['rank']} launches {c['launches']} != {want}")
+            if not c["finite"] or c["shape"][2] != res // SP_RANKS:
+                fails.append(f"18b {name} rank {r['rank']}: reconstruction {c['shape']}, "
+                             f"finite {c['finite']}")
+            if "flat_equal" in c and not c["flat_equal"]:
+                fails.append(f"18b {name} rank {r['rank']}: the flat indices' decode differs "
+                             "from the grid's")
+        c = r0["b"][name]
+        flat = ("; flat decode bit-equal to the grid's on every rank"
+                if "flat_equal" in c else "")
+        print(f"[18b] {name} SP vs one process: pixels rel err {c['pixels_rel_err']:.3e} (bar "
+              f"{DECODE_REL_TOL}), pre-VQ latents {c['latents_rel_err']:.3e}; indices differ at "
+              f"{c['indices_differ']} of {c['indices']} (largest relative gap "
+              f"{c.get('tie_rel_gap', 0.0):.3e}, bar {SP_TIE_REL_TOL}){flat}; one process "
+              f"{c['one_fps']:.2f} frames/s, peak {c['one_peak_gib']:.2f} GiB; "
+              f"{c['seconds']:.1f} s")
+        if not c["pixels_rel_err"] <= DECODE_REL_TOL:
+            fails.append(f"18b {name}: pixels rel err {c['pixels_rel_err']:.3e} > "
+                         f"{DECODE_REL_TOL}")
+        if c.get("tie_rel_gap", 0.0) > SP_TIE_REL_TOL:
+            fails.append(f"18b {name}: an index differs by a relative gap "
+                         f"{c['tie_rel_gap']:.3e}")
+    print(f"[18b] the six cases in {r0['b_seconds']:.1f} s (rank 0)")
+    return fails
 
 
 def main(argv=None) -> int:

@@ -20,7 +20,8 @@ Given a process group (data parallelism), a train-mode BatchNorm takes the
 statistics of the global batch, each rank's means all-reduced with their
 gradient (the reference's SyncBatchNorm; the JAX BatchNorm under GSPMD),
 and `ApplyNoise` draws this rank's rows of one draw for the global batch.
-Eval mode and GroupNorm are per-sample and unchanged.
+Eval mode and GroupNorm are per-sample and unchanged (GroupNorm takes a
+group of its own under sequence parallelism, for the cnn patch embed).
 """
 
 from __future__ import annotations
@@ -77,7 +78,10 @@ class BatchNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax GroupNorm(num_groups) over a channels-first tensor, in f32."""
+    """flax GroupNorm(num_groups) over a channels-first tensor, in f32. Given
+    a process group whose ranks each hold a block of the same samples
+    (sequence parallelism), each group's statistics are those of every
+    rank's block: the f32 sums of x and x^2 summed over the ranks."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
         super().__init__()
@@ -86,10 +90,17 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
-        b, c = x.shape[:2]
+                update_stats: bool = False, group=None) -> torch.Tensor:
+        b = x.shape[0]
         g = x.reshape(b, self.num_groups, -1)
-        mean, var = _stats(g, [2])
+        if group is None:
+            mean, var = _stats(g, [2])
+        else:
+            g32 = g.float()
+            sums = mesh.sum_over(torch.stack([g32.sum(2), (g32 * g32).sum(2)]), group)
+            count = g.shape[2] * mesh.size_of(group)
+            mean = (sums[0] / count)[..., None]
+            var = (sums[1][..., None] / count - mean * mean).clamp_min(0.0)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         y = ((g.float() - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return y * self.scale.view(shape) + self.bias.view(shape)

@@ -28,8 +28,13 @@ on purpose: the plain forms here compute the same function.
 
 Sequence parallelism (`sp=`, a `parallel.tp.SeqParallel`): the pixels are
 a rank's block of rows (`tp.sp_shard_pixels`), and so are the tokens,
-latents, encodings and reconstruction; the stacks say their collectives
-(parallel/tp.py). Refused: the 'cnn' patch embed and the deferred pools.
+latents, encodings (flat ones too: the rank's rows' tokens in (t, h, w)
+order) and reconstruction; the stacks say their collectives
+(parallel/tp.py). The patch embeds and to-pixels are per patch, the
+deferred pools and repeats per 2 x 2 cell or frame pair, so they run on a
+rank's rows; the cnn GroupNorm sums its statistics over the group, as the
+JAX package forms them over whole frames. Refused: a rank's pixel rows that
+are not whole patches, or token rows that are not whole 2 x 2 pool cells.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
 from ..ops.transformer import Transformer, grid_after
 from ..ops.window import WindowAttention
-from .discriminator import Normalize
+from .discriminator import GroupNorm, Normalize
 
 PATCH_EMBEDS = ("linear", "cnn")
 
@@ -82,16 +87,19 @@ def _deferred(cfg: TokenizerConfig) -> Tuple[bool, bool]:
 
 
 def check_sp(cfg: TokenizerConfig, sp, pixel_rows: int, decoder: bool = False) -> None:
-    """Refuse what sequence parallelism does not take: the cnn patch embed,
-    the deferred pools, and a rank's pixel rows that are no whole patches."""
-    if cfg.patch_embed != "linear":
-        sp.refuse(f"patch_embed {cfg.patch_embed!r}", "its norm runs over whole frames")
-    if any(_deferred(cfg)):
-        sp.refuse("deferred pools", "they regrid the rows")
+    """Refuse what sequence parallelism does not take: a rank's pixel rows
+    that are no whole patches, and in the encoder its token rows that are
+    no whole 2 x 2 cells of the deferred spatial pool (the stacks' pool
+    blocks check their own, ops/transformer.py)."""
     p = patch_sizes(cfg, decoder)[0]
     if pixel_rows % p:
         sp.refuse(f"a rank's {pixel_rows} pixel rows", f"token rows of {p} do not divide "
                   f"them: the rows must divide by the {sp.size} ranks in whole patches")
+    if not decoder and _deferred(cfg)[1]:
+        rows = grid_after(cfg.enc_block, pixel_rows // p, pixel_rows // p)[0]
+        if rows % 2:
+            sp.refuse(f"a rank's {rows} token rows at the deferred spatial pool",
+                      "they are not whole 2 x 2 pool cells")
 
 
 def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) -> Transformer:
@@ -107,10 +115,19 @@ def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) 
 
 class CnnNormalize(Normalize):
     """GroupNorm(32, eps 1e-6) or BatchNorm (eps 1e-5, its running
-    statistics) over the channels of a channels-last tensor, in f32."""
+    statistics) over the channels of a channels-last tensor, in f32. Under
+    `sp` GroupNorm's statistics are those of every rank's rows. GroupNorm
+    refuses channels that its groups do not divide, as flax's does (the
+    to-pixels norm over 3 channels)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x.movedim(-1, 1), train=False).movedim(1, -1)
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        kw = {}
+        if isinstance(self.norm, GroupNorm):
+            if x.shape[-1] % self.norm.num_groups:
+                raise ValueError(f"Number of groups ({self.norm.num_groups}) does not divide "
+                                 f"the number of channels ({x.shape[-1]})")
+            kw["group"] = None if sp is None else sp.group
+        return self.norm(x.movedim(-1, 1), train=False, **kw).movedim(1, -1)
 
 
 class PatchConv(nn.Module):
@@ -178,12 +195,12 @@ class Encoder(nn.Module):
         self.enc_temporal_transformer = _transformer(
             cfg, "t" * cfg.temporal_depth, cfg.causal_in_temporal_transformer, False)
 
-    def _embed(self, frames: torch.Tensor, first: bool) -> torch.Tensor:
+    def _embed(self, frames: torch.Tensor, first: bool, sp=None) -> torch.Tensor:
         cfg = self.cfg
         name = "to_patch_emb_first_frame" if first else "to_patch_emb"
         if cfg.patch_embed == "cnn":
             conv = getattr(self, f"{name}_conv")
-            return getattr(self, f"{name}_cnorm")(conv(frames, cfg.dtype))
+            return getattr(self, f"{name}_cnorm")(conv(frames, cfg.dtype), sp)
         p, pt = patch_sizes(cfg)
         f = rearrange(frames, "b (t pt) (h p1) (w p2) c -> b t h w (c pt p1 p2)",
                       pt=1 if first else pt, p1=p, p2=p)
@@ -202,9 +219,9 @@ class Encoder(nn.Module):
             raise ValueError(
                 f"frames-1 ({T - 1}) must be divisible by temporal patch size ({pt})")
         video = video.to(cfg.dtype)
-        tokens = self._embed(video[:, :1], True)
+        tokens = self._embed(video[:, :1], True, sp)
         if T > 1:
-            tokens = torch.cat([tokens, self._embed(video[:, 1:], False)], dim=1)
+            tokens = torch.cat([tokens, self._embed(video[:, 1:], False, sp)], dim=1)
 
         b, t, h, w, d = tokens.shape
         x = self.enc_spatial_transformer(tokens.reshape(b * t, h * w, d), (b, t, h, w),
@@ -247,11 +264,11 @@ class Decoder(nn.Module):
             self.to_pixels_conv = PatchUnconv(E, C, pt, p)
             self.to_pixels_conv_cnorm = CnnNormalize(C, cfg.norm_type)
 
-    def _to_pixels(self, x: torch.Tensor, first: bool) -> torch.Tensor:
+    def _to_pixels(self, x: torch.Tensor, first: bool, sp=None) -> torch.Tensor:
         cfg = self.cfg
         if cfg.patch_embed == "cnn":
             name = "to_pixels_first_frame_conv" if first else "to_pixels_conv"
-            return getattr(self, f"{name}_cnorm")(getattr(self, name)(x, cfg.dtype))
+            return getattr(self, f"{name}_cnorm")(getattr(self, name)(x, cfg.dtype), sp)
         p, pt = patch_sizes(cfg, decoder=True)
         y = dense(x, self.to_pixels_first_frame if first else self.to_pixels, cfg.dtype)
         return rearrange(y, "b t h w (c pt p1 p2) -> b (t pt) (h p1) (w p2) c",
@@ -280,9 +297,9 @@ class Decoder(nn.Module):
         h, w = grid_after(cfg.dec_block, h, w)
         x = rearrange(x, "(b t) (h w) d -> b t h w d", b=b, h=h, w=w)
 
-        recon = self._to_pixels(x[:, :1], True)
+        recon = self._to_pixels(x[:, :1], True, sp)
         if t > 1:
-            recon = torch.cat([recon, self._to_pixels(x[:, 1:], False)], dim=1)
+            recon = torch.cat([recon, self._to_pixels(x[:, 1:], False, sp)], dim=1)
         return recon  # (B, T, H, W, C)
 
 
@@ -360,17 +377,17 @@ class OmniTokenizerNet(nn.Module):
     def decode(self, encodings: torch.Tensor, is_image: bool, sp=None) -> torch.Tensor:
         """VQ indices, flat (B, N) or grid (B, t, h, w), or VAE latents,
         (B, t, h, w, c), flat (B, N, c) or an image's (B, h, w, c) -> pixels.
-        Under `sp`, a rank's rows of the grid forms."""
+        Under `sp`, a rank's rows: its rows of the grid forms, or its rows'
+        tokens in (t, h, w) order of the flat ones."""
         if self.cfg.use_vae:  # (B, h, w, c) is an image latent without its time axis
             z = encodings[:, None] if encodings.ndim == 4 else encodings
         else:
             z = self.codebook.lookup(encodings)
         if z.ndim == 3:  # flat (B, N, c)
-            if sp is not None:
-                sp.refuse("flat encodings", "a rank's rows are known by their grid's shape")
-            n = z.shape[1]
-            hh = math.isqrt(n) if is_image else self.cfg.resolution // self.cfg.patch_size
-            z = z.reshape(z.shape[0], n // (hh * hh), hh, hh, z.shape[-1])
+            n, ranks = z.shape[1], 1 if sp is None else sp.size
+            hh = math.isqrt(n * ranks) if is_image else self.cfg.resolution // self.cfg.patch_size
+            rows = hh // ranks  # a rank's rows of the hh x hh grid
+            z = z.reshape(z.shape[0], n // (rows * hh), rows, hh, z.shape[-1])
         return self.decode_latent(z, is_image, sp=sp)
 
     @staticmethod

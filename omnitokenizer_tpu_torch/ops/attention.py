@@ -19,8 +19,11 @@ and a training call always does.
 Under sequence parallelism (`sp=`, parallel/tp.py) a spatial call holds
 its rank's token rows: it projects them, gathers K/V over the group
 (`mesh.gather_summed`) and attends with its queries at their global
-offset: `cosine_mha` and `mha` with a query block on the card, their plain
-versions on the CPU. Temporal calls stay local.
+offset, on the one-process call's route: `cosine_mha` and `mha` with a
+query block, a biased call on its bias's rows of the block, and a grid of
+at most 8 tokens through `small_n_attention` on the whole gathered grid
+(its q gathered too), this rank's rows kept; the kernels on the card,
+their plain versions on the CPU. Temporal calls stay local.
 
 Under `attn_bias_mode='einsum'` a spatial `rel` call adds its CPB bias and
 a causal call AliBi to the f32 logits. No attention kernel takes a bias
@@ -278,24 +281,32 @@ class Attention(nn.Module):
 
     def _forward_sp(self, x: torch.Tensor, training: bool, sp) -> torch.Tensor:
         """A spatial call under sequence parallelism: x holds this rank's
-        token rows, a block of the grid's N tokens from token rank * Nq."""
+        token rows, a block of the grid's N tokens from token rank * Nq. It
+        takes the one-process call's route: a bias's rows of this block, the
+        small-group kernel on the whole grid (q gathered too: at most 8
+        tokens a frame) with this block's rows kept, or a query block."""
         B, Nq, _ = x.shape
         N, offset = Nq * sp.size, Nq * sp.rank
         uses_rope = self.spatial_pos == "rope"
-        if self.attn_bias_mode == "einsum":
-            sp.refuse("attn_bias_mode 'einsum'", "its bias is over the whole grid's logits")
+        bias = self.bias(N, True, x.device)
+        if bias is not None:
+            bias = bias[:, offset:offset + Nq]
         if self.dtype != torch.bfloat16:
             q, kv = self._project(x)
             kv = mesh.gather_summed(kv, 1, sp.group)
-            return self._proj_out(self._attend(q, kv, uses_rope, training, q_offset=offset))
+            return self._proj_out(self._attend(q, kv, uses_rope, training, bias, offset))
         if training:
             sp.refuse("a bf16 training-route call", "the kernels' training route under SP "
                       "has no reference: the JAX package's SP gradient is f32")
         q, kv, qs, ks = self._qkv(x)
         kv = mesh.gather_summed(kv, 1, sp.group)
-        if not uses_rope and small_n_supported(N, self.dim_head):
-            sp.refuse(f"a spatial grid of {N} tokens", "small_n_attention's groups are local")
-        if not self.causal and cosine_mha_supported(N, self.dim_head):
+        if bias is not None:
+            out = self._attend(q, kv, uses_rope, False, bias, offset)
+        elif not uses_rope and small_n_supported(N, self.dim_head):
+            q = mesh.gather_from(q, 1, sp.group)
+            out = small_n_attention(q, kv, qs, ks, self.heads, self.dim_head, self.scale,
+                                    self.causal)[:, offset:offset + Nq]
+        elif not self.causal and cosine_mha_supported(N, self.dim_head):
             out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope,
                              q_offset=offset)
         else:
@@ -399,9 +410,11 @@ class FeedForward(nn.Module):
 
 
 class Pooling(nn.Module):
-    """Token-grid downsample of (B, N, C) on an int(sqrt(N))^2 grid: 'a'
-    average and 'm' max over 2 x 2, or 'l' a Linear (`pool`, with bias) of
-    4 consecutive tokens to C."""
+    """Token-grid downsample of (B, N, C) on the (h, w) grid given (a
+    rank's rows under sequence parallelism), else the int(sqrt(N))^2 one:
+    'a' average and 'm' max over 2 x 2, or 'l' a Linear (`pool`, with bias)
+    of 4 consecutive tokens to C. Output token i of 'l' reads grid rows
+    2 i // w and the next, so a block of whole row pairs pools on its own."""
 
     def __init__(self, pool_type: str, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -409,19 +422,20 @@ class Pooling(nn.Module):
         if pool_type == "l":
             self.pool = nn.Linear(4 * dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid=None) -> torch.Tensor:
         B, N, C = x.shape
         if self.pool_type == "l":
             x = x.reshape(B, N // 4, 4 * C).to(self.dtype)
             return F.linear(x, self.pool.weight.to(self.dtype), self.pool.bias.to(self.dtype))
-        h = int(N ** 0.5)
-        g = x.reshape(B, h // 2, 2, h // 2, 2, C)
+        h, w = grid or (int(N ** 0.5),) * 2
+        g = x.reshape(B, h // 2, 2, w // 2, 2, C)
         g = g.mean((2, 4)) if self.pool_type == "a" else g.amax((2, 4))
-        return g.reshape(B, (h // 2) ** 2, C)
+        return g.reshape(B, (h // 2) * (w // 2), C)
 
 
 class Up(nn.Module):
-    """Token-grid upsample of (B, N, C) on an int(sqrt(N))^2 grid: 'n'
+    """Token-grid upsample of (B, N, C) on the (h, w) grid given (a rank's
+    rows under sequence parallelism), else the int(sqrt(N))^2 one: 'n'
     nearest x2, or 'r' nearest x2 then a Linear (`up`, with bias)."""
 
     def __init__(self, up_type: str, dim: int, dtype: torch.dtype = torch.float32):
@@ -430,10 +444,10 @@ class Up(nn.Module):
         if up_type == "r":
             self.up = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid=None) -> torch.Tensor:
         B, N, C = x.shape
-        h = int(N ** 0.5)
-        g = x.reshape(B, h, h, C).repeat_interleave(2, 1).repeat_interleave(2, 2)
+        h, w = grid or (int(N ** 0.5),) * 2
+        g = x.reshape(B, h, w, C).repeat_interleave(2, 1).repeat_interleave(2, 2)
         x = g.reshape(B, 4 * N, C)
         if self.up_type == "r":
             x = F.linear(x.to(self.dtype), self.up.weight.to(self.dtype), self.up.bias.to(self.dtype))

@@ -8,8 +8,12 @@ pool halves the video shape's grid for the PEGs after it, an up doubles it.
 
 Under sequence parallelism (`sp=`) video_shape is the rank's (B, T, h/n,
 w): the PEGs, the spatial attention and the windows take their collectives
-or their local rows from it (ops/peg.py, ops/attention.py); pool and up
-blocks, which would regrid the rows, are refused.
+or their local rows from it (ops/peg.py, ops/attention.py, ops/window.py).
+A pool or up block regrids the rank's rows on their own (a 2 x 2 cell, 4
+consecutive tokens of 'l', a repeated row lie in one block of whole row
+pairs), and the rank's grid it leaves goes on to the blocks after it. A
+rank whose token rows are odd at a pool is refused: its cells would
+straddle two ranks.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ class Transformer(nn.Module):
         vs = tuple(video_shape)
         sp_kw = {}  # the one-process path's calls stay as they were
         if sp is not None:
-            self.check_sp(vs, is_spatial, sp)
+            self.check_sp(vs, sp)
             sp_kw = {"sp": sp}
         for i, blk in enumerate(self.block):
             attn = getattr(self, f"layers_{i}_attn")
@@ -85,20 +89,20 @@ class Transformer(nn.Module):
                     x = peg(x, vs, residual=True, is_spatial=is_spatial, **sp_kw)
                 x = attn(x, is_spatial=is_spatial, training=training, **sp_kw) + x
             elif blk == "w":
-                x = attn(x, grid=vs[2:] if sp is not None else None) + x
+                x = attn(x, grid=vs[2:] if sp is not None else None, **sp_kw) + x
             else:
-                x = attn(x)
+                x = attn(x, grid=vs[2:] if sp is not None else None)
                 up = blk in ("n", "r")
                 vs = vs[:2] + tuple(s * 2 if up else s // 2 for s in vs[2:])
             x = getattr(self, f"layers_{i}_ff")(x, training=training) + x
         return self.norm_out(x)
 
-    def check_sp(self, video_shape, is_spatial: bool, sp) -> None:
-        """Refuse what sequence parallelism does not take in this stack."""
-        if any(blk in "amlnr" for blk in self.block):
-            sp.refuse(f"block string {self.block!r}", "pool and up blocks regrid the rows")
-        if is_spatial and "w" in self.block:
-            ws = self.window_size
-            if video_shape[2] % ws or video_shape[3] % ws:
-                sp.refuse(f"a rank's {video_shape[2]} x {video_shape[3]} token grid",
-                          f"it does not fill whole {ws} x {ws} windows")
+    def check_sp(self, video_shape, sp) -> None:
+        """Refuse what sequence parallelism does not take in this stack: a
+        rank's token rows that are odd at a pool block."""
+        rows = video_shape[2]
+        for blk in self.block:
+            if blk in "aml" and rows % 2:
+                sp.refuse(f"a rank's {rows} token rows at pool block {blk!r} of "
+                          f"{self.block!r}", "they are not whole 2 x 2 pool cells")
+            rows = grid_after(blk, rows, rows)[0]

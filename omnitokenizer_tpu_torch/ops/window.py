@@ -3,6 +3,14 @@
 
 Plain torch: the JAX package leaves it to XLA as batched matmuls, with the
 windows as the batch dimension.
+
+Under sequence parallelism (`sp=`, parallel/tp.py) a rank holds a block of
+the grid's rows. Where the blocks do not split into whole windows, a rank
+takes the rows of every window its block touches from the ranks that hold
+them (`mesh.rows_of`, one batch of sends and receives; a window may span
+several ranks once a block is shorter than a window), computes those
+windows and keeps its own rows; the backward returns the borrowed rows'
+gradient to their owners.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .norms import LayerNormGamma
 
 
@@ -30,6 +39,12 @@ def window_reverse(windows: torch.Tensor, ws: int, H: int, W: int) -> torch.Tens
     B = windows.shape[0] // ((H // ws) * (W // ws))
     x = windows.reshape(B, H // ws, W // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, H, W, C)
+
+
+def window_span(rank: int, rows: int, ws: int) -> tuple:
+    """The grid rows [lo, hi) of the windows of `ws` rows that rank's block
+    of `rows` rows touches."""
+    return rank * rows // ws * ws, -(-(rank + 1) * rows // ws) * ws
 
 
 @functools.lru_cache(maxsize=16)
@@ -62,13 +77,26 @@ class WindowAttention(nn.Module):
         idx = torch.from_numpy(relative_position_index(window_size).reshape(-1))
         self.register_buffer("rel_index", idx, persistent=False)
 
-    def forward(self, x: torch.Tensor, grid=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grid=None, sp=None) -> torch.Tensor:
+        """`grid`: the (h, w) rows of x; `sp`: the SeqParallel whose rank's
+        block of the grid's rows x holds."""
         B, N, C = x.shape
         H, W = grid or (int(N ** 0.5),) * 2
+        ws = self.window_size
+        if sp is None or not H % ws:
+            return self._windows(x.reshape(B, H, W, C)).reshape(B, N, C)
+        spans = [window_span(r, H, ws) for r in range(sp.size)]
+        lo = spans[sp.rank][0]
+        g = self._windows(mesh.rows_of(x.reshape(B, H, W, C), 1, spans, sp.group))
+        return g[:, sp.rank * H - lo:sp.rank * H - lo + H].reshape(B, N, C)
+
+    def _windows(self, x: torch.Tensor) -> torch.Tensor:
+        """W-MSA over the whole windows of a (B, H, W, C) grid."""
+        B, H, W, C = x.shape
         ws, heads = self.window_size, self.num_heads
         head_dim = C // heads
 
-        xw = window_partition(self.norm(x).reshape(B, H, W, C), ws)
+        xw = window_partition(self.norm(x), ws)
         BW, NW, _ = xw.shape
         qkv = F.linear(xw, self.qkv.weight.to(self.dtype))
         qkv = qkv.reshape(BW, NW, 3, heads, head_dim)
@@ -81,4 +109,4 @@ class WindowAttention(nn.Module):
         attn = sim.softmax(-1).to(self.dtype)
         out = (attn.float() @ v.float()).transpose(1, 2).reshape(BW, NW, C).to(self.dtype)
         out = F.linear(out, self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype))
-        return window_reverse(out, ws, H, W).reshape(B, N, C)
+        return window_reverse(out, ws, H, W)

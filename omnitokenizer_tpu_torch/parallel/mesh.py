@@ -28,8 +28,8 @@ innermost (the JAX `tp_mesh`'s ('data', 'model') and the pipeline's
 stages): ranks d * n_inner .. d * n_inner + n_inner - 1 share data row d.
 
 The autograd-aware collectives (`mean_over`, `sum_over`, `copy_to`,
-`reduce_from`, `gather_from`, and sequence parallelism's `gather_summed`
-and `halo`) make a cross-rank quantity differentiable: each rank's
+`reduce_from`, `gather_from`, and sequence parallelism's `gather_summed`,
+`halo` and `rows_of`) make a cross-rank quantity differentiable: each rank's
 gradient is what the one-process program computes for that rank's inputs
 once the ranks' gradients are summed.
 """
@@ -359,6 +359,81 @@ class _Halo(torch.autograd.Function):
         return gx, None, None, None
 
 
+def _p2p(sends: list, recvs: list, like: torch.Tensor, group: Any) -> List[torch.Tensor]:
+    """One batch of point-to-point hops over `group`: `sends` as (tensor,
+    dst) and `recvs` as (shape, src), ranks of the group, every tensor of
+    like's dtype; returns the received tensors, in the order of `recvs`, on
+    like's device. A batch cannot deadlock, whatever each rank's order of
+    sends and receives; under gloo a CUDA tensor hops through host memory."""
+    dev = torch.device("cpu") if _staged(like, group) else like.device
+    bufs = [torch.empty(tuple(shape), dtype=like.dtype, device=dev) for shape, _ in recvs]
+    ops = [dist.P2POp(dist.irecv, _wire(b, group), dist.get_global_rank(group, src), group)
+           for b, (_, src) in zip(bufs, recvs)]
+    ops += [dist.P2POp(dist.isend, _wire(t.detach().to(dev).contiguous(), group),
+                       dist.get_global_rank(group, dst), group) for t, dst in sends]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(like.device) for b in bufs]
+
+
+def _overlap(lo: int, hi: int, rank: int, n: int) -> tuple:
+    """Rows [lo, hi) of the whole, cut to those of `rank`'s block of n."""
+    return max(lo, rank * n), min(hi, (rank + 1) * n)
+
+
+class _Rows(torch.autograd.Function):
+    """Rows spans[r] = (lo, hi) along `dim` of the group's blocks put end to
+    end (rank r holds rows r n .. r n + n - 1, n = x.shape[dim]), on every
+    rank r at once: each rank sends its rows to the ranks whose span
+    reaches them and receives those of its span from their owners. The
+    backward sends each borrowed row's gradient back to its owner, which
+    adds it to its own."""
+
+    @staticmethod
+    def forward(ctx, x, dim, spans, group):
+        me, n = rank_in(group), x.shape[dim]
+        ctx.dim, ctx.spans, ctx.group, ctx.shape = dim, spans, group, x.shape
+        lo, hi = spans[me]
+        sends, recvs = [], []
+        for s, (a, b) in enumerate(spans):
+            if s == me:
+                continue
+            a, b = _overlap(a, b, me, n)  # what rank s reads of my rows
+            if a < b:
+                sends.append((x.narrow(dim, a - me * n, b - a), s))
+            a, b = _overlap(lo, hi, s, n)  # what I read of rank s's rows
+            if a < b:
+                recvs.append(([b - a if d == dim else k for d, k in enumerate(x.shape)], s))
+        got = dict(zip([s for _, s in recvs], _p2p(sends, recvs, x, group)))
+        a, b = _overlap(lo, hi, me, n)
+        got[me] = x.narrow(dim, a - me * n, b - a)
+        return torch.cat([got[s] for s in sorted(got)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, spans, group = ctx.dim, ctx.spans, ctx.group
+        me, n = rank_in(group), ctx.shape[dim]
+        lo, hi = spans[me]
+        sends, recvs = [], []
+        for s, (a, b) in enumerate(spans):
+            if s == me:
+                continue
+            c, d = _overlap(lo, hi, s, n)  # the gradient of rank s's rows that I read
+            if c < d:
+                sends.append((g.narrow(dim, c - lo, d - c), s))
+            a, b = _overlap(a, b, me, n)  # that of my rows that rank s read
+            if a < b:
+                recvs.append(([b - a if i == dim else k for i, k in enumerate(g.shape)], s, a))
+        got = _p2p(sends, [(shape, s) for shape, s, _ in recvs], g, group)
+        gx = g.new_zeros(ctx.shape)
+        a, b = _overlap(lo, hi, me, n)
+        gx.narrow(dim, a - me * n, b - a).add_(g.narrow(dim, a - lo, b - a))
+        for (_, _, start), piece in zip(recvs, got):
+            gx.narrow(dim, start - me * n, piece.shape[dim]).add_(piece)
+        return gx, None, None, None
+
+
 def gather_summed(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
     """Every rank's block of x along `dim`, in rank order; the backward sums
     the gradient over the group and keeps this rank's block (see
@@ -368,6 +443,16 @@ def gather_summed(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
         return x
     with record_function("sp.gather"):
         return _GatherSummed.apply(x, dim, group)
+
+
+def rows_of(x: torch.Tensor, dim: int, spans: Sequence[tuple], group: Any) -> torch.Tensor:
+    """Rows spans[rank] = (lo, hi) along `dim` of the whole that the group's
+    equal blocks of x make end to end, a span for every rank of the group
+    (each rank passes the same list): its own rows and its neighbours', one
+    batch of sends and receives; differentiable (see _Rows). A profiler
+    trace shows the call as the range "sp.rows"."""
+    with record_function("sp.rows"):
+        return _Rows.apply(x, dim, tuple(map(tuple, spans)), group)
 
 
 def halo(x: torch.Tensor, dim: int, k: int, group: Any) -> tuple:

@@ -46,18 +46,26 @@ tokenizer says each collective itself once it is handed the group's
     volume that its chunk touches, then keeps the chunk;
   * a spatial 't' block's attention projects its own rows and gathers K/V
     (`mesh.gather_summed`, whose backward sums over the group and keeps
-    its block); its queries carry their global RoPE positions;
-  * 'w' windows, feed-forwards, norms, the temporal attention, the pre- and
-    post-VQ projections and the codebook search are per token, or inside a
-    rank's rows, and stay local;
+    its block); its queries carry their global RoPE positions, an
+    'einsum' call its rows of the CPB bias, and a grid of at most 8 tokens
+    gathers q too for the small-group kernel;
+  * 'w' windows that straddle two or more ranks' rows take the rows they
+    miss from their owners (`mesh.rows_of`, sends and receives); whole
+    windows stay local;
+  * pool and up blocks, the deferred pools and their repeats, the patch
+    embeds and to-pixels, feed-forwards, norms, the temporal attention,
+    the pre- and post-VQ projections and the codebook search are per
+    token, per patch or inside a rank's rows, and stay local; the cnn
+    embed's GroupNorm sums its statistics over the group;
   * the commitment loss is the group's mean, a VAE's KL its sum over B.
 
 Every rank computes the same loss; the ranks' gradients averaged
 (`mesh.average_grads_` over the group, or over data x model) are the
 one-process gradient. `sp_gather` puts the rows back together. Refused
-under SP, each with its reason: attn_bias_mode 'einsum', pool or up
-blocks, deferred pools, the 'cnn' patch embed, local token rows that do
-not fill whole windows, pixel or token rows that do not divide by n, a
+under SP, each with its reason: pixel rows that do not divide by n (the
+JAX package's placement refuses them too), a rank's pixel rows that are
+not whole patches or token rows that are not whole 2 x 2 pool cells (the
+JAX package runs these; the collectives here would need ragged sizes), a
 bf16 training-route call, and the GAN trainer.
 """
 

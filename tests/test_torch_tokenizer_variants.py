@@ -308,6 +308,18 @@ def test_cnn_normalize_matches_jax(norm_type):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+def test_cnn_group_norm_refuses_channels_the_groups_do_not_divide():
+    """The cnn to-pixels norm over 3 channels: flax's GroupNorm(32) raises,
+    and so does the port's (it once grouped the flattened tensor)."""
+    from omnitokenizer_tpu.models.tokenizer import _CnnNormalize
+
+    x = np.random.RandomState(12).standard_normal((1, 2, 8, 8, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match=r"Number of groups \(32\) does not divide"):
+        _CnnNormalize(3, "group").init(jax.random.PRNGKey(0), jnp.asarray(x))
+    with pytest.raises(ValueError, match=r"Number of groups \(32\) does not divide"):
+        CnnNormalize(3, "group")(torch.from_numpy(x))
+
+
 def spy(monkeypatch, calls):
     for name in ("ln_qkv", "small_n_attention", "cosine_mha", "mha"):
         real = getattr(tattn, name)

@@ -2,7 +2,7 @@
 
     python tests/torch_parallel_worker.py SUITE RANK WORLD PORT WORKDIR
 
-tests/test_torch_parallel_{dp,tp,pp,sp}.py start WORLD of these per world
+tests/test_torch_parallel_{dp,tp,pp,sp,sp_variants}.py start WORLD of these per world
 size; each rank runs every check of SUITE once and writes
 WORKDIR/SUITE_rank{RANK}.pt: {check: {"ok": values} or {"error": text}},
 the values numpy arrays that the test files hold to their bars. Inputs
@@ -577,27 +577,116 @@ def check_sp_refusals(workdir):
             return str(e)
         return None
 
-    def forward(**kw):
-        return lambda: _sp_net(spec, **kw)(rows, False, sp=sp)
-
     return {
-        "einsum": message(forward(attn_bias_mode="einsum", spatial_pos="rel")),
-        "pool": message(forward(enc_block="ta", spatial_depth=2)),
-        "defer": message(forward(defer_spatial_pool=True)),
-        "cnn": message(forward(patch_embed="cnn")),
-        "window": message(lambda: _sp_net(spec, enc_block="tw", spatial_depth=2,
-                                          twod_window_size=4)(rows, False, sp=sp)),
         "rows": message(lambda: _sp_net(spec)(tp.sp_shard_pixels(x[:, :, :12], sp.group),
                                               False, sp=sp)),
         "odd_rows": message(lambda: tp.sp_shard_pixels(x[:, :, :15], sp.group)),
+        # 24 pixel rows: 3 token rows a rank at the 2 x 2 average pool
+        "pool_rows": message(lambda: _sp_net(spec, enc_block="ta", spatial_depth=2)(
+            torch.zeros(x.shape[0], x.shape[1], 12, 24, 3), False, sp=sp)),
         "bf16_training": message(lambda: _sp_net(spec, dtype=torch.bfloat16)(
             rows, False, training=True, sp=sp)),
         "trainer": message(lambda: TokenizerTrainer(
             _sp_net(spec).cfg, LossConfig(), TrainConfig(), device="cpu", sp=sp)),
-        "flat_decode": message(lambda: _sp_net(spec).decode(
-            torch.zeros(x.shape[0], 16, dtype=torch.long), False, sp=sp)),
     }
 
+
+# -- sp variants ------------------------------------------------------------------------------
+SPIED = ("ln_qkv", "geglu_ff", "small_n_attention", "cosine_mha")  # ops/attention.py's wrappers
+
+
+def _spied_calls():
+    """Count the calls of the kernel wrappers that ops/attention.py and
+    ops/codebook.py make (on the CPU each runs its plain version): returns
+    the counts, a dict the wrappers add to from now on."""
+    from omnitokenizer_tpu_torch.ops import attention, codebook
+
+    calls = {name: 0 for name in SPIED + ("vq_argmin",)}
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+
+        setattr(module, name, wrapper)
+
+    for name in SPIED:
+        spy(attention, name)
+    spy(codebook, "vq_argmin")
+    return calls
+
+
+def _spv_run(net, x, sp, calls, grads=True, flat=False):
+    """One case's forward under `sp` (None: one process) on this rank's
+    pixel rows: the JAX-side loss (L1 against the pixels, or the mean
+    |recon| where a pool leaves a smaller grid, + commitment), its
+    gradient (the ranks' averaged), the reconstruction and indices
+    gathered, the kernel wrappers' calls on this rank; with `flat`, the
+    decodes of this rank's indices, grid and flat, gathered."""
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    group = None if sp is None else sp.group
+    xin = x if sp is None else tp.sp_shard_pixels(x, group)
+    for k in calls:
+        calls[k] = 0
+    with torch.enable_grad() if grads else torch.no_grad():
+        recon, aux = net(xin, False, sp=sp)
+        counted = dict(calls)
+        diff = recon - xin if recon.shape == xin.shape else recon
+        loss = mesh.mean_over(diff.float().abs().mean(), group) + aux["commitment_loss"]
+        out = {"loss": loss, "calls": counted}
+        if grads:
+            names, params = zip(*net.named_parameters())
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)]
+            mesh.average_grads_(g, group)
+            out["grads"] = dict(zip(names, g))
+    gather = (lambda t: t) if sp is None else (lambda t: tp.sp_gather(t, group, 2))
+    out["recon"] = gather(recon.detach())
+    out["encodings"] = gather(aux["encodings"])
+    if flat:
+        enc = aux["encodings"]
+        with torch.no_grad():
+            out["grid_recon"] = gather(net.decode(enc, False, sp=sp))
+            out["flat_recon"] = gather(net.decode(enc.reshape(enc.shape[0], -1), False, sp=sp))
+    return np_tree(out)
+
+
+def _spv_cases(workdir, ranks):
+    """Each case of `ranks` ranks: its SP run over the world and rank 0's
+    one-process run of the same net."""
+    from omnitokenizer_tpu_torch.config import TokenizerConfig
+    from omnitokenizer_tpu_torch.models.tokenizer import OmniTokenizerNet, init_weights
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    sp = tp.seq_parallel(dist.group.WORLD)
+    calls = _spied_calls()
+    out = {}
+    for name, spec in _inputs(workdir, "spv.pt").items():
+        if spec["ranks"] != ranks:
+            continue
+        bf16 = spec.get("bf16", False)
+        net = OmniTokenizerNet(TokenizerConfig(**spec["cfg"], **(
+            {"dtype": torch.bfloat16} if bf16 else {})))
+        if bf16:
+            init_weights(net, torch.Generator().manual_seed(0))
+        else:
+            net.load_state_dict(spec["state_dict"])
+        x = torch.from_numpy(spec["x"])
+        kw = dict(grads=not bf16, flat=spec.get("flat", False))
+        out[name] = {"sp": _spv_run(net, x, sp, calls, **kw),
+                     "one": _spv_run(net, x, None, calls, **kw) if mesh.rank() == 0 else None}
+    return out
+
+
+def check_spv_cases(workdir):
+    return _spv_cases(workdir, 2)
+
+
+def check_spv_cases4(workdir):
+    return _spv_cases(workdir, 4)
 
 SUITES = {
     "dp": [("placement", check_placement),
@@ -618,6 +707,8 @@ SUITES = {
            ("cli_eval", check_cli_eval)],
     "sp": [("sp_cases", check_sp_cases),
            ("sp_refusals", check_sp_refusals)],
+    "sp_variants": [("spv_cases", check_spv_cases)],
+    "sp_variants4": [("spv_cases", check_spv_cases4)],
     "pp": [("pp_loss", check_pp_loss),
            ("pp_step", check_pp_step),
            ("cli_train", check_cli_train)],
