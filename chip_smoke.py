@@ -732,6 +732,14 @@ def phase2_kernels() -> None:
                        randn(g, B * t_vq, hw320 // SP_RANKS, H * Dh, dtype=BF),
                        randn(g, B * t_vq, hw320, 2 * H * Dh, dtype=BF), qs, ks, H, Dh,
                        offset=hw320 - hw320 // SP_RANKS)
+    # phase 18c's ragged_264 (33 x 33 = 1089 tokens a frame): each rank's query block, the
+    # first rank's 17 rows of 33 at token 0 and the second's 16 at token 561
+    hw264 = (SP_RAGGED_RES // 8) ** 2
+    for rows, offset in ((17, 0), (16, 17 * 33)):
+        check_cosine_block("2", "sp_ragged_264",
+                           randn(g, B * t_vq, rows * 33, H * Dh, dtype=BF),
+                           randn(g, B * t_vq, hw264, 2 * H * Dh, dtype=BF), qs, ks, H, Dh,
+                           offset=offset)
     mha_f32_floor(mh, g)
     # the LM training step's attention: (B, H, T, D) views of the (B, T, H, D)
     # projections; then the long-sequence recipes' shape, where the kernels are
@@ -5141,7 +5149,10 @@ def _sp_case(model, video, grid, sp, trace_dir=None, profiled=True, flat=False,
         mesh.barrier()
         if mesh.rank() != 0:
             return out
+        reset_launch_counts()
         want, want_idx, want_h = _sp_round_trip(net, xl, None)
+        torch.cuda.synchronize()
+        out["one_launches"] = launch_counts()
         out["pixels_rel_err"] = rel_norm(whole, want)
         out["latents_rel_err"] = rel_norm(whole_h, want_h)
         if idx is not None:
@@ -5191,6 +5202,67 @@ def _child18b(grid, sp) -> dict:
     return out
 
 
+# phase 18c: ragged rows (the row partition, parallel/tp.py). ragged_264: the flagship's widths
+# with a spatial 'tttt' encoder (its 'w' blocks would need token rows that windows of 8 divide)
+# at 17 x 264^2, B=4, over the 2 ranks of phase 18: 33 token rows split 17 / 16, so a rank's
+# 132 pixel rows are 16.5 patches; bf16 and the f32 VAE. ragged_16: the flagship itself at
+# 17 x 320^2, B=1, over 16 ranks (one card: gloo; 16 cards: NCCL): 40 token rows split 3 x 8
+# and 2 x 8, a rank's 20 pixel rows 2.5 patches, and windows of 8 rows span up to 4 ranks.
+SP_RAGGED_RES, SP_RAGGED_16_RES, SP_RAGGED_16_RANKS = 264, 320, 16
+SP_RAGGED_LAUNCHES = {  # one round trip: the 8 spatial and 8 temporal 't' blocks
+    "ragged_264": {**_NONE, "geglu_ff": 16, "ln_qkv": 16, "cosine_mha": 8,
+                   "small_n_attention": 8, "vq_argmin": 1},
+    "ragged_264_vae": {**_NONE, "mha": 8},
+    "ragged_16": EXPECTED_LAUNCHES["vq"],
+}
+
+
+def _child18c(grid, sp) -> dict:
+    """ragged_264's SP round trips on this rank, bf16 (its flat indices'
+    decode too) and the f32 VAE (see _sp_case)."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+
+    out = {}
+    ragged = dict(resolution=SP_RAGGED_RES, enc_block="tttt")
+    g = torch.Generator().manual_seed(2)
+    video = (torch.rand(B, 3, T, SP_RAGGED_RES, SP_RAGGED_RES, generator=g) * 2 - 1).to("cuda")
+    for name, cfg in (("ragged_264", imagenet_k600_config().replace(dtype=BF, **ragged)),
+                      ("ragged_264_vae", imagenet_k600_config(use_vae=True).replace(**ragged))):
+        t0 = time.perf_counter()
+        model = filled_tokenizer(cfg)
+        model = model.serving() if cfg.dtype == BF else model
+        out[name] = _sp_case(model, video, grid, sp, profiled=False,
+                             flat=name == "ragged_264", iters=SP_VARIANT_ITERS)
+        out[name]["seconds"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def child18c(out_path: str) -> None:
+    """One of 16 ranks: ragged_16's SP round trip (see _sp_case)."""
+    from omnitokenizer_tpu_torch import imagenet_k600_config
+    from omnitokenizer_tpu_torch.parallel import mesh, tp
+
+    t0 = time.perf_counter()
+    group = mesh.init_distributed("cuda")
+    grid = mesh.grid(SP_RAGGED_16_RANKS)
+    sp = tp.seq_parallel(grid.inner)
+    res = {"rank": mesh.rank(), "card": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend(group)}
+    cfg = imagenet_k600_config().replace(dtype=BF, resolution=SP_RAGGED_16_RES)
+    model = filled_tokenizer(cfg).serving()
+    g = torch.Generator().manual_seed(3)
+    video = (torch.rand(1, 3, T, SP_RAGGED_16_RES, SP_RAGGED_16_RES, generator=g) * 2
+             - 1).to("cuda")
+    res["ragged_16"] = _sp_case(model, video, grid, sp, profiled=False, iters=1)
+    res["ragged_16"]["seconds"] = time.perf_counter() - t0
+    mesh.barrier()
+    mesh.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def child18(out_path: str) -> None:
     """One of two ranks: the bf16 flagship and the f32 VAE round trips with
     the pixel rows over the model group, against one process on rank 0; the
@@ -5238,6 +5310,10 @@ def child18(out_path: str) -> None:
     t0 = time.perf_counter()
     res["b"] = _child18b(grid, sp)
     res["b_seconds"] = time.perf_counter() - t0
+    mesh.barrier()
+    t0 = time.perf_counter()
+    res["c"] = _child18c(grid, sp)
+    res["c_seconds"] = time.perf_counter() - t0
     mesh.barrier()
     mesh.shutdown()
     with open(out_path, "w") as f:
@@ -5300,11 +5376,22 @@ def phase18_sp(smi: str) -> dict:
         if d["mha"] == 0:
             fails.append(f"dry run rank {r['rank']}: no mha launch")
     fails += _report18b(ranks, smi, backend)
+    t_c = time.perf_counter()
+    ranks16 = _children("18c", SP_RAGGED_16_RANKS, {
+        "OMNITOK_COORD": f"localhost:{mesh.free_port()}",
+        "OMNITOK_NPROCS": str(SP_RAGGED_16_RANKS)}, timeout=600)
+    cases = {name: [r["c"][name] for r in ranks] for name in ranks[0]["c"]}
+    cases["ragged_16"] = [r["ragged_16"] for r in ranks16]
+    fails += _report18c(cases, smi, {"ragged_264": backend, "ragged_264_vae": backend,
+                                     "ragged_16": ranks16[0]["backend"]})
+    print(f"[18c] ragged_264 in {r0['c_seconds']:.1f} s on the 2 ranks (rank 0); ragged_16's "
+          f"16 ranks in {time.perf_counter() - t_c:.1f} s, started to stopped")
     if fails:
         raise AssertionError("18: " + "; ".join(fails))
     print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
     return {"sp": r0["vq"]["launches"], "sp_vae": r0["vae"]["launches"],
-            **{f"sp_{name}": r0["b"][name]["launches"] for name in SP_VARIANTS}}
+            **{f"sp_{name}": r0["b"][name]["launches"] for name in SP_VARIANTS},
+            **{f"sp_{name}": per_rank[0]["launches"] for name, per_rank in cases.items()}}
 
 
 def _report18b(ranks: list, smi: str, backend: str) -> list:
@@ -5347,6 +5434,48 @@ def _report18b(ranks: list, smi: str, backend: str) -> list:
     return fails
 
 
+def _report18c(cases: dict, smi: str, backends: dict) -> list:
+    """18c's lines and the failures of its bars: each rank's launches
+    against one process's (counted on rank 0) and against the count above,
+    pixels against one process (DECODE_REL_TOL; the f32 VAE VAE_REL_TOL),
+    indices with near-ties counted (SP_TIE_REL_TOL), ragged_264's flat
+    decode bit-equal to its grid decode on every rank."""
+    fails = []
+    for name, per_rank in cases.items():
+        c0, want = per_rank[0], SP_RAGGED_LAUNCHES[name]
+        tol = VAE_REL_TOL if name.endswith("_vae") else DECODE_REL_TOL
+        if c0["one_launches"] != want:
+            fails.append(f"18c {name}: one process's launches {c0['one_launches']} != {want}")
+        for r, c in enumerate(per_rank):
+            print(f"[18c] {name} SP round trip rank {r} (pixel rows {c['shape'][2]}): launches "
+                  f"{c['launches']}; {c['fps']:.2f} frames/s, peak {c['peak_gib']:.2f} GiB "
+                  f"({backends[name]}; {smi})")
+            if c["launches"] != c0["one_launches"]:
+                fails.append(f"18c {name} rank {r} launches {c['launches']} != one process's "
+                             f"{c0['one_launches']}")
+            if not c["finite"]:
+                fails.append(f"18c {name} rank {r}: a reconstruction value is not finite")
+            if "flat_equal" in c and not c["flat_equal"]:
+                fails.append(f"18c {name} rank {r}: the flat indices' decode differs from "
+                             "the grid's")
+        ties = ""
+        if "indices" in c0:
+            ties = (f"; indices differ at {c0['indices_differ']} of {c0['indices']} (largest "
+                    f"relative gap {c0.get('tie_rel_gap', 0.0):.3e}, bar {SP_TIE_REL_TOL})")
+            if c0.get("tie_rel_gap", 0.0) > SP_TIE_REL_TOL:
+                fails.append(f"18c {name}: an index differs by a relative gap "
+                             f"{c0['tie_rel_gap']:.3e}")
+        flat = ("; flat decode bit-equal to the grid's on every rank"
+                if "flat_equal" in c0 else "")
+        print(f"[18c] {name} SP vs one process: pixels rel err {c0['pixels_rel_err']:.3e} (bar "
+              f"{tol}), pre-VQ latents {c0['latents_rel_err']:.3e}{ties}{flat}; one process "
+              f"{c0['one_fps']:.2f} frames/s, peak {c0['one_peak_gib']:.2f} GiB, launches "
+              f"{c0['one_launches']}; {c0['seconds']:.1f} s")
+        if not c0["pixels_rel_err"] <= tol:
+            fails.append(f"18c {name}: pixels rel err {c0['pixels_rel_err']:.3e} > {tol}")
+    return fails
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5354,13 +5483,14 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", type=lambda v: {int(x) for x in v.split(",")}, default=None,
                         help="comma-separated phases after 0 and 1 (the card, the build) to "
                              "run, for a short run; all of them by default")
-    parser.add_argument("--child", choices=["16a", "16b", "18"], default=None,
+    parser.add_argument("--child", choices=["16a", "16b", "18", "18c"], default=None,
                         help="run as one of phase 16's or 18's child processes (set by them)")
     parser.add_argument("--out", default=None, help="a child's JSON result file")
     parsed = parser.parse_args(argv)
     run = parsed.phases
     if parsed.child:
-        {"16a": child16a, "16b": child16b, "18": child18}[parsed.child](parsed.out)
+        {"16a": child16a, "16b": child16b, "18": child18,
+         "18c": child18c}[parsed.child](parsed.out)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

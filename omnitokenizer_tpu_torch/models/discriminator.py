@@ -78,10 +78,12 @@ class BatchNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax GroupNorm(num_groups) over a channels-first tensor, in f32. Given
-    a process group whose ranks each hold a block of the same samples
-    (sequence parallelism), each group's statistics are those of every
-    rank's block: the f32 sums of x and x^2 summed over the ranks."""
+    """flax GroupNorm(num_groups) over a channels-first tensor, in f32; it
+    refuses channels that its groups do not divide, with flax's message.
+    Given a process group whose ranks each hold a block of the same samples
+    (sequence parallelism, blocks of any size), each group's statistics are
+    those of every rank's block: the f32 sums of x and x^2 and the counts
+    summed over the ranks."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
         super().__init__()
@@ -91,16 +93,20 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False, group=None) -> torch.Tensor:
+        if x.shape[1] % self.num_groups:
+            raise ValueError(f"Number of groups ({self.num_groups}) does not divide the number "
+                             f"of channels ({x.shape[1]}).")
         b = x.shape[0]
         g = x.reshape(b, self.num_groups, -1)
         if group is None:
             mean, var = _stats(g, [2])
         else:
             g32 = g.float()
-            sums = mesh.sum_over(torch.stack([g32.sum(2), (g32 * g32).sum(2)]), group)
-            count = g.shape[2] * mesh.size_of(group)
+            sums = mesh.sum_over(torch.stack([g32.sum(2), (g32 * g32).sum(2),
+                                              torch.full_like(g32[:, :, 0], g.shape[2])]), group)
+            count = sums[2]
             mean = (sums[0] / count)[..., None]
-            var = (sums[1][..., None] / count - mean * mean).clamp_min(0.0)
+            var = (sums[1][..., None] / count[..., None] - mean * mean).clamp_min(0.0)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         y = ((g.float() - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return y * self.scale.view(shape) + self.bias.view(shape)

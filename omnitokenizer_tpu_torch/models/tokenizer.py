@@ -26,15 +26,20 @@ blocks, which no token count fits (an einops error), so a dec_block with
 The TPU-only `fast_patchify` fold and `flat_temporal` layout are left out
 on purpose: the plain forms here compute the same function.
 
-Sequence parallelism (`sp=`, a `parallel.tp.SeqParallel`): the pixels are
-a rank's block of rows (`tp.sp_shard_pixels`), and so are the tokens,
-latents, encodings (flat ones too: the rank's rows' tokens in (t, h, w)
-order) and reconstruction; the stacks say their collectives
-(parallel/tp.py). The patch embeds and to-pixels are per patch, the
-deferred pools and repeats per 2 x 2 cell or frame pair, so they run on a
-rank's rows; the cnn GroupNorm sums its statistics over the group, as the
-JAX package forms them over whole frames. Refused: a rank's pixel rows that
-are not whole patches, or token rows that are not whole 2 x 2 pool cells.
+Sequence parallelism (`sp=`, a `parallel.tp.SeqParallel`): the pixels and
+the reconstruction are a rank's equal block of rows (`tp.sp_shard_pixels`);
+inside, a rank computes the rows of `tp.row_partition`, which keeps every
+patch and pool cell on one rank: the encoder first moves its pixel rows to
+the partition's, the decoder its reconstruction back (`mesh.rows_of`; no
+move where the blocks are whole patches and pool cells). Latents and
+encodings (flat ones too: the rank's rows' tokens in (t, h, w) order) are
+the rank's rows of the latent grid's even split (`tp.even_spans`; the grid
+is square, as every frame the JAX package takes, so its columns give its
+rows). The stacks say their collectives (parallel/tp.py). The patch embeds
+and to-pixels are per patch, the deferred pools and repeats per 2 x 2 cell
+or frame pair, so they run on a rank's rows; the cnn GroupNorm sums its
+statistics and counts over the group, as the JAX package forms them over
+whole frames.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ from torch import nn
 from ..config import TokenizerConfig
 from ..ops.attention import Attention, FeedForward, l2norm
 from ..ops.codebook import Codebook
-from ..parallel import mesh
+from ..parallel import mesh, tp
 from ..ops.gaussian import DiagonalGaussian
 from ..ops.norms import LayerNorm
 from ..ops.peg import PEG
@@ -86,20 +91,16 @@ def _deferred(cfg: TokenizerConfig) -> Tuple[bool, bool]:
     return linear and cfg.defer_temporal_pool, linear and cfg.defer_spatial_pool
 
 
-def check_sp(cfg: TokenizerConfig, sp, pixel_rows: int, decoder: bool = False) -> None:
-    """Refuse what sequence parallelism does not take: a rank's pixel rows
-    that are no whole patches, and in the encoder its token rows that are
-    no whole 2 x 2 cells of the deferred spatial pool (the stacks' pool
-    blocks check their own, ops/transformer.py)."""
-    p = patch_sizes(cfg, decoder)[0]
-    if pixel_rows % p:
-        sp.refuse(f"a rank's {pixel_rows} pixel rows", f"token rows of {p} do not divide "
-                  f"them: the rows must divide by the {sp.size} ranks in whole patches")
-    if not decoder and _deferred(cfg)[1]:
-        rows = grid_after(cfg.enc_block, pixel_rows // p, pixel_rows // p)[0]
-        if rows % 2:
-            sp.refuse(f"a rank's {rows} token rows at the deferred spatial pool",
-                      "they are not whole 2 x 2 pool cells")
+def _moved(x: torch.Tensor, sp, want: tp.Spans, have: tp.Spans) -> torch.Tensor:
+    """x (B, T, rows, ...) from this rank's rows of `have` to those of
+    `want` (itself where they agree)."""
+    return x if want == have else mesh.rows_of(x, 2, want, sp.group, have)
+
+
+def latent_spans(z: torch.Tensor, sp) -> tp.Spans:
+    """The ranks' rows of the latent grid of z (B, t, rows, cols, ...):
+    its even split. The grid is square, so its columns count its rows."""
+    return tp.even_spans(z.shape[3], sp.size)
 
 
 def _transformer(cfg: TokenizerConfig, block: str, causal: bool, spatial: bool) -> Transformer:
@@ -123,9 +124,6 @@ class CnnNormalize(Normalize):
     def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
         kw = {}
         if isinstance(self.norm, GroupNorm):
-            if x.shape[-1] % self.norm.num_groups:
-                raise ValueError(f"Number of groups ({self.norm.num_groups}) does not divide "
-                                 f"the number of channels ({x.shape[-1]})")
             kw["group"] = None if sp is None else sp.group
         return self.norm(x.movedim(-1, 1), train=False, **kw).movedim(1, -1)
 
@@ -213,8 +211,12 @@ class Encoder(nn.Module):
         cfg = self.cfg
         _, pt = patch_sizes(cfg)
         T = video.shape[1]
-        if sp is not None:
-            check_sp(cfg, sp, video.shape[2])
+        sp_tokens = sp_temporal = None
+        if sp is not None:  # to the partition's pixel rows
+            rows = video.shape[2]
+            pixels, spans = tp.encoder_spans(cfg, rows * sp.size, sp.size)
+            video = _moved(video, sp, pixels, tp.even_spans(rows * sp.size, sp.size))
+            sp_tokens, sp_temporal = sp.at(spans[0]), sp.at(spans[len(cfg.enc_block)])
         if (T - 1) % pt:
             raise ValueError(
                 f"frames-1 ({T - 1}) must be divisible by temporal patch size ({pt})")
@@ -225,11 +227,11 @@ class Encoder(nn.Module):
 
         b, t, h, w, d = tokens.shape
         x = self.enc_spatial_transformer(tokens.reshape(b * t, h * w, d), (b, t, h, w),
-                                         is_spatial=True, training=training, sp=sp)
+                                         is_spatial=True, training=training, sp=sp_tokens)
         nh, nw = grid_after(cfg.enc_block, h, w)
         x = rearrange(x.reshape(b, t, nh, nw, d), "b t h w d -> (b h w) t d")
         x = self.enc_temporal_transformer(x, (b, t, nh, nw), is_spatial=False, training=training,
-                                          sp=sp)
+                                          sp=sp_temporal)
         tokens = rearrange(x, "(b h w) t d -> b t h w d", b=b, h=nh, w=nw)
 
         defer_t, defer_s = _deferred(cfg)
@@ -240,6 +242,8 @@ class Encoder(nn.Module):
             rest = tokens[:, 1:]
             rest = rest.reshape(b, rest.shape[1] // 2, 2, *rest.shape[2:]).mean(2)
             tokens = torch.cat([tokens[:, :1], rest], dim=1)
+        if sp is not None:  # to the latent grid's even split
+            tokens = _moved(tokens, sp, latent_spans(tokens, sp), spans[-1])
         return tokens  # (B, t, h, w, d)
 
 
@@ -278,9 +282,17 @@ class Decoder(nn.Module):
                 sp=None) -> torch.Tensor:
         """tokens (B, t, h, w, d), a rank's h rows under `sp`."""
         cfg = self.cfg
-        if sp is not None:
-            check_sp(cfg, sp, tokens.shape[2] * patch_sizes(cfg, decoder=True)[0], decoder=True)
         defer_t, defer_s = _deferred(cfg)
+        if sp is not None:  # from the latent grid's even split to the partition's
+            latent = latent_spans(tokens, sp)
+            lo, hi = latent[sp.rank]
+            if tokens.shape[2] != hi - lo:
+                sp.refuse(f"a rank's {tokens.shape[2]} latent rows of a grid "
+                          f"{tokens.shape[3]} columns wide", f"a square grid's even split "
+                          f"gives rank {sp.rank} {hi - lo}")
+            spans, recon_spans = tp.decoder_spans(cfg, latent[-1][1], sp.size)
+            tokens = _moved(tokens, sp, spans[0], latent)
+            sp = sp.at(spans[int(defer_s)])
         if tokens.shape[1] > 1 and defer_t:
             tokens = torch.cat([tokens[:, :1], tokens[:, 1:].repeat_interleave(2, 1)], dim=1)
         if defer_s:
@@ -300,6 +312,8 @@ class Decoder(nn.Module):
         recon = self._to_pixels(x[:, :1], True, sp)
         if t > 1:
             recon = torch.cat([recon, self._to_pixels(x[:, 1:], False, sp)], dim=1)
+        if sp is not None and recon_spans[-1][1] % sp.size == 0:  # back to equal blocks
+            recon = _moved(recon, sp, tp.even_spans(recon_spans[-1][1], sp.size), recon_spans)
         return recon  # (B, T, H, W, C)
 
 
@@ -384,10 +398,12 @@ class OmniTokenizerNet(nn.Module):
         else:
             z = self.codebook.lookup(encodings)
         if z.ndim == 3:  # flat (B, N, c)
-            n, ranks = z.shape[1], 1 if sp is None else sp.size
-            hh = math.isqrt(n * ranks) if is_image else self.cfg.resolution // self.cfg.patch_size
-            rows = hh // ranks  # a rank's rows of the hh x hh grid
-            z = z.reshape(z.shape[0], n // (rows * hh), rows, hh, z.shape[-1])
+            n = z.shape[1]
+            if sp is not None:  # every rank's tokens
+                n = sum(mesh.counts_of(n, sp.group, z.device))
+            hh = math.isqrt(n) if is_image else self.cfg.resolution // self.cfg.patch_size
+            lo, hi = (0, hh) if sp is None else tp.even_spans(hh, sp.size)[sp.rank]
+            z = z.reshape(z.shape[0], n // (hh * hh), hi - lo, hh, z.shape[-1])
         return self.decode_latent(z, is_image, sp=sp)
 
     @staticmethod
@@ -399,12 +415,13 @@ class OmniTokenizerNet(nn.Module):
             return None
         shape = posterior.mean.shape
         if sp is not None:
-            shape = shape[:2] + (shape[2] * sp.size,) + shape[3:]
+            spans = latent_spans(posterior.mean, sp)
+            shape = shape[:2] + (spans[-1][1],) + shape[3:]
         noise = mesh.draw_rows(lambda s: torch.randn(s, generator=generator,
                                                      device=posterior.mean.device), shape, group)
         if sp is not None:
-            h = posterior.mean.shape[2]
-            noise = noise.narrow(2, sp.rank * h, h)
+            lo, hi = spans[sp.rank]
+            noise = noise.narrow(2, lo, hi - lo)
         return noise
 
     def forward(self, x: torch.Tensor, is_image: bool, training: bool = False,

@@ -17,13 +17,15 @@ serving; without the cache an inference call casts the live parameters,
 and a training call always does.
 
 Under sequence parallelism (`sp=`, parallel/tp.py) a spatial call holds
-its rank's token rows: it projects them, gathers K/V over the group
-(`mesh.gather_summed`) and attends with its queries at their global
-offset, on the one-process call's route: `cosine_mha` and `mha` with a
-query block, a biased call on its bias's rows of the block, and a grid of
-at most 8 tokens through `small_n_attention` on the whole gathered grid
-(its q gathered too), this rank's rows kept; the kernels on the card,
-their plain versions on the CPU. Temporal calls stay local.
+its rank's token rows, `sp`'s span of the grid (ranks may hold different
+counts, or none): it projects them, gathers K/V over the group
+(`mesh.gather_summed`, each rank's count) and attends with its queries at
+their global offset, on the one-process call's route: `cosine_mha` and
+`mha` with a query block, a biased call on its bias's rows of the block,
+and a grid of at most 8 tokens through `small_n_attention` on the whole
+gathered grid (its q gathered too), this rank's rows kept; the kernels on
+the card, their plain versions on the CPU. A rank without rows launches
+no attention kernel but joins the gathers. Temporal calls stay local.
 
 Under `attn_bias_mode='einsum'` a spatial `rel` call adds its CPB bias and
 a causal call AliBi to the f32 logits. No attention kernel takes a bias
@@ -281,31 +283,34 @@ class Attention(nn.Module):
 
     def _forward_sp(self, x: torch.Tensor, training: bool, sp) -> torch.Tensor:
         """A spatial call under sequence parallelism: x holds this rank's
-        token rows, a block of the grid's N tokens from token rank * Nq. It
-        takes the one-process call's route: a bias's rows of this block, the
-        small-group kernel on the whole grid (q gathered too: at most 8
+        token rows, rows spans[rank] of the grid's, `sp.cols` tokens a row.
+        It takes the one-process call's route: a bias's rows of this block,
+        the small-group kernel on the whole grid (q gathered too: at most 8
         tokens a frame) with this block's rows kept, or a query block."""
         B, Nq, _ = x.shape
-        N, offset = Nq * sp.size, Nq * sp.rank
+        spans, cols = sp.spans, sp.cols
+        sizes = [(hi - lo) * cols for lo, hi in spans]
+        N, offset = spans[-1][1] * cols, spans[sp.rank][0] * cols
         uses_rope = self.spatial_pos == "rope"
         bias = self.bias(N, True, x.device)
         if bias is not None:
             bias = bias[:, offset:offset + Nq]
         if self.dtype != torch.bfloat16:
             q, kv = self._project(x)
-            kv = mesh.gather_summed(kv, 1, sp.group)
+            kv = mesh.gather_summed(kv, 1, sp.group, sizes)
             return self._proj_out(self._attend(q, kv, uses_rope, training, bias, offset))
         if training:
             sp.refuse("a bf16 training-route call", "the kernels' training route under SP "
                       "has no reference: the JAX package's SP gradient is f32")
         q, kv, qs, ks = self._qkv(x)
-        kv = mesh.gather_summed(kv, 1, sp.group)
+        kv = mesh.gather_summed(kv, 1, sp.group, sizes)
         if bias is not None:
             out = self._attend(q, kv, uses_rope, False, bias, offset)
         elif not uses_rope and small_n_supported(N, self.dim_head):
-            q = mesh.gather_from(q, 1, sp.group)
-            out = small_n_attention(q, kv, qs, ks, self.heads, self.dim_head, self.scale,
-                                    self.causal)[:, offset:offset + Nq]
+            whole = mesh.gather_from(q, 1, sp.group, sizes)
+            out = q if not Nq else small_n_attention(
+                whole, kv, qs, ks, self.heads, self.dim_head, self.scale,
+                self.causal)[:, offset:offset + Nq]
         elif not self.causal and cosine_mha_supported(N, self.dim_head):
             out = cosine_mha(q, kv, qs, ks, self.heads, self.dim_head, self.scale, uses_rope,
                              q_offset=offset)

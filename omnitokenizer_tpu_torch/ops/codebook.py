@@ -118,7 +118,10 @@ class Codebook(nn.Module):
         all_rows = None
         if training:
             # the first training batch initializes the codes from its rows
-            all_rows = torch.cat(mesh.all_gather(flat.detach(), group)) if group else flat.detach()
+            all_rows = flat.detach()
+            if group is not None:  # every rank's rows, whatever their counts
+                sizes = mesh.counts_of(flat.shape[0], group, flat.device)
+                all_rows = torch.cat(mesh.all_gather(all_rows, group, sizes))
             cand = tile_to_codes(all_rows, self.n_codes, generator)
             fresh = self.initialized == 0
             emb = torch.where(fresh, cand, emb)
@@ -130,9 +133,22 @@ class Codebook(nn.Module):
         quantized = emb[idx].reshape(z.shape).float()
 
         z32 = z.float()
-        commitment_loss = mesh.mean_over(0.25 * (z32 - quantized).square().mean(), group)
-        counts = mesh.all_reduce_(torch.bincount(idx, minlength=self.n_codes).float(), group)
-        avg_probs = counts / (indices.shape[0] * mesh.size_of(group))
+        sq = (z32 - quantized).square()
+        counts, rows = torch.bincount(idx, minlength=self.n_codes).float(), idx.shape[0]
+        if group is None:
+            commitment_loss = 0.25 * sq.mean()
+        else:
+            # every rank's counts and rows, in one collective: ranks may hold unequal rows
+            both = mesh.all_reduce_(torch.cat([counts, counts.new_tensor([rows])]), group)
+            counts, total = both[:-1], int(both[-1].item())
+            # the group's mean as the mean of each rank's mean weighted by its share
+            # of the rows; that weight is exactly 1 under equal blocks, where this
+            # is the mean of the ranks' means bit for bit (a world of one: the plain mean)
+            weight = rows * mesh.size_of(group) / total
+            local = sq.mean() * weight if rows else sq.sum()  # a rank with no rows adds 0
+            commitment_loss = mesh.mean_over(0.25 * local, group)
+            rows = total
+        avg_probs = counts / rows
         perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
 
         usage = self.codebook_usage

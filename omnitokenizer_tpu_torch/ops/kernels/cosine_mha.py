@@ -94,6 +94,8 @@ def cosine_mha(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor,
     _build.refuse_grad("cosine_mha", q, kv, q_scale, k_scale)
     B, Nq, HD = q.shape
     N = kv.shape[1]
+    if B * Nq == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return torch.empty_like(q)
     if not cosine_mha_supported(N, dim_head) or HD != heads * dim_head:
         raise ValueError(f"cosine_mha: unsupported N={N} dim_head={dim_head}")
     if not query_block_ok(Nq, N, q_offset):

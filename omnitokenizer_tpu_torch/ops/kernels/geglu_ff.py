@@ -78,6 +78,8 @@ def geglu_ff(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _build.refuse_grad("geglu_ff", x, ln_w, ln_b, w1p, w2p)
     M, D = x.shape
     ip = w2p.shape[1]
+    if M == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return torch.empty_like(x)
     if not geglu_ff_supported(D) or ip % INNER_TILE:
         raise ValueError(f"geglu_ff: unsupported shapes D={D} inner_padded={ip}")
     _build.check(x, "x", torch.bfloat16)

@@ -56,6 +56,8 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, wq: torch.Tensor,
     _build.refuse_grad("ln_qkv", x, gamma, wq, wkv)
     M, D = x.shape
     dq, dkv = wq.shape[0], wkv.shape[0]
+    if M == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return x.new_empty(0, dq), x.new_empty(0, dkv)
     if not ln_qkv_supported(D, dq, dkv):
         raise ValueError(f"ln_qkv: unsupported shapes D={D} Dq={dq} Dkv={dkv}")
     _build.check(x, "x", torch.bfloat16)

@@ -94,6 +94,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     _build.refuse_grad("mha", q, k, v)
     B, H, N, D = q.shape
     Nk = k.shape[2]
+    if B * H * N == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return q.new_empty(B, H, N, D)
     if not mha_supported(Nk, D, q.dtype) or not query_block_ok(N, Nk, causal):
         raise ValueError(f"mha: unsupported N={N} of Nk={Nk} dim_head={D} dtype={q.dtype} "
                          f"causal={causal}")

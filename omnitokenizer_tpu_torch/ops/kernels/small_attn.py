@@ -62,6 +62,8 @@ def small_n_attention(q: torch.Tensor, kv: torch.Tensor, q_scale: torch.Tensor,
                                        scale, causal)
     _build.refuse_grad("small_n_attention", q, kv, q_scale, k_scale)
     B, N, HD = q.shape
+    if B == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return torch.empty_like(q)
     if not small_n_supported(N, dim_head) or HD != heads * dim_head:
         raise ValueError(f"small_n_attention: unsupported n={N} dim_head={dim_head}")
     _build.check(q, "q", torch.bfloat16)

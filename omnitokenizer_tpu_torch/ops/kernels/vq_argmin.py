@@ -28,6 +28,8 @@ def vq_argmin(flat: torch.Tensor, embeddings: torch.Tensor) -> torch.Tensor:
         return vq_argmin_plain(flat, embeddings)
     M, D = flat.shape
     K = embeddings.shape[0]
+    if M == 0:  # no rows (a rank of sequence parallelism that holds none): no launch
+        return torch.empty(0, dtype=torch.int32, device=flat.device)
     _build.check(flat, "flat", torch.float32, (M, D))
     _build.check(embeddings, "embeddings", torch.float32, (K, D))
     # the code slices' (distance, index) minima, merged by the kernel; and

@@ -15,11 +15,12 @@ cuDNN runs a bf16 Conv3d with groups=dim as one implicit GEMM per group
 (4, 5, 32, 32, 512) (PERF.md).
 
 Under sequence parallelism (`sp=`, parallel/tp.py) video_shape is the
-rank's (B, T, H/n, W). A spatial stack's (b t)(h w) tokens reshape to it
-without scrambling, so the rank's rows take one halo row from each
-neighbour in place of the zero padding inside the frame. A temporal
-stack's (b h w) t tokens are, in the scrambled (B, T, H, W) volume, one
-contiguous chunk of T H W / n of each batch element's, and the stencil
+rank's (B, T, h, W), its h rows those of `sp`'s spans. A spatial stack's
+(b t)(h w) tokens reshape to it without scrambling, so the rank's rows
+take one halo row from each neighbour in place of the zero padding inside
+the frame. A temporal stack's (b h w) t tokens are, in the scrambled
+(B, T, H, W) volume, one contiguous chunk [lo W T, hi W T) of each batch
+element's (rows [lo, hi) of its span), and the stencil
 reaches 2 H W + W + 1 tokens back in flat order (H W + W + 1 without the
 causal pad), more than a chunk holds at small sizes: that PEG gathers its
 input over the group and computes the frames of the volume its chunk
@@ -59,7 +60,7 @@ class PEG(nn.Module):
         if sp is None:
             gp = F.pad(gd, (0, 0, 1, 1, 1, 1) + tpad)
         else:  # the neighbours' rows in place of the zero padding inside the frame
-            above, below = mesh.halo(gd, 2, 1, sp.group)
+            above, below = mesh.halo(gd, 2, 1, sp.group, [hi - lo for lo, hi in sp.spans])
             gp = F.pad(torch.cat([above, gd, below], dim=2), (0, 0, 1, 1, 0, 0) + tpad)
         return self._taps(gp, g, x.shape, (T, H, W), residual)
 
@@ -68,14 +69,18 @@ class PEG(nn.Module):
         batch element's flat (T, H, W) volume. The volume is gathered over
         the group; output frames f0 .. f1 - 1, those the chunk touches, are
         computed from their input frames and the zero padding where the
-        volume ends, and the chunk is cut from them."""
-        B, T, H, W = video_shape
-        H *= sp.size
+        volume ends, and the chunk is cut from them (none for an empty
+        chunk)."""
+        B, T, _, W = video_shape
+        spans = sp.spans
+        H = spans[-1][1]
         hw = H * W
         chunk = x.reshape(B, -1, self.dim)
-        n = chunk.shape[1]
-        whole = mesh.gather_summed(chunk, 1, sp.group).reshape(B, T, H, W, self.dim)
-        s, e = sp.rank * n, (sp.rank + 1) * n
+        whole = mesh.gather_summed(chunk, 1, sp.group, [(hi - lo) * W * T for lo, hi in spans])
+        whole = whole.reshape(B, T, H, W, self.dim)
+        s, e = (r * W * T for r in spans[sp.rank])
+        if s == e:  # an empty slice of the gathered volume: its backward still joins the group
+            return whole.reshape(B, -1, self.dim)[:, :0].reshape(x.shape)
         f0, f1 = s // hw, -(-e // hw)
         back, fwd = (2, 0) if self.causal else (1, 1)
         lo, hi = max(0, f0 - back), min(T, f1 + fwd)

@@ -6,14 +6,14 @@ residual, a pool or up block replaces the tokens, the feed-forward is
 residual after any of them, and a gamma-only LayerNorm closes the stack. A
 pool halves the video shape's grid for the PEGs after it, an up doubles it.
 
-Under sequence parallelism (`sp=`) video_shape is the rank's (B, T, h/n,
-w): the PEGs, the spatial attention and the windows take their collectives
-or their local rows from it (ops/peg.py, ops/attention.py, ops/window.py).
-A pool or up block regrids the rank's rows on their own (a 2 x 2 cell, 4
-consecutive tokens of 'l', a repeated row lie in one block of whole row
-pairs), and the rank's grid it leaves goes on to the blocks after it. A
-rank whose token rows are odd at a pool is refused: its cells would
-straddle two ranks.
+Under sequence parallelism (`sp=`) video_shape is the rank's (B, T, h,
+w), its h rows those of `sp`'s spans (parallel/tp.py's row partition):
+the PEGs, the spatial attention and the windows take their collectives or
+their local rows from them (ops/peg.py, ops/attention.py, ops/window.py).
+A pool or up block regrids the rank's rows on their own (the partition
+gives each rank whole row pairs at a pool, so a 2 x 2 cell, 4 consecutive
+tokens of 'l' and a repeated row lie on one rank), and the rank's grid and
+spans it leaves, halved or doubled, go on to the blocks after it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..parallel import tp
 from .attention import Attention, FeedForward, Pooling, Up
 from .norms import LayerNormGamma
 from .peg import PEG
@@ -74,12 +75,12 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, video_shape: Tuple[int, int, int, int],
                 is_spatial: bool = True, training: bool = False, sp=None) -> torch.Tensor:
-        """`sp`: the SeqParallel whose rank's rows x holds; video_shape is
-        then the rank's."""
+        """`sp`: the SeqParallel whose rank's rows x holds, its spans those
+        of the input grid; video_shape is then the rank's."""
         vs = tuple(video_shape)
         sp_kw = {}  # the one-process path's calls stay as they were
         if sp is not None:
-            self.check_sp(vs, sp)
+            sp = sp.at(sp.spans, vs[3])
             sp_kw = {"sp": sp}
         for i, blk in enumerate(self.block):
             attn = getattr(self, f"layers_{i}_attn")
@@ -94,15 +95,9 @@ class Transformer(nn.Module):
                 x = attn(x, grid=vs[2:] if sp is not None else None)
                 up = blk in ("n", "r")
                 vs = vs[:2] + tuple(s * 2 if up else s // 2 for s in vs[2:])
+                if sp is not None:
+                    sp = sp.at(tp.rescale(sp.spans, sp.spans[-1][1] * 2 if up
+                                          else sp.spans[-1][1] // 2), vs[3])
+                    sp_kw = {"sp": sp}
             x = getattr(self, f"layers_{i}_ff")(x, training=training) + x
         return self.norm_out(x)
-
-    def check_sp(self, video_shape, sp) -> None:
-        """Refuse what sequence parallelism does not take in this stack: a
-        rank's token rows that are odd at a pool block."""
-        rows = video_shape[2]
-        for blk in self.block:
-            if blk in "aml" and rows % 2:
-                sp.refuse(f"a rank's {rows} token rows at pool block {blk!r} of "
-                          f"{self.block!r}", "they are not whole 2 x 2 pool cells")
-            rows = grid_after(blk, rows, rows)[0]

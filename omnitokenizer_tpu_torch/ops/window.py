@@ -4,11 +4,12 @@
 Plain torch: the JAX package leaves it to XLA as batched matmuls, with the
 windows as the batch dimension.
 
-Under sequence parallelism (`sp=`, parallel/tp.py) a rank holds a block of
-the grid's rows. Where the blocks do not split into whole windows, a rank
-takes the rows of every window its block touches from the ranks that hold
-them (`mesh.rows_of`, one batch of sends and receives; a window may span
-several ranks once a block is shorter than a window), computes those
+Under sequence parallelism (`sp=`, parallel/tp.py) a rank holds a span of
+the grid's rows (`sp`'s spans: ranks may hold different counts, or none).
+Where the spans do not split into whole windows, a rank takes the rows of
+every window its span touches from the ranks that hold them
+(`mesh.rows_of`, one batch of sends and receives; a window may span
+several ranks once a span is shorter than a window), computes those
 windows and keeps its own rows; the backward returns the borrowed rows'
 gradient to their owners.
 """
@@ -41,10 +42,11 @@ def window_reverse(windows: torch.Tensor, ws: int, H: int, W: int) -> torch.Tens
     return x.reshape(B, H, W, C)
 
 
-def window_span(rank: int, rows: int, ws: int) -> tuple:
-    """The grid rows [lo, hi) of the windows of `ws` rows that rank's block
-    of `rows` rows touches."""
-    return rank * rows // ws * ws, -(-(rank + 1) * rows // ws) * ws
+def window_span(span: tuple, ws: int) -> tuple:
+    """The grid rows [lo, hi) of the windows of `ws` rows that a rank's
+    span of rows [lo, hi) touches (none for an empty span)."""
+    lo, hi = span
+    return (lo, lo) if lo == hi else (lo // ws * ws, -(-hi // ws) * ws)
 
 
 @functools.lru_cache(maxsize=16)
@@ -83,12 +85,13 @@ class WindowAttention(nn.Module):
         B, N, C = x.shape
         H, W = grid or (int(N ** 0.5),) * 2
         ws = self.window_size
-        if sp is None or not H % ws:
+        have = None if sp is None else sp.spans
+        if sp is None or not any(b % ws for span in have for b in span):
             return self._windows(x.reshape(B, H, W, C)).reshape(B, N, C)
-        spans = [window_span(r, H, ws) for r in range(sp.size)]
-        lo = spans[sp.rank][0]
-        g = self._windows(mesh.rows_of(x.reshape(B, H, W, C), 1, spans, sp.group))
-        return g[:, sp.rank * H - lo:sp.rank * H - lo + H].reshape(B, N, C)
+        spans = [window_span(span, ws) for span in have]
+        start = have[sp.rank][0] - spans[sp.rank][0]
+        g = self._windows(mesh.rows_of(x.reshape(B, H, W, C), 1, spans, sp.group, have))
+        return g[:, start:start + H].reshape(B, N, C)
 
     def _windows(self, x: torch.Tensor) -> torch.Tensor:
         """W-MSA over the whole windows of a (B, H, W, C) grid."""

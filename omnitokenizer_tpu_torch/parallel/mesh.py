@@ -31,7 +31,8 @@ The autograd-aware collectives (`mean_over`, `sum_over`, `copy_to`,
 `reduce_from`, `gather_from`, and sequence parallelism's `gather_summed`,
 `halo` and `rows_of`) make a cross-rank quantity differentiable: each rank's
 gradient is what the one-process program computes for that rank's inputs
-once the ranks' gradients are summed.
+once the ranks' gradients are summed. The gathers and the halo take each
+rank's row count, which may differ from rank to rank and be 0.
 """
 
 from __future__ import annotations
@@ -213,10 +214,19 @@ def all_reduce_(t: torch.Tensor, group: Any, op=dist.ReduceOp.SUM) -> torch.Tens
     return t
 
 
-def all_gather(t: torch.Tensor, group: Any) -> List[torch.Tensor]:
-    """Every rank's `t` (one shape on all ranks), in rank order."""
+def all_gather(t: torch.Tensor, group: Any, sizes: Optional[Sequence[int]] = None,
+               dim: int = 0) -> List[torch.Tensor]:
+    """Every rank's `t`, in rank order: one shape on all ranks, or with
+    `sizes` each rank's length along `dim` (the rest of the shape one).
+    Unequal blocks are padded to the longest, gathered, then trimmed, on
+    gloo and NCCL alike (NCCL's all_gather takes equal blocks)."""
     if group is None:
         return [t]
+    longest = None if sizes is None or len(set(sizes)) == 1 else max(sizes)
+    if longest is not None and t.shape[dim] < longest:
+        pad = list(t.shape)
+        pad[dim] = longest - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim=dim)
     src = t.contiguous()
     staged = _staged(src, group)
     if staged:
@@ -225,7 +235,16 @@ def all_gather(t: torch.Tensor, group: Any) -> List[torch.Tensor]:
     out = [torch.empty_like(wire) for _ in range(size_of(group))]
     dist.all_gather(out, wire, group=group)
     out = [o.view(t.dtype) for o in out]
-    return [o.to(t.device) for o in out] if staged else out
+    if staged:
+        out = [o.to(t.device) for o in out]
+    return out if longest is None else [o.narrow(dim, 0, n) for o, n in zip(out, sizes)]
+
+
+def counts_of(n: int, group: Any, device: Any = "cpu") -> List[int]:
+    """Every rank's count `n` (a row count), in rank order."""
+    if group is None:
+        return [n]
+    return [int(c) for c in all_gather(torch.tensor([n], device=device), group)]
 
 
 def broadcast_(t: torch.Tensor, src: int, group: Any) -> torch.Tensor:
@@ -300,19 +319,27 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+def _block(x: torch.Tensor, dim: int, group: Any, sizes: Optional[Sequence[int]]) -> tuple:
+    """(start, length) of this rank's block along `dim` of the gathered
+    whole: equal blocks of x's length, or those of `sizes`."""
+    r = rank_in(group)
+    if sizes is None:
+        return r * x.shape[dim], x.shape[dim]
+    return sum(sizes[:r]), sizes[r]
+
+
 class _GatherFrom(torch.autograd.Function):
     """Concatenate every rank's shard along `dim`; the gradient of the
     replicated result is the same on every rank, so each takes its slice."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
-        return torch.cat(all_gather(x, group), dim=dim)
+    def forward(ctx, x, dim, group, sizes):
+        ctx.dim, ctx.block = dim, _block(x, dim, group, sizes)
+        return torch.cat(all_gather(x, group, sizes, dim), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        r = rank_in(ctx.group)
-        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+        return g.narrow(ctx.dim, *ctx.block).contiguous(), None, None, None
 
 
 class _GatherSummed(torch.autograd.Function):
@@ -323,40 +350,48 @@ class _GatherSummed(torch.autograd.Function):
     whole gradient: gloo has no reduce-scatter) and keeps this rank's block."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
-        return torch.cat(all_gather(x, group), dim=dim)
+    def forward(ctx, x, dim, group, sizes):
+        ctx.dim, ctx.group, ctx.block = dim, group, _block(x, dim, group, sizes)
+        return torch.cat(all_gather(x, group, sizes, dim), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = all_reduce_(g.contiguous().clone(), ctx.group)
-        return g.narrow(ctx.dim, rank_in(ctx.group) * ctx.n, ctx.n).contiguous(), None, None
+        return g.narrow(ctx.dim, *ctx.block).contiguous(), None, None, None
 
 
 class _Halo(torch.autograd.Function):
     """(before, after): the previous rank's last k rows of x along `dim` and
-    the next rank's first k rows, zeros at the group's two ends. The
+    the next rank's first k rows, zeros at the frame's two ends: past the
+    group's ends, and past the last rank that holds rows (`sizes`: each
+    rank's rows, 0 or at least k; an empty rank's halos are zeros). The
     backward adds each halo's gradient onto the rows it was read from."""
 
     @staticmethod
-    def forward(ctx, x, dim, k, group):
-        ctx.dim, ctx.k, ctx.group, ctx.shape = dim, k, group, x.shape
+    def forward(ctx, x, dim, k, group, sizes):
         n, r = size_of(group), rank_in(group)
-        every = all_gather(torch.stack([x.narrow(dim, 0, k),
-                                        x.narrow(dim, x.shape[dim] - k, k)]), group)
+        held = [True] * n if sizes is None else [s > 0 for s in sizes]
+        ctx.dim, ctx.k, ctx.group, ctx.shape, ctx.held = dim, k, group, x.shape, held
+        if held[r]:
+            ends = torch.stack([x.narrow(dim, 0, k), x.narrow(dim, x.shape[dim] - k, k)])
+        else:
+            ends = x.new_zeros((2,) + x.shape[:dim] + (k,) + x.shape[dim + 1:])
+        every = all_gather(ends, group)
         zero = torch.zeros_like(every[0][0])
-        return (every[r - 1][1] if r > 0 else zero), (every[r + 1][0] if r < n - 1 else zero)
+        before = every[r - 1][1] if held[r] and r > 0 else zero
+        after = every[r + 1][0] if held[r] and r < n - 1 and held[r + 1] else zero
+        return before, after
 
     @staticmethod
     def backward(ctx, g_before, g_after):
-        n, r, dim, k = size_of(ctx.group), rank_in(ctx.group), ctx.dim, ctx.k
+        n, r, dim, k, held = size_of(ctx.group), rank_in(ctx.group), ctx.dim, ctx.k, ctx.held
         every = all_gather(torch.stack([g_before, g_after]), ctx.group)
         gx = g_before.new_zeros(ctx.shape)
-        if r > 0:  # this rank's first rows were the previous rank's `after`
+        if held[r] and r > 0:  # this rank's first rows were the previous rank's `after`
             gx.narrow(dim, 0, k).add_(every[r - 1][1])
-        if r < n - 1:  # and its last rows the next rank's `before`
+        if held[r] and r < n - 1 and held[r + 1]:  # its last rows the next rank's `before`
             gx.narrow(dim, ctx.shape[dim] - k, k).add_(every[r + 1][0])
-        return gx, None, None, None
+        return gx, None, None, None, None
 
 
 def _p2p(sends: list, recvs: list, like: torch.Tensor, group: Any) -> List[torch.Tensor]:
@@ -377,91 +412,102 @@ def _p2p(sends: list, recvs: list, like: torch.Tensor, group: Any) -> List[torch
     return [b.to(like.device) for b in bufs]
 
 
-def _overlap(lo: int, hi: int, rank: int, n: int) -> tuple:
-    """Rows [lo, hi) of the whole, cut to those of `rank`'s block of n."""
-    return max(lo, rank * n), min(hi, (rank + 1) * n)
+def _overlap(want: tuple, have: tuple) -> tuple:
+    """Rows [lo, hi) of the whole that span `want` and span `have` share
+    (lo >= hi: none)."""
+    return max(want[0], have[0]), min(want[1], have[1])
 
 
 class _Rows(torch.autograd.Function):
-    """Rows spans[r] = (lo, hi) along `dim` of the group's blocks put end to
-    end (rank r holds rows r n .. r n + n - 1, n = x.shape[dim]), on every
-    rank r at once: each rank sends its rows to the ranks whose span
-    reaches them and receives those of its span from their owners. The
-    backward sends each borrowed row's gradient back to its owner, which
-    adds it to its own."""
+    """Rows want[r] = (lo, hi) along `dim` of the whole that the group's
+    blocks make end to end, rank r holding rows have[r], on every rank r at
+    once: each rank sends its rows to the ranks whose span reaches them and
+    receives those of its span from their owners. The backward sends each
+    borrowed row's gradient back to its owner, which adds it to its own."""
 
     @staticmethod
-    def forward(ctx, x, dim, spans, group):
-        me, n = rank_in(group), x.shape[dim]
-        ctx.dim, ctx.spans, ctx.group, ctx.shape = dim, spans, group, x.shape
-        lo, hi = spans[me]
+    def forward(ctx, x, dim, want, have, group):
+        me = rank_in(group)
+        ctx.dim, ctx.want, ctx.have, ctx.group, ctx.shape = dim, want, have, group, x.shape
+        base = have[me][0]
         sends, recvs = [], []
-        for s, (a, b) in enumerate(spans):
+        for s in range(len(want)):
             if s == me:
                 continue
-            a, b = _overlap(a, b, me, n)  # what rank s reads of my rows
+            a, b = _overlap(want[s], have[me])  # what rank s reads of my rows
             if a < b:
-                sends.append((x.narrow(dim, a - me * n, b - a), s))
-            a, b = _overlap(lo, hi, s, n)  # what I read of rank s's rows
+                sends.append((x.narrow(dim, a - base, b - a), s))
+            a, b = _overlap(want[me], have[s])  # what I read of rank s's rows
             if a < b:
                 recvs.append(([b - a if d == dim else k for d, k in enumerate(x.shape)], s))
         got = dict(zip([s for _, s in recvs], _p2p(sends, recvs, x, group)))
-        a, b = _overlap(lo, hi, me, n)
-        got[me] = x.narrow(dim, a - me * n, b - a)
+        a, b = _overlap(want[me], have[me])
+        got[me] = x.narrow(dim, a - base, b - a) if a < b else x.narrow(dim, 0, 0)
         return torch.cat([got[s] for s in sorted(got)], dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        dim, spans, group = ctx.dim, ctx.spans, ctx.group
-        me, n = rank_in(group), ctx.shape[dim]
-        lo, hi = spans[me]
+        dim, want, have, group = ctx.dim, ctx.want, ctx.have, ctx.group
+        me = rank_in(group)
+        lo, base = want[me][0], have[me][0]
         sends, recvs = [], []
-        for s, (a, b) in enumerate(spans):
+        for s in range(len(want)):
             if s == me:
                 continue
-            c, d = _overlap(lo, hi, s, n)  # the gradient of rank s's rows that I read
+            c, d = _overlap(want[me], have[s])  # the gradient of rank s's rows that I read
             if c < d:
                 sends.append((g.narrow(dim, c - lo, d - c), s))
-            a, b = _overlap(a, b, me, n)  # that of my rows that rank s read
+            a, b = _overlap(want[s], have[me])  # that of my rows that rank s read
             if a < b:
                 recvs.append(([b - a if i == dim else k for i, k in enumerate(g.shape)], s, a))
         got = _p2p(sends, [(shape, s) for shape, s, _ in recvs], g, group)
         gx = g.new_zeros(ctx.shape)
-        a, b = _overlap(lo, hi, me, n)
-        gx.narrow(dim, a - me * n, b - a).add_(g.narrow(dim, a - lo, b - a))
+        a, b = _overlap(want[me], have[me])
+        if a < b:
+            gx.narrow(dim, a - base, b - a).add_(g.narrow(dim, a - lo, b - a))
         for (_, _, start), piece in zip(recvs, got):
-            gx.narrow(dim, start - me * n, piece.shape[dim]).add_(piece)
-        return gx, None, None, None
+            gx.narrow(dim, start - base, piece.shape[dim]).add_(piece)
+        return gx, None, None, None, None
 
 
-def gather_summed(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
-    """Every rank's block of x along `dim`, in rank order; the backward sums
-    the gradient over the group and keeps this rank's block (see
-    _GatherSummed). x itself without a group. A
-    profiler trace shows the call as the range "sp.gather"."""
+def _sizes(sizes: Optional[Sequence[int]]) -> Optional[tuple]:
+    return None if sizes is None else tuple(int(s) for s in sizes)
+
+
+def gather_summed(x: torch.Tensor, dim: int, group: Any,
+                  sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Every rank's block of x along `dim`, in rank order (`sizes`: each
+    rank's length, if they differ); the backward sums the gradient over the
+    group and keeps this rank's block (see _GatherSummed). x itself
+    without a group. A profiler trace shows the call as the range
+    "sp.gather"."""
     if group is None:
         return x
     with record_function("sp.gather"):
-        return _GatherSummed.apply(x, dim, group)
+        return _GatherSummed.apply(x, dim, group, _sizes(sizes))
 
 
-def rows_of(x: torch.Tensor, dim: int, spans: Sequence[tuple], group: Any) -> torch.Tensor:
+def rows_of(x: torch.Tensor, dim: int, spans: Sequence[tuple], group: Any,
+            have: Sequence[tuple]) -> torch.Tensor:
     """Rows spans[rank] = (lo, hi) along `dim` of the whole that the group's
-    equal blocks of x make end to end, a span for every rank of the group
-    (each rank passes the same list): its own rows and its neighbours', one
-    batch of sends and receives; differentiable (see _Rows). A profiler
-    trace shows the call as the range "sp.rows"."""
+    blocks of x make end to end, rank r holding rows have[r], a span of each
+    for every rank of the group (each rank passes the same lists): its own
+    rows and the others', one batch of sends and receives; differentiable
+    (see _Rows). A profiler trace shows the call as the range "sp.rows"."""
     with record_function("sp.rows"):
-        return _Rows.apply(x, dim, tuple(map(tuple, spans)), group)
+        return _Rows.apply(x, dim, tuple(map(tuple, spans)), tuple(map(tuple, have)), group)
 
 
-def halo(x: torch.Tensor, dim: int, k: int, group: Any) -> tuple:
+def halo(x: torch.Tensor, dim: int, k: int, group: Any,
+         sizes: Optional[Sequence[int]] = None) -> tuple:
     """The k rows along `dim` before this rank's block (the previous rank's
     last ones) and after it (the next rank's first ones), zeros beyond the
-    group's ends; differentiable. Every rank holds at least k rows. A
-    profiler trace shows the call as the range "sp.halo"."""
+    frame's ends; differentiable. `sizes`: each rank's rows, 0 (a rank that
+    holds none, after the last that holds some) or at least k; every rank
+    holds at least k by default. A profiler trace shows the call as the
+    range "sp.halo"."""
     with record_function("sp.halo"):
-        return _Halo.apply(x, dim, k, group)
+        return _Halo.apply(x, dim, k, group, _sizes(sizes))
 
 
 def sum_over(x: torch.Tensor, group: Any) -> torch.Tensor:
@@ -483,8 +529,11 @@ def reduce_from(x: torch.Tensor, group: Any) -> torch.Tensor:
     return x if group is None else _ReduceFrom.apply(x, group)
 
 
-def gather_from(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
-    return x if group is None else _GatherFrom.apply(x, dim, group)
+def gather_from(x: torch.Tensor, dim: int, group: Any,
+                sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Every rank's block of x along `dim` (`sizes`: each rank's length, if
+    they differ); each rank's gradient is its block's."""
+    return x if group is None else _GatherFrom.apply(x, dim, group, _sizes(sizes))
 
 
 # -- placement --------------------------------------------------------------------------------

@@ -632,7 +632,7 @@ with tempfile.TemporaryDirectory() as root:
              "--sequence_length", "1", "--batch_size", "2", "--num_workers", "0",
              "--embedding_dim", "32", "--n_codes", "32", "--enc_block", "t", "--dec_block", "t",
              "--spatial_depth", "1", "--temporal_depth", "1", "--heads", "2",
-             "--dim_head", "16", "--disc_layers", "1", "--disc_channels", "8",
+             "--dim_head", "16", "--disc_layers", "1", "--disc_channels", "32",
              "--ckpt_backend", "msgpack", "--wandb_project", "omnitokenizer", "--device", "cpu"]
     vqgan_train.main(flags + ["--max_steps", "1"])
     state = vqgan_train.main(flags + ["--max_steps", "2"])

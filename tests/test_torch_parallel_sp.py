@@ -19,8 +19,9 @@ atol 2e-5 (JAX_PIX). Cases: the JAX test's config
 2 H W + W + 1 = 37-token reach against a rank's 16-token chunk), the dry
 run's 'tw' / 'tt' with windows of 4 on an 8 x 8 grid (a rank's temporal
 chunk 1.5 frames), 'rel' positions, the VAE, and the JAX test's config
-without the causal pads. Each refusal raises with its reason (the
-configurations SP took on since are in tests/test_torch_parallel_sp_variants.py)."""
+without the causal pads. Each refusal raises with its reason, and what SP
+refused before its row partition runs (the configurations SP took on since are
+in tests/test_torch_parallel_sp_variants.py)."""
 
 import contextlib
 
@@ -39,6 +40,7 @@ from omnitokenizer_tpu_torch.convert import params_from_jax, state_dict_to_jax
 from omnitokenizer_tpu_torch.models.tokenizer import OmniTokenizerNet, init_weights
 from omnitokenizer_tpu_torch.ops.kernels import cosine_mha as cm
 from omnitokenizer_tpu_torch.ops.kernels import mha as mh
+from omnitokenizer_tpu_torch.parallel import tp
 
 from torch_port_util import check_result, start_world
 
@@ -154,14 +156,24 @@ def test_sp_matches_jax_and_one_process(world, case):
 
 
 @pytest.mark.parametrize("what,reason", [
-    ("rows", "pixel rows"), ("odd_rows", "pixel rows do not divide"),
-    ("pool_rows", "not whole 2 x 2 pool cells"), ("bf16_training", "bf16 training-route"),
+    ("odd_rows", "pixel rows do not divide"), ("bf16_training", "bf16 training-route"),
     ("trainer", "GAN trainer")])
 def test_sp_refusals(world, what, reason):
     for r in range(2):
         msg = check_result(world["results"], "sp_refusals", r)[what]
         assert msg is not None, f"{what}: nothing raised"
         assert "sequence parallelism" in msg and reason in msg, msg
+
+
+@pytest.mark.parametrize("what", ["rows", "pool_rows"])
+def test_sp_runs_what_it_refused(world, what):
+    """A rank's pixel rows that are part of a patch, and odd token rows at a
+    pool, refused before the row partition (parallel/tp.py): every rank's
+    run equals one process's, loss and gradient too."""
+    one = check_result(world["results"], "sp_ragged", 0)[what]["one"]
+    for r in range(2):
+        _hold(check_result(world["results"], "sp_ragged", r)[what]["sp"], one,
+              f"{what}: SP rank {r} vs one process")
 
 
 # -- the plain versions' query blocks --------------------------------------------------------
@@ -223,3 +235,83 @@ def test_mha_plain_query_block(dtype):
             np.testing.assert_allclose(got.numpy(), pallas[:, :, rows], rtol=1e-5, atol=1e-5)
         else:
             assert _rel(got.float().numpy(), pallas[:, :, rows]) <= BF16_REL_TOL
+
+
+# -- the row partition (parallel/tp.py), plain Python -----------------------------------------
+@pytest.mark.parametrize("rows,n", [(5, 2), (5, 4), (2, 4), (1, 2), (33, 2), (40, 16), (32, 8)])
+def test_even_spans(rows, n):
+    """End to end from row 0 to the last, the first rows % n ranks one row
+    longer, the empty ranks last; equal blocks where n divides the rows."""
+    equal = tuple((r * (rows // n), (r + 1) * (rows // n)) for r in range(n))
+    spans = tp.even_spans(rows, n)
+    sizes = [hi - lo for lo, hi in spans]
+    assert len(spans) == n and spans[0][0] == 0 and spans[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert sizes == [rows // n + (r < rows % n) for r in range(n)]
+    if rows % n == 0:
+        assert spans == equal
+
+
+def _cfg(**kw):
+    return TokenizerConfig(**{**TEST_TP, **kw})
+
+
+# config, pixel rows, ranks -> (pixel spans, the encoder's spans at each grid, the
+# reconstruction's spans)
+PARTITIONS = {
+    # 5 token rows: 3 / 2, 10 pixel rows a rank are 2.5 patches
+    "20_2": (_cfg(), 20, 2, ((0, 12), (12, 20)), [((0, 3), (3, 5))] * 2, ((0, 12), (12, 20))),
+    "20_4": (_cfg(), 20, 4, ((0, 8), (8, 12), (12, 16), (16, 20)),
+             [((0, 2), (2, 3), (3, 4), (4, 5))] * 2, ((0, 8), (8, 12), (12, 16), (16, 20))),
+    # the pool's coarse grid (5 rows) split, the finer one twice it: whole 2 x 2 cells
+    "ta_40": (_cfg(enc_block="ta", spatial_depth=2), 40, 2, ((0, 24), (24, 40)),
+              [((0, 6), (6, 10))] * 2 + [((0, 3), (3, 5))], ((0, 12), (12, 20))),
+    # the deferred pool drops the odd 9th token row: the rank of the row before it holds it
+    "defer_odd_36": (_cfg(patch_size=8, defer_spatial_pool=True), 36, 2, ((0, 16), (16, 36)),
+                     [((0, 4), (4, 9))] * 2 + [((0, 2), (2, 4))], ((0, 16), (16, 32))),
+    # ranks without rows come last
+    "empty_8_4": (_cfg(), 8, 4, ((0, 4), (4, 8), (8, 8), (8, 8)),
+                  [((0, 1), (1, 2), (2, 2), (2, 2))] * 2, ((0, 4), (4, 8), (8, 8), (8, 8))),
+}
+
+
+@pytest.mark.parametrize("case", list(PARTITIONS))
+def test_row_partition(case):
+    cfg, rows, n, pixels, encoder, recon = PARTITIONS[case]
+    part = tp.row_partition(cfg, rows, n)
+    assert part.pixels == pixels and list(part.encoder) == encoder and part.recon == recon
+    assert part.latent == tp.even_spans(encoder[-1][-1][1], n) == part.decoder[0]
+    for grids in (part.encoder, part.decoder):  # each grid's spans: 2x the next coarser one's
+        for a, b in zip(grids, grids[1:]):
+            fine, coarse = (a, b) if a[-1][1] >= b[-1][1] else (b, a)
+            if fine != coarse:
+                assert [lo for lo, _ in fine] == [2 * lo for lo, _ in coarse]
+
+
+@pytest.mark.parametrize("res,ranks", [(256, 2), (256, 4), (256, 8), (128, 16)])
+def test_row_partition_is_equal_blocks_where_they_divide(res, ranks):
+    """The flagship's stacks where n divides the rows into whole patches:
+    equal blocks at every grid, so nothing moves."""
+    cfg = TokenizerConfig(resolution=res)
+    part = tp.row_partition(cfg, res, ranks)
+    for spans in (part.pixels, part.recon) + part.encoder + part.decoder:
+        rows = spans[-1][1] // ranks
+        assert spans == tuple((r * rows, (r + 1) * rows) for r in range(ranks))
+
+
+def test_row_partition_of_the_card_cases():
+    """chip_smoke.py phase 18c's two partitions: the flagship's widths with
+    spatial 'tttt' at 264^2 over 2 ranks (33 token rows: 17 / 16), and the
+    flagship at 320^2 over 16 (40 token rows: 3 x 8, 2 x 8; 24 or 16 pixel
+    rows a rank against the equal blocks' 20)."""
+    part = tp.row_partition(TokenizerConfig(resolution=264, enc_block="tttt"), 264, 2)
+    assert part.encoder[0] == ((0, 17), (17, 33)) and part.pixels == ((0, 136), (136, 264))
+    part = tp.row_partition(TokenizerConfig(resolution=320), 320, 16)
+    assert [hi - lo for lo, hi in part.encoder[0]] == [3] * 8 + [2] * 8
+    assert [hi - lo for lo, hi in part.pixels] == [24] * 8 + [16] * 8
+
+
+def test_rescale_refuses_spans_that_cut_a_pool_cell():
+    assert tp.rescale(((0, 4), (4, 6)), 3) == ((0, 2), (2, 3))
+    with pytest.raises(ValueError, match="cut a 2 x 2 pool cell"):
+        tp.rescale(((0, 3), (3, 6)), 3)

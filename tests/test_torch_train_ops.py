@@ -170,6 +170,22 @@ def test_discriminator_forward_matches(kind, norm, ndf, train):
         assert_rel(got.detach().numpy(), want, 1e-5)
 
 
+@pytest.mark.parametrize("kind,ndf", [("2d", 8), ("3d", 32)])
+def test_discriminator_group_norm_refuses_widths_32_does_not_divide(kind, ndf):
+    """flax's GroupNorm(32) raises on channels that 32 does not divide, and
+    so does the port's: the 2D stack's 16 channels after its first conv at
+    ndf 8, the 3D stack's last norm over its one logit channel."""
+    x = np.random.RandomState(2).randn(*((2, 32, 32, 3) if kind == "2d" else
+                                         (1, 5, 32, 32, 3))).astype(np.float32)
+    cls = "NLayerDiscriminator" if kind == "2d" else "NLayerDiscriminator3D"
+    kw = dict(ndf=ndf, n_layers=2, norm_type="group")
+    msg = r"Number of groups \(32\) does not divide the number of channels \((16|1)\)"
+    with pytest.raises(ValueError, match=msg):
+        getattr(jdisc, cls)(**kw).init(jax.random.PRNGKey(3), jnp.asarray(x), train=False)
+    with pytest.raises(ValueError, match=msg):
+        getattr(tdisc, cls)(**kw)(torch_f32(x), train=False)
+
+
 @pytest.mark.parametrize("kind", ["2d", "3d"])
 def test_batchnorm_running_stats_after_two_calls(kind):
     jm, tm, tree, x = _disc_pair(kind, "batch", 16)

@@ -578,17 +578,34 @@ def check_sp_refusals(workdir):
         return None
 
     return {
-        "rows": message(lambda: _sp_net(spec)(tp.sp_shard_pixels(x[:, :, :12], sp.group),
-                                              False, sp=sp)),
         "odd_rows": message(lambda: tp.sp_shard_pixels(x[:, :, :15], sp.group)),
-        # 24 pixel rows: 3 token rows a rank at the 2 x 2 average pool
-        "pool_rows": message(lambda: _sp_net(spec, enc_block="ta", spatial_depth=2)(
-            torch.zeros(x.shape[0], x.shape[1], 12, 24, 3), False, sp=sp)),
         "bf16_training": message(lambda: _sp_net(spec, dtype=torch.bfloat16)(
             rows, False, training=True, sp=sp)),
         "trainer": message(lambda: TokenizerTrainer(
             _sp_net(spec).cfg, LossConfig(), TrainConfig(), device="cpu", sp=sp)),
     }
+
+
+def check_sp_ragged(workdir):
+    """What SP refused before its row partition, now run over the world and
+    in rank 0's one process: 12 x 12 frames (a rank's 6 pixel rows are 1.5
+    patches of 4), and 24 x 24 frames through a 2 x 2 average pool (3 token
+    rows a rank at the pool)."""
+    from omnitokenizer_tpu_torch.models.tokenizer import init_weights
+    from omnitokenizer_tpu_torch.parallel import tp
+
+    sp = tp.seq_parallel(dist.group.WORLD)
+    spec = _inputs(workdir, "sp.pt")["t"]
+    pool = _sp_net(spec, enc_block="ta", spatial_depth=2)
+    init_weights(pool, torch.Generator().manual_seed(0))
+    x24 = torch.from_numpy((np.random.RandomState(2).randn(2, 3, 24, 24, 3) * 0.2)
+                           .astype(np.float32))
+    out = {}
+    for name, net, x in (("rows", _sp_net(spec), torch.from_numpy(spec["x"])[:, :, :12, :12]),
+                         ("pool_rows", pool, x24)):
+        out[name] = {"sp": _spv_run(net, x, sp, {}),
+                     "one": _spv_run(net, x, None, {}) if mesh.rank() == 0 else None}
+    return out
 
 
 # -- sp variants ------------------------------------------------------------------------------
@@ -618,24 +635,28 @@ def _spied_calls():
     return calls
 
 
-def _spv_run(net, x, sp, calls, grads=True, flat=False):
+def _spv_run(net, x, sp, calls, grads=True, flat=False, noise=False):
     """One case's forward under `sp` (None: one process) on this rank's
     pixel rows: the JAX-side loss (L1 against the pixels, or the mean
-    |recon| where a pool leaves a smaller grid, + commitment), its
+    |recon| where a pool leaves a smaller grid, + commitment; the mean over
+    every rank's elements, which ranks may hold unequal counts of), its
     gradient (the ranks' averaged), the reconstruction and indices
     gathered, the kernel wrappers' calls on this rank; with `flat`, the
-    decodes of this rank's indices, grid and flat, gathered."""
+    decodes of this rank's indices, grid and flat, gathered; with `noise`,
+    a VAE's posterior sampled from a seeded generator."""
     from omnitokenizer_tpu_torch.parallel import tp
 
     group = None if sp is None else sp.group
     xin = x if sp is None else tp.sp_shard_pixels(x, group)
     for k in calls:
         calls[k] = 0
+    gen = torch.Generator().manual_seed(5) if noise else None
     with torch.enable_grad() if grads else torch.no_grad():
-        recon, aux = net(xin, False, sp=sp)
+        recon, aux = net(xin, False, sp=sp, generator=gen)
         counted = dict(calls)
         diff = recon - xin if recon.shape == xin.shape else recon
-        loss = mesh.mean_over(diff.float().abs().mean(), group) + aux["commitment_loss"]
+        total = sum(mesh.counts_of(diff.numel(), group))
+        loss = mesh.sum_over(diff.float().abs().sum(), group) / total + aux["commitment_loss"]
         out = {"loss": loss, "calls": counted}
         if grads:
             names, params = zip(*net.named_parameters())
@@ -645,7 +666,8 @@ def _spv_run(net, x, sp, calls, grads=True, flat=False):
             out["grads"] = dict(zip(names, g))
     gather = (lambda t: t) if sp is None else (lambda t: tp.sp_gather(t, group, 2))
     out["recon"] = gather(recon.detach())
-    out["encodings"] = gather(aux["encodings"])
+    if "encodings" in aux:
+        out["encodings"] = gather(aux["encodings"])
     if flat:
         enc = aux["encodings"]
         with torch.no_grad():
@@ -675,7 +697,7 @@ def _spv_cases(workdir, ranks):
         else:
             net.load_state_dict(spec["state_dict"])
         x = torch.from_numpy(spec["x"])
-        kw = dict(grads=not bf16, flat=spec.get("flat", False))
+        kw = dict(grads=not bf16, flat=spec.get("flat", False), noise=spec.get("noise", False))
         out[name] = {"sp": _spv_run(net, x, sp, calls, **kw),
                      "one": _spv_run(net, x, None, calls, **kw) if mesh.rank() == 0 else None}
     return out
@@ -687,6 +709,10 @@ def check_spv_cases(workdir):
 
 def check_spv_cases4(workdir):
     return _spv_cases(workdir, 4)
+
+
+def check_spv_cases8(workdir):
+    return _spv_cases(workdir, 8)
 
 SUITES = {
     "dp": [("placement", check_placement),
@@ -706,9 +732,11 @@ SUITES = {
            ("cli_train", check_cli_train),
            ("cli_eval", check_cli_eval)],
     "sp": [("sp_cases", check_sp_cases),
-           ("sp_refusals", check_sp_refusals)],
+           ("sp_refusals", check_sp_refusals),
+           ("sp_ragged", check_sp_ragged)],
     "sp_variants": [("spv_cases", check_spv_cases)],
     "sp_variants4": [("spv_cases", check_spv_cases4)],
+    "sp_variants8": [("spv_cases", check_spv_cases8)],
     "pp": [("pp_loss", check_pp_loss),
            ("pp_step", check_pp_step),
            ("cli_train", check_cli_train)],
